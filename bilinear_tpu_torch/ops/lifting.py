@@ -1,0 +1,178 @@
+"""Lifting forward (kernel K1): the whole ``BilinearUnit`` eval forward, BN
+folded into each Linear, dropout as the identity (counterpart of
+``bilinear_tpu/ops/pallas/lifting.py``).
+
+``lifting_forward`` takes the JAX package's ``{params, batch_stats}`` tree
+(numpy or tensors). On a CUDA tensor it launches ``csrc/lifting.cu``; on a
+CPU tensor it runs ``lifting_forward_ref``, the plain PyTorch version of
+the same arithmetic. There is no fallback from one to the other.
+
+Numerics (the TPU kernel's): matmuls accumulate in f32; each
+``dense_relu`` output and each residual sum is rounded to the working type;
+the decode output is f32. Rows are independent, so nothing is padded.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Any, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from bilinear_tpu_torch.device import resolve_device
+from bilinear_tpu_torch.ops import _build
+
+HIDDEN = 1024
+IN_F = 32
+OUT_F = 48
+LAYER_NAMES = ["encode", "bilinear_0_0", "bilinear_0_1", "bilinear_1_0",
+               "bilinear_1_1"]
+
+# Forwards that went through the CUDA kernel chain (one per call of the C
+# entry, which launches the six layer kernels).
+LAUNCHES = 0
+
+Prepared = List[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _f32(a, device) -> torch.Tensor:
+    if not isinstance(a, torch.Tensor):  # copy: the leaf may be read-only
+        a = torch.from_numpy(np.array(a, dtype=np.float32))
+    return a.to(device=device, dtype=torch.float32)
+
+
+def fold_bn(kernel, bias, bn: Mapping[str, Any], eps: float = 1e-5):
+    """Fold torch-semantics eval BN into the preceding Linear:
+    ``BN(xW + b) == x (W s) + (b s + t)``, ``s = scale / sqrt(var + eps)``,
+    ``t = bias - mean s``. ``kernel`` is (in, out)."""
+    s = bn["scale"] / torch.sqrt(bn["var"] + eps)
+    t = bn["bias"] - bn["mean"] * s
+    return kernel * s[None, :], bias * s + t
+
+
+def folded_layer(params, batch_stats, name: str, device):
+    """The BN-folded (kernel (in, out), bias) of one HeavyLinear, f32."""
+    p, st = params[name], batch_stats[name]["bn"]
+    bn = {
+        "scale": _f32(p["bn"]["scale"], device),
+        "bias": _f32(p["bn"]["bias"], device),
+        "mean": _f32(st["mean"], device),
+        "var": _f32(st["var"], device),
+    }
+    return fold_bn(_f32(p["linear"]["kernel"], device),
+                   _f32(p["linear"]["bias"], device), bn)
+
+
+def prepare_weights(params, batch_stats, dtype=torch.bfloat16,
+                    device=None) -> Prepared:
+    """Fold BN and cast, once per checkpoint: six (kernel (in, out) in
+    ``dtype``, bias f32) pairs on ``device`` (default: the card)."""
+    device = resolve_device(device)
+    weights = []
+    for name in LAYER_NAMES:
+        k, b = folded_layer(params, batch_stats, name, device)
+        weights.append((k.to(dtype).contiguous(), b.contiguous()))
+    weights.append((
+        _f32(params["decode"]["kernel"], device).to(dtype).contiguous(),
+        _f32(params["decode"]["bias"], device).contiguous(),
+    ))
+    return weights
+
+
+def lifting_forward_ref(weights: Prepared, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: (n, 32) -> (n, 48) f32. Products
+    of working-type values are exact in f32, so an f32 matmul of the
+    upcast operands is the f32-accumulated product."""
+    dtype = weights[0][0].dtype
+
+    def dense(h, w, b):
+        return h.float() @ w.float() + b
+
+    def dense_relu(h, w, b):
+        return torch.relu(dense(h, w, b)).to(dtype)
+
+    h = dense_relu(x.to(dtype), *weights[0])
+    for blk in range(2):
+        skip = h
+        h = dense_relu(h, *weights[1 + 2 * blk])
+        h = dense_relu(h, *weights[2 + 2 * blk])
+        h = (h.float() + skip.float()).to(dtype)
+    return dense(h, *weights[5])
+
+
+def rows_for_kernel(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous rows at a 16-byte aligned address (the kernels load 16
+    bytes at a time); a view at an unaligned offset is copied."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 17 + [ctypes.c_int,
+                                                       ctypes.c_void_p]
+
+
+def _lib():
+    lib = _build.library("lifting")
+    fn = lib.lifting_forward
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_weights(weights: Prepared, x: torch.Tensor) -> None:
+    dims = [(IN_F, HIDDEN)] + [(HIDDEN, HIDDEN)] * 4 + [(HIDDEN, OUT_F)]
+    for (w, b), (k, n) in zip(weights, dims):
+        if w.shape != (k, n) or b.shape != (n,):
+            raise ValueError(f"weight {tuple(w.shape)} / bias "
+                             f"{tuple(b.shape)}, expected ({k}, {n})")
+        if w.dtype != x.dtype or b.dtype != torch.float32:
+            raise ValueError("weights must be in the working type, biases f32")
+        if w.device != x.device or b.device != x.device:
+            raise ValueError("weights and rows must be on the same device")
+        if not (w.is_contiguous() and b.is_contiguous()) or w.data_ptr() % 16:
+            raise ValueError("weights must be contiguous and 16-byte aligned")
+
+
+def lifting_forward_cuda(weights: Prepared, x: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel chain on the current stream. ``x``: (n, 32) CUDA
+    tensor in the weights' type (bf16 or f32)."""
+    global LAUNCHES
+    if x.device.type != "cuda":
+        raise ValueError("lifting_forward_cuda needs a CUDA tensor")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"unsupported dtype {x.dtype}")
+    if x.dim() != 2 or x.shape[1] != IN_F:
+        raise ValueError(f"x must be (n, {IN_F}), got {tuple(x.shape)}")
+    x = rows_for_kernel(x)
+    _check_weights(weights, x)
+    n = x.shape[0]
+    out = torch.empty((n, OUT_F), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return out
+    scratch = torch.empty((3, n, HIDDEN), dtype=x.dtype, device=x.device)
+    ptrs = [x.data_ptr()]
+    for w, b in weights:
+        ptrs += [w.data_ptr(), b.data_ptr()]
+    fn = _lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = fn(int(x.dtype == torch.bfloat16), *ptrs, out.data_ptr(),
+                scratch[0].data_ptr(), scratch[1].data_ptr(),
+                scratch[2].data_ptr(), n, stream)
+    _build.check(rc, "lifting_forward")
+    LAUNCHES += 1
+    return out
+
+
+def lifting_forward(params, batch_stats, x: torch.Tensor,
+                    dtype=torch.bfloat16,
+                    prepared: Optional[Prepared] = None) -> torch.Tensor:
+    """Eval-mode forward, (n, 32) -> (n, 48) f32, on ``x``'s device. Pass
+    ``prepared=prepare_weights(...)`` to fold BN once per checkpoint."""
+    weights = prepared if prepared is not None else prepare_weights(
+        params, batch_stats, dtype, device=x.device
+    )
+    x = x.to(weights[0][0].dtype)
+    if x.device.type == "cpu":
+        return lifting_forward_ref(weights, x)
+    return lifting_forward_cuda(weights, x)

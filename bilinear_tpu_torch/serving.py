@@ -1,0 +1,196 @@
+"""Serving: batched 2D->3D lifting around the lifting kernels (counterpart of
+``LiftingServer`` in ``bilinear_tpu/serving.py``).
+
+  image-space (N, 16, 2) -> z-score with the TRAIN-split part stats
+  -> kernel K1 (bf16 or f32) or K2 (int8 / int8-static), BN folded once
+  -> un-normalize with the TRAIN-split S stats -> (N, 16, 3) mm,
+     root-centered (pelvis at the origin).
+
+Weights are folded (and quantized, and calibrated) once per checkpoint.
+``from_run_dir`` serves the newest ``{run_dir}/parameter/{epoch}.save``,
+written by the JAX trainer or by the port, and ``reload`` swaps in a newer
+one. The server runs on the card unless ``device="cpu"`` is passed.
+"""
+from __future__ import annotations
+
+import os
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from bilinear_tpu_torch.data.h36m import H36MSplit
+from bilinear_tpu_torch.device import resolve_device
+from bilinear_tpu_torch.io.checkpoint import latest_epoch, load_checkpoint
+from bilinear_tpu_torch.ops.lifting import lifting_forward, prepare_weights
+from bilinear_tpu_torch.ops.lifting_int8 import (
+    calibrate_scales,
+    lifting_forward_int8,
+    prepare_weights_int8,
+)
+
+QUANTIZE_MODES = (None, "int8", "int8-static")
+
+
+class _LiftingEngine(NamedTuple):
+    """Immutable snapshot of everything one forward needs. ``_set_weights``
+    builds a complete new engine and publishes it with ONE reference
+    assignment, and ``_forward`` reads ``self._engine`` exactly once, so a
+    hot reload on another thread can never pair new weights with a previous
+    checkpoint's calibration scales."""
+
+    prepared: object
+    static_scales: Optional[tuple]
+
+
+class LiftingServer:
+    def __init__(
+        self,
+        params,
+        batch_stats,
+        mean_part: np.ndarray,
+        std_part: np.ndarray,
+        mean_s: np.ndarray,
+        std_s: np.ndarray,
+        dtype=torch.bfloat16,
+        quantize: Optional[str] = None,
+        calib_sample: Optional[np.ndarray] = None,
+        device=None,
+        mesh=None,
+    ):
+        """``params``/``batch_stats``: the JAX package's parameter tree
+        (numpy leaves, as a ``.save`` checkpoint holds them).
+
+        ``quantize="int8"`` runs the hidden layers as int8 products with a
+        dynamic scale per 512-row group; ``"int8-static"`` uses four scales
+        calibrated on ``calib_sample`` (z-scored training inputs; a
+        standard-normal sample from a seeded generator when None). Inputs
+        beyond the calibrated range saturate at +-127. Scales are
+        re-calibrated on hot reload. Default (None) is the ``dtype`` kernel.
+
+        ``device``: None is the card, and raises when there is none.
+        ``mesh``: multi-device serving is not ported yet."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh-sharded lifting is not ported yet; see ROADMAP.md"
+            )
+        if quantize not in QUANTIZE_MODES:
+            raise ValueError(f"unsupported quantize mode {quantize!r}")
+        if dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"unsupported dtype {dtype!r}")
+        self.device = resolve_device(device)
+        self._quantize = quantize
+        self._dtype = dtype
+        self._calib_sample = None if calib_sample is None else np.asarray(
+            calib_sample, np.float32
+        ).reshape(-1, 32)[:4096]
+        self._set_weights(params, batch_stats)
+        self.parameter_dir: Optional[str] = None  # set by from_run_dir
+        self.epoch = 0
+
+        def stat(a):
+            return torch.as_tensor(np.asarray(a, np.float32),
+                                   device=self.device)
+
+        self._mean_part = stat(mean_part)
+        self._std_part = stat(std_part)
+        self._mean_s = stat(mean_s)
+        self._std_s = stat(std_s)
+
+    def _set_weights(self, params, batch_stats) -> None:
+        """(Re)fold the checkpoint into the kernel's prepared form and
+        publish the complete new engine in one assignment."""
+        static_scales = None
+        if self._quantize in ("int8", "int8-static"):
+            prepared = prepare_weights_int8(params, batch_stats, self.device)
+            if self._quantize == "int8-static":
+                if self._calib_sample is not None:
+                    calib = self._calib_sample
+                else:
+                    gen = torch.Generator().manual_seed(0)
+                    calib = torch.randn((4096, 32), generator=gen)
+                static_scales = calibrate_scales(prepared, calib)
+        else:
+            prepared = prepare_weights(params, batch_stats, self._dtype,
+                                       self.device)
+        self._engine = _LiftingEngine(prepared, static_scales)
+
+    @classmethod
+    def from_run_dir(cls, run_dir: str, split: H36MSplit, **kw):
+        """Serve the newest ``{run_dir}/parameter/{epoch}.save`` with
+        normalization stats from the train split ``split``. Raises
+        FileNotFoundError when the dir holds no checkpoint: a serving
+        process never serves random weights. Returns (server, epoch)."""
+        parameter_dir = os.path.join(run_dir, "parameter")
+        epoch = latest_epoch(parameter_dir)
+        if epoch == 0:
+            raise FileNotFoundError(
+                f"no checkpoint under {parameter_dir!r} — refusing to serve "
+                "uninitialized weights"
+            )
+        state = load_checkpoint(parameter_dir, epoch)["state"]
+        kw.setdefault("calib_sample", split.part)  # z-scored train inputs
+        server = cls(
+            state["params"], state["batch_stats"],
+            split.mean_part, split.std_part, split.mean_s, split.std_s, **kw,
+        )
+        server.parameter_dir = parameter_dir
+        server.epoch = epoch
+        return server, epoch
+
+    def reload(self) -> bool:
+        """Swap in the newest checkpoint if one landed since construction.
+        Returns True when the weights changed."""
+        if self.parameter_dir is None:
+            return False
+        newest = latest_epoch(self.parameter_dir)
+        if newest <= self.epoch:
+            return False
+        try:
+            payload = load_checkpoint(self.parameter_dir, newest)
+        except FileNotFoundError:
+            # Scan/load race with a trainer pruning old checkpoints; the
+            # next poll sees the newer one.
+            return False
+        state = payload["state"]
+        self._set_weights(state["params"], state["batch_stats"])
+        self.epoch = newest
+        return True
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        eng = self._engine  # ONE read: a consistent snapshot
+        if self._quantize in ("int8", "int8-static"):
+            return lifting_forward_int8(
+                x=x, prepared=eng.prepared, static_scales=eng.static_scales,
+            )
+        return lifting_forward(None, None, x, dtype=self._dtype,
+                               prepared=eng.prepared)
+
+    def _rows(self, a, width: int) -> torch.Tensor:
+        t = torch.as_tensor(np.asarray(a, np.float32)) \
+            if not isinstance(a, torch.Tensor) else a.float()
+        return t.to(self.device).reshape(-1, width)
+
+    def lift(self, keypoints_2d) -> torch.Tensor:
+        """(N, 16, 2) image-space keypoints (H36M 16-joint order, nose
+        dropped) -> (N, 16, 3) root-centered 3D mm, f32 on the server's
+        device."""
+        kp = self._rows(keypoints_2d, 32)
+        x = (kp - self._mean_part) / self._std_part
+        mm = self._forward(x) * self._std_s + self._mean_s
+        return mm.reshape(-1, 16, 3)
+
+    def lift_normalized(self, x_norm) -> torch.Tensor:
+        """(N, 32) pre-normalized inputs -> (N, 48) normalized outputs."""
+        return self._forward(self._rows(x_norm, 32))
+
+    def warm(self, row_counts) -> list:
+        """Run the forward once for each row count, so the kernels are
+        built and loaded before the first request. Returns the counts."""
+        warmed = []
+        for n in sorted(set(int(n) for n in row_counts)):
+            self._forward(torch.zeros((n, 32), device=self.device))
+            warmed.append(n)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return warmed

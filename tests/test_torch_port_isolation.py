@@ -1,0 +1,67 @@
+"""The port stands alone: every module of bilinear_tpu_torch, and
+chip_smoke.py, imports with jax, flax, optax and bilinear_tpu refused."""
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+
+import bilinear_tpu_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SCRIPT = r"""
+import importlib
+import importlib.abc
+import sys
+
+REFUSED = ("jax", "flax", "optax", "bilinear_tpu")
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in REFUSED:
+            raise ImportError(f"refused import of {name}")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+assert not leaked, leaked
+print("imported", len(sys.argv) - 1)
+"""
+
+
+def _port_modules():
+    names = [bilinear_tpu_torch.__name__]
+    for info in pkgutil.walk_packages(bilinear_tpu_torch.__path__,
+                                      prefix="bilinear_tpu_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_port_modules_are_listed():
+    names = _port_modules()
+    for expected in ("bilinear_tpu_torch.serving",
+                     "bilinear_tpu_torch.serving_http",
+                     "bilinear_tpu_torch.ops.lifting",
+                     "bilinear_tpu_torch.ops.lifting_int8",
+                     "bilinear_tpu_torch.cli.serve"):
+        assert expected in names
+
+
+@pytest.mark.parametrize("extra", [[], ["chip_smoke"]],
+                         ids=["package", "chip_smoke"])
+def test_imports_without_jax_or_reference_package(extra):
+    names = _port_modules() + extra
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCRIPT, *names], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert f"imported {len(names)}" in proc.stdout
