@@ -1,6 +1,8 @@
-"""Synthetic, schema-exact H36M annotation bins for tests and the chip smoke
-run (the port's own copy of ``make_h36m_bin`` and ``write_h36m_dataset``
-from ``bilinear_tpu/data/synthetic.py``; same seeds give the same arrays).
+"""Synthetic, schema-exact H36M annotation bins and MPII trees for tests and
+the chip smoke run (the port's own copy of ``make_h36m_bin``,
+``write_h36m_dataset``, ``make_mpii_mat`` and ``write_mpii_dataset`` from
+``bilinear_tpu/data/synthetic.py``; same seeds give the same arrays, the
+same ``.mat`` bytes and the same images).
 
 - 'image': ``{subject}_{action}.{camera}_{frame}.jpg`` names
 - 'S':      (N, 17, 3) float camera-space mm
@@ -84,3 +86,274 @@ def write_h36m_dataset(
         with open(os.path.join(data_dir, f"{task}_{protocol}.bin"), "wb") as f:
             pickle.dump(data, f)
     return data_dir
+
+
+# Body-structured 16-joint template in MPII id order (R ankle..L wrist),
+# units of 100*scale px relative to objpos (x right, y down). Used by the
+# `learnable` synthetic mode: a consistent figure layout makes every joint
+# identifiable from image structure, like a real person.
+MPII_TEMPLATE = np.asarray(
+    [
+        (-0.24, 0.90), (-0.22, 0.50), (-0.22, 0.10),   # R ankle/knee/hip
+        (0.22, 0.10), (0.22, 0.50), (0.24, 0.90),      # L hip/knee/ankle
+        (0.00, 0.22), (0.00, -0.45), (0.00, -0.72),    # pelvis/thorax/neck
+        (0.00, -0.98),                                  # head top
+        (-0.44, 0.08), (-0.38, -0.22), (-0.27, -0.52),  # R wrist/elbow/shldr
+        (0.27, -0.52), (0.38, -0.22), (0.44, 0.08),     # L shldr/elbow/wrist
+    ],
+    np.float32,
+)  # every pairwise distance >= ~0.22 so markers never cover a neighbor's
+#    center (marker outer radius is ~0.10-0.13 of the figure scale)
+
+
+def _joint_colors():
+    """16 maximally-spread hues at full saturation (uint8 RGB)."""
+    import colorsys
+
+    return np.asarray(
+        [
+            [int(c * 255) for c in colorsys.hsv_to_rgb(j / 16.0, 1.0, 1.0)]
+            for j in range(16)
+        ],
+        np.uint8,
+    )
+
+
+def make_mpii_mat(
+    n_train_images: int = 8,
+    n_test_images: int = 2,
+    img_size=(240, 320),
+    seed: int = 0,
+    learnable: bool = False,
+    jitter: float = 3.0,
+    scale_range=None,  # (lo, hi) raw person scale; defaults per mode. Big
+    # values (>2.05) exercise the reference's crop_ratio>=2 early-downscale
+    # path (H36M/util.py:38-52) — used by benchmarks/crop_ratio_probe.py.
+):
+    """Build a RELEASE-shaped dict that scipy.io round-trips into the same
+    attribute structure the official mpii_human_pose_v1_u12_1.mat loads as
+    (MPII/data.py:23-25): annolist[i].image.name / .annorect[r].{scale,
+    objpos.{x,y}, x1..y2, annopoints.point[k].{x,y,id}}, img_train,
+    single_person.
+
+    ``learnable=True`` places every rect's keypoints on the body-structured
+    MPII_TEMPLATE (per-joint jitter, all 16 joints annotated, one rect
+    per image) so that images rendered from these annotations carry a
+    visually learnable pose signal; default keypoints are positionally
+    random, which is schema-exact but unlearnable by construction.
+
+    ``jitter`` (units of ``scale`` px, i.e. relative to the 200*scale person
+    box) is the per-joint pose variance around the template, clipped at
+    2*jitter like the reference's augment rand (MPII/util.py:10-11). At the
+    default 3.0 the template prior alone localizes every joint well inside
+    the PCKh@0.5 threshold (15*scale px with this generator's head rect), so
+    a detector can saturate PCKh without reading the image; raising it to
+    ~20 makes the prior worth only ~25% PCKh and forces marker reading."""
+    rng = np.random.RandomState(seed)
+    h, w = img_size
+    annolist = []
+    img_train = []
+    single_person = []
+    n = n_train_images + n_test_images
+    for i in range(n):
+        rects = []
+        n_rects = 1 if learnable else 1 + int(rng.rand() < 0.5)
+        for _ in range(n_rects):
+            if learnable:
+                lo, hi = scale_range or (0.6, 0.9)
+                scale = float(rng.uniform(lo, hi))
+                cx = float(rng.uniform(w * 0.35, w * 0.65))
+                cy = float(rng.uniform(h * 0.4, h * 0.6))
+            else:
+                lo, hi = scale_range or (0.5, 1.2)
+                scale = float(rng.uniform(lo, hi))
+                cx = float(rng.uniform(w * 0.3, w * 0.7))
+                cy = float(rng.uniform(h * 0.3, h * 0.7))
+            if learnable:
+                noise = np.clip(rng.randn(16, 2), -2.0, 2.0).astype(np.float32)
+                kp = (
+                    np.asarray([cx, cy], np.float32)
+                    + MPII_TEMPLATE * 100.0 * scale
+                    + noise * jitter * scale
+                )
+                ids = np.arange(16)
+                points = [
+                    {
+                        "x": float(np.clip(kp[j, 0], 0, w - 1)),
+                        "y": float(np.clip(kp[j, 1], 0, h - 1)),
+                        "id": int(j),
+                    }
+                    for j in ids
+                ]
+            else:
+                n_pts = int(rng.randint(12, 17))
+                ids = rng.permutation(16)[:n_pts]
+                points = [
+                    {
+                        "x": float(np.clip(cx + rng.randn() * 40 * scale, 0, w - 1)),
+                        "y": float(np.clip(cy + rng.randn() * 60 * scale, 0, h - 1)),
+                        "id": int(j),
+                    }
+                    for j in ids
+                ]
+            rects.append(
+                {
+                    "scale": scale,
+                    "objpos": {"x": cx, "y": cy},
+                    "x1": cx - 15 * scale,
+                    "y1": cy - 80 * scale,
+                    "x2": cx + 15 * scale,
+                    "y2": cy - 40 * scale,
+                    "annopoints": {"point": np.asarray(points, dtype=object)},
+                }
+            )
+        annolist.append(
+            {
+                "image": {"name": f"{i:09d}.jpg"},
+                "annorect": np.asarray(rects, dtype=object),
+            }
+        )
+        is_train = i < n_train_images
+        img_train.append(1 if is_train else 0)
+        single_person.append(np.asarray([1], dtype=np.int64))
+    return {
+        "RELEASE": {
+            "annolist": np.asarray(annolist, dtype=object),
+            "img_train": np.asarray(img_train, dtype=np.int64),
+            "single_person": np.asarray(single_person, dtype=object),
+        }
+    }
+
+
+def _stamp_marker(img, x, y, j, ring, colors) -> None:
+    """One concentric-ring "bullseye" marker (in place)."""
+    h, w, _ = img.shape
+    dark = np.asarray([25, 25, 25], np.uint8)
+    white = np.asarray([255, 255, 255], np.uint8)
+    bits = [(j >> b) & 1 for b in (3, 2, 1, 0)]  # outer -> inner
+    radii = [ring * k for k in (5, 4, 3, 2, 1)]
+    fills = [colors[j] if b else dark for b in bits] + [white]
+    x0, x1 = int(max(0, x - radii[0] - 1)), int(min(w, x + radii[0] + 2))
+    y0, y1 = int(max(0, y - radii[0] - 1)), int(min(h, y + radii[0] + 2))
+    if x0 >= x1 or y0 >= y1:
+        return
+    yy, xx = np.mgrid[y0:y1, x0:x1]
+    d2 = (xx - x) ** 2 + (yy - y) ** 2
+    patch = img[y0:y1, x0:x1]
+    for r, fill in zip(radii, fills):
+        patch[d2 <= r * r] = fill
+
+
+def _render_markers(img: np.ndarray, rects, colors: np.ndarray,
+                    rng=None, occlusion_prob: float = 0.0,
+                    n_distractors: int = 0) -> None:
+    """Stamp a concentric-ring "bullseye" marker at every annotated joint of
+    every rect (in place). Joint identity is encoded in the LUMINANCE
+    pattern: 4 rings (outer to inner) carry the 4 bits of the joint id —
+    bright where the bit is 1, dark where 0 — with an always-bright center
+    dot. The train-time ColorJitter(.3,.3,.3,.3) applies global affine maps
+    to brightness/contrast/saturation and rotates hue, but bright-vs-dark
+    ring CONTRAST survives all of them (hue alone does not — measured: a
+    hue-coded variant plateaued at ~18% PCKh under jitter vs ~42%+ without).
+    Bright rings use the joint's hue so color remains a secondary cue. Ring
+    width scales with the person scale, so on-crop marker size is stable
+    after the 200*scale->256 crop.
+
+    Difficulty knobs (both keep the .mat annotations untouched, so occluded
+    joints still count in the PCKh denominator — exactly how invisible real
+    joints behave):
+
+    - ``occlusion_prob``: each joint's marker is skipped with this
+      probability. No detector can localize a skipped joint beyond the pose
+      prior, which caps attainable PCKh at
+      (1-p)*100 + p*prior — a DESIGNED-IN ceiling below saturation.
+    - ``n_distractors``: decoy markers with random joint ids stamped at
+      random in-figure positions, each >= 45*scale px from the true joint of
+      the same id (3x the PCKh threshold, so locking onto a decoy is a
+      definite miss and body-layout context is required to disambiguate).
+    """
+    h, w, _ = img.shape
+    for rect in rects:
+        scale = float(rect["scale"])
+        ring = max(1.3, 2.0 * scale)
+        pts = rect["annopoints"]["point"]
+        true_xy = {int(p["id"]): (float(p["x"]), float(p["y"])) for p in pts}
+        cx = float(rect["objpos"]["x"])
+        cy = float(rect["objpos"]["y"])
+        for pt in pts:
+            if rng is not None and occlusion_prob > 0.0 \
+                    and rng.rand() < occlusion_prob:
+                continue
+            _stamp_marker(img, float(pt["x"]), float(pt["y"]),
+                          int(pt["id"]), ring, colors)
+        for _ in range(n_distractors if rng is not None else 0):
+            j = int(rng.randint(16))
+            for _attempt in range(20):
+                dx = cx + rng.uniform(-60, 60) * scale
+                dy = cy + rng.uniform(-110, 110) * scale
+                tx, ty = true_xy.get(j, (1e9, 1e9))
+                if (dx - tx) ** 2 + (dy - ty) ** 2 >= (45.0 * scale) ** 2:
+                    _stamp_marker(img, dx, dy, j, ring, colors)
+                    break
+
+
+def write_mpii_dataset(
+    root: str,
+    n_train_images: int = 8,
+    n_test_images: int = 2,
+    img_size=(240, 320),
+    seed: int = 0,
+    learnable: bool = False,
+    jitter: float = 3.0,
+    occlusion_prob: float = 0.0,
+    n_distractors: int = 0,
+    scale_range=None,
+) -> str:
+    """Write a synthetic MPII tree: images/ + the .mat at the official
+    relative path. With ``learnable=True`` the keypoints follow the
+    body-structured template AND are rendered into the images as distinct
+    markers, so a detector trained on this tree can actually localize them
+    (PCKh above chance); the default is schema-exact noise (contract tests
+    only — keypoints are not visually encoded).
+
+    The difficulty knobs (``jitter`` — pose variance around the template;
+    ``occlusion_prob`` — markers skipped at render time; ``n_distractors`` —
+    decoy markers needing layout context to reject; see make_mpii_mat and
+    _render_markers) exist because the default learnable task SATURATES: the
+    production 8-stack detector hits PCKh 100.0 by its first validation,
+    leaving the metric no discriminative power. With jitter=20,
+    occlusion_prob=0.25, n_distractors=4 the designed-in ceiling is
+    0.75*100 + 0.25*~25 ~= 81 PCKh, and the prior-only floor is ~25, so a
+    production budget run shows an actual learning curve."""
+    import scipy.io
+    from PIL import Image
+
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    os.makedirs(os.path.join(root, "mpii_human_pose_v1_u12_2"), exist_ok=True)
+    mat = make_mpii_mat(n_train_images, n_test_images, img_size, seed,
+                        learnable=learnable, jitter=jitter,
+                        scale_range=scale_range)
+    scipy.io.savemat(
+        os.path.join(root, "mpii_human_pose_v1_u12_2", "mpii_human_pose_v1_u12_1.mat"),
+        mat,
+        long_field_names=True,
+    )
+    rng = np.random.RandomState(seed + 100)
+    h, w = img_size
+    n = n_train_images + n_test_images
+    colors = _joint_colors()
+    annolist = mat["RELEASE"]["annolist"]
+    for i in range(n):
+        small = (rng.rand(h // 8, w // 8, 3) * 255).astype(np.uint8)
+        if learnable:
+            # Dim the background so the markers dominate local contrast.
+            small = (small * 0.35 + 20).astype(np.uint8)
+        img = Image.fromarray(small).resize((w, h), Image.BILINEAR)
+        if learnable:
+            arr = np.asarray(img).copy()
+            _render_markers(arr, list(annolist[i]["annorect"]), colors,
+                            rng=rng, occlusion_prob=occlusion_prob,
+                            n_distractors=n_distractors)
+            img = Image.fromarray(arr)
+        img.save(os.path.join(root, "images", f"{i:09d}.jpg"), quality=92)
+    return root

@@ -4,9 +4,13 @@
 Layout: ``{run_dir}/parameter/{epoch}.save``, a pickle of
 ``{'epoch', 'step', 'state': {'params', 'batch_stats'}, 'optimizer'}`` whose
 ``params``/``batch_stats`` are the JAX package's parameter tree as plain
-numpy dicts. The port reads checkpoints that the JAX trainer wrote and
-writes ones in the same layout, without importing JAX. ``{epoch}.orbax``
-directories are recognised by the scan but not readable here.
+numpy dicts and ``optimizer`` the JAX optimizer state as the same
+(``flax.serialization.to_state_dict`` of it). The port reads checkpoints
+that the JAX trainer wrote and writes ones in the same layout, without
+importing JAX; models convert through ``utils/weights.py``. Resume reads
+the newest epoch; ``-1`` is the "finalized" sentinel and never wins.
+``{epoch}.orbax`` directories are recognised by the scan but not readable
+here.
 
 The payload is a pickle: load only checkpoints this project wrote.
 """
@@ -14,9 +18,10 @@ from __future__ import annotations
 
 import os
 import pickle
+import shutil
 from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
-from bilinear_tpu_torch.utils.weights import bilinear_to_jax
+FINALIZED_EPOCH = -1
 
 
 def _epoch_files(parameter_dir: Optional[str]) -> Iterator[Tuple[int, str]]:
@@ -59,19 +64,19 @@ def load_checkpoint(parameter_dir: str, epoch: int) -> Dict[str, Any]:
 
 
 def save_checkpoint(parameter_dir: str, epoch: int,
-                    state_dict: Mapping[str, Any], step: int = 1) -> str:
-    """Write ``{epoch}.save`` from a port ``BilinearUnit`` state_dict, in the
-    JAX package's payload layout (params/batch_stats via ``bilinear_to_jax``).
-
-    Until the training slice the port has no optimizer, so ``optimizer`` is
-    written as ``{}``. The write is atomic (per-process tmp file + rename)."""
+                    params: Mapping[str, Any], batch_stats: Mapping[str, Any],
+                    optimizer: Optional[Mapping[str, Any]] = None,
+                    step: int = 1) -> str:
+    """Write ``{epoch}.save`` from JAX-layout numpy trees: ``params``,
+    ``batch_stats`` and the optimizer state (``{}`` when there is none, as
+    for a served model). The write is atomic (per-process tmp file +
+    rename)."""
     os.makedirs(parameter_dir, exist_ok=True)
-    params, batch_stats = bilinear_to_jax(state_dict)
     payload = {
         "epoch": epoch,
         "step": int(step),
         "state": {"params": params, "batch_stats": batch_stats},
-        "optimizer": {},
+        "optimizer": {} if optimizer is None else optimizer,
     }
     path = os.path.join(parameter_dir, f"{epoch}.save")
     tmp = f"{path}.tmp.{os.getpid()}"
@@ -83,3 +88,41 @@ def save_checkpoint(parameter_dir: str, epoch: int,
         if os.path.exists(tmp):
             os.remove(tmp)
     return path
+
+
+def resume_or_init(state, parameter_dir: Optional[str]):
+    """The reference's load() contract: restore ``state`` in place from the
+    newest epoch's payload (``state.restore(payload)``) when a checkpoint
+    exists. Returns (state, start_epoch), start_epoch 0 for a fresh run."""
+    epoch = latest_epoch(parameter_dir)
+    if epoch > 0:
+        state.restore(load_checkpoint(parameter_dir, epoch))
+    return state, max(epoch, 0)
+
+
+def prune_checkpoints(parameter_dir: str, keep_last: int,
+                      keep_every: int = 0) -> list:
+    """Delete old epoch checkpoints, keeping the newest ``keep_last``, every
+    ``keep_every``-th epoch, the ``-1`` sentinel and anything that is not an
+    epoch checkpoint; the newest epoch always stays. ``keep_last <= 0`` and
+    ``keep_every <= 0`` keep everything. Returns the removed paths."""
+    if keep_last <= 0 and keep_every <= 0:
+        return []
+    epochs: Dict[int, list] = {}
+    for e, path in _epoch_files(parameter_dir):
+        if e != FINALIZED_EPOCH:
+            epochs.setdefault(e, []).append(path)
+    keep = set(sorted(epochs)[-max(keep_last, 1):])
+    if keep_every > 0:
+        keep |= {e for e in epochs if e % keep_every == 0}
+    removed = []
+    for e, paths in epochs.items():
+        if e in keep:
+            continue
+        for p in paths:
+            if os.path.isdir(p):
+                shutil.rmtree(p)
+            else:
+                os.remove(p)
+            removed.append(p)
+    return removed

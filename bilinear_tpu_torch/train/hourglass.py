@@ -1,0 +1,263 @@
+"""The detector's trainer (counterpart of ``bilinear_tpu/train/hourglass.py``):
+
+    canvas batch -> augment draws -> crop + rotate -> flip -> colour jitter
+    -> Gaussian heatmaps -> MainModel forward -> sum over stacks of the
+    per-stack mean MSE -> clip(1.0) -> RMSprop(2.5e-4)
+
+Everything after the host pipeline runs on the model's device. With
+``fused_blocks=True`` the 107 ResModules of the full-width model run
+through kernels K3 (forward) and K4 (backward) on the card.
+
+Augmentation (the reference's MPII/data.py:83-138): scale *= 2^rand(0.25);
+rotation rand(30) w.p. 0.4; flip w.p. 0.4 with the L/R joint swap, the
+keypoints mirrored about the centre and the rotation negated;
+ColorJitter(.3, .3, .3, .3); joints out of the heatmap are masked out of
+the target. Each step's draws come from a CPU ``torch.Generator`` seeded
+from (seed, epoch, step), so a step's augmentation does not depend on the
+device.
+"""
+from __future__ import annotations
+
+import hashlib
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from bilinear_tpu_torch.core.optim import HourglassOptimizer, \
+    hourglass_optimizer
+from bilinear_tpu_torch.device import resolve_device
+from bilinear_tpu_torch.models.hourglass_torch7 import MainModel
+from bilinear_tpu_torch.ops import augment as aug
+from bilinear_tpu_torch.ops.affine import crop_batch, hflip
+from bilinear_tpu_torch.ops.heatmap import keypoints_to_heatmap_space, \
+    render_heatmaps
+from bilinear_tpu_torch.ops.joints import MPII_FLIP_SWAP
+from bilinear_tpu_torch.utils import weights as wt
+
+
+def make_model(variant: str = "torch7", dtype=torch.float32, n_stacks=None,
+               features=None, depth=None, fused=False, n_modules=None,
+               generator: Optional[torch.Generator] = None) -> MainModel:
+    """The torch7 MainModel; size overrides of None keep the reference's
+    8 stacks, 256 features, depth 4. The 'preact' variant is not ported."""
+    if variant != "torch7":
+        raise NotImplementedError(
+            f"hourglass variant {variant!r} is not ported yet; see "
+            "ROADMAP.md")
+    kw = {k: v for k, v in dict(n_stacks=n_stacks, features=features,
+                                depth=depth, n_modules=n_modules).items()
+          if v is not None}
+    return MainModel(dtype=dtype, fused=fused, generator=generator, **kw)
+
+
+class Augment(NamedTuple):
+    geometry: aug.AugmentParams
+    jitter: aug.JitterParams
+
+
+def sample_augment(gen: torch.Generator, batch: int) -> Augment:
+    """One step's augmentation draws (CPU tensors)."""
+    return Augment(aug.sample_geometry(gen, batch),
+                   aug.sample_color_jitter(gen, batch))
+
+
+def preprocess_batch(images, centers, scales, keypoints, valid,
+                     augment: Optional[Augment], res: int = 256,
+                     heatmap_size: int = 64):
+    """Crop, augment and render targets on the device of ``images``.
+    Returns (crops (B, res, res, 3), target heatmaps (B, J, hm, hm),
+    keypoints). ``augment=None`` is the eval path."""
+    dev = images.device
+    b = images.shape[0]
+    if augment is not None:
+        g = augment.geometry
+        scales = scales * g.scale_factor.to(dev)
+        rotate = g.rotate_deg.to(dev)
+        flip = g.flip.to(dev)
+    else:
+        rotate = torch.zeros(b, device=dev)
+        flip = torch.zeros(b, dtype=torch.bool, device=dev)
+
+    crops = crop_batch(images, centers, scales, rotate, res=res)
+    if augment is not None:
+        crops = torch.where(flip[:, None, None, None], hflip(crops), crops)
+        mirrored = aug.flip_keypoints_x(keypoints, centers[:, 0:1],
+                                        MPII_FLIP_SWAP)
+        keypoints = torch.where(flip[:, None, None], mirrored, keypoints)
+        swap = torch.as_tensor(MPII_FLIP_SWAP, dtype=torch.long, device=dev)
+        valid = torch.where(flip[:, None], valid[:, swap], valid)
+        rotate = torch.where(flip, -rotate, rotate)
+        j = augment.jitter
+        crops = aug.apply_color_jitter(crops, j._replace(
+            brightness=j.brightness.to(dev), contrast=j.contrast.to(dev),
+            saturation=j.saturation.to(dev), hue=j.hue.to(dev)))
+    hm_xy = keypoints_to_heatmap_space(torch.nan_to_num(keypoints), centers,
+                                       scales, rotate, size=heatmap_size)
+    return crops, render_heatmaps(hm_xy, valid, size=heatmap_size), keypoints
+
+
+def heatmap_loss(out: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Sum over stacks of the per-stack mean MSE; out (S, B, H, W, J),
+    targets (B, J, H, W)."""
+    tgt = targets.permute(0, 2, 3, 1)
+    return (out - tgt[None]).square().mean(dim=(1, 2, 3, 4)).sum()
+
+
+def step_generator(seed: int, epoch: int, step: int) -> torch.Generator:
+    digest = hashlib.sha256(f"{seed}:{epoch}:{step}".encode()).digest()
+    return torch.Generator().manual_seed(
+        int.from_bytes(digest[:8], "little") & ((1 << 63) - 1))
+
+
+@dataclass
+class TrainState:
+    """The model (parameters + BN statistics), the optimizer and the step
+    counter (the reference counts from 1)."""
+
+    model: MainModel
+    optimizer: HourglassOptimizer
+    step: int = 1
+
+    def trees(self):
+        """(params, batch_stats, optimizer state) in the JAX package's
+        checkpoint layout: ``(EmptyState, TorchRMSpropState(count,
+        square_avg))`` as ``{'0': {}, '1': {'count', 'square_avg'}}``."""
+        sd = self.model.state_dict()
+        params, stats = wt.hourglass_torch7_to_jax(sd)
+        named = dict(self.model.named_parameters())
+        square = {}
+        for key, path, kind in wt.torch7_param_paths(
+                wt.torch7_config_of_state_dict(sd)):
+            p = named[key]
+            v = self.optimizer.square_avg(p)
+            v = torch.zeros_like(p) if v is None else v
+            wt.put_leaf(square, path, wt.conv_to_jax(v) if kind == "conv_w"
+                    else v.detach().cpu().numpy().copy())
+        opt = {"0": {}, "1": {
+            "count": np.asarray(self.optimizer.count, np.int32),
+            "square_avg": square}}
+        return params, stats, opt
+
+    def restore(self, payload) -> None:
+        """Load a ``{epoch}.save`` payload (either package's) in place."""
+        params = payload["state"]["params"]
+        stats = payload["state"]["batch_stats"]
+        self.model.load_state_dict(wt.hourglass_torch7_from_jax(params,
+                                                                stats))
+        rms = payload["optimizer"]["1"]
+        count = int(np.asarray(rms["count"]))
+        named = dict(self.model.named_parameters())
+        for key, path, kind in wt.torch7_param_paths(
+                wt.torch7_config_of_jax(params)):
+            leaf = wt.get_leaf(rms["square_avg"], path)
+            v = wt.conv_from_jax(leaf) if kind == "conv_w" else \
+                torch.from_numpy(np.array(leaf, np.float32))
+            self.optimizer.set_square_avg(named[key], v, count)
+        self.optimizer.count = count
+        self.step = int(payload["step"])
+
+
+class HourglassTrainer:
+    def __init__(self, variant: str = "torch7",
+                 learning_rate: float = 2.5e-4, mesh=None,
+                 dtype=torch.float32, remat: bool = False, n_stacks=None,
+                 features=None, depth=None, fused_blocks: bool = False,
+                 n_modules=None, device=None):
+        if mesh is not None:
+            raise NotImplementedError("data parallelism (mesh=) is not "
+                                      "ported yet; see ROADMAP.md")
+        if remat:
+            raise NotImplementedError("remat is not ported yet; see "
+                                      "ROADMAP.md")
+        self.variant = variant
+        self.learning_rate = learning_rate
+        self.dtype = dtype
+        self.model_kw = dict(n_stacks=n_stacks, features=features,
+                             depth=depth, fused=fused_blocks,
+                             n_modules=n_modules)
+        self.device = resolve_device(device)
+
+    def init_state(self, seed: int = 0) -> TrainState:
+        gen = torch.Generator().manual_seed(seed)
+        model = make_model(self.variant, self.dtype, generator=gen,
+                           **self.model_kw).to(self.device)
+        model.train()
+        return TrainState(model, hourglass_optimizer(model.parameters(),
+                                                     self.learning_rate))
+
+    def batch_tensors(self, batch):
+        """A CanvasBatch's arrays as tensors on the trainer's device."""
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        return dict(images=t(batch.images), centers=t(batch.centers),
+                    scales=t(batch.scales), keypoints=t(batch.keypoints),
+                    valid=t(batch.valid))
+
+    def train_step(self, state: TrainState, batch: dict,
+                   augment: Augment) -> torch.Tensor:
+        """One update; returns the loss (a device scalar, not synced)."""
+        crops, targets, _ = preprocess_batch(
+            batch["images"], batch["centers"], batch["scales"],
+            batch["keypoints"], batch["valid"], augment)
+        state.model.train()
+        loss = heatmap_loss(state.model(crops), targets)
+        state.optimizer.zero_grad()
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return loss.detach()
+
+    @torch.no_grad()
+    def overlay_forward(self, state: TrainState, batch: dict):
+        """Eval-mode forward on the unaugmented crops: (crops, targets as
+        (1, B, H, W, J), predictions (S, B, H, W, J))."""
+        crops, targets, _ = preprocess_batch(
+            batch["images"], batch["centers"], batch["scales"],
+            batch["keypoints"], batch["valid"], None)
+        state.model.eval()
+        try:
+            pred = state.model(crops)
+        finally:
+            state.model.train()
+        return crops, targets.permute(0, 2, 3, 1)[None], pred
+
+    def fit_epoch(self, state: TrainState, pipeline, epoch: int, seed: int,
+                  log_every: int = 0, logger=None, group: int = 1):
+        """One epoch. Batches are taken in groups of ``group`` (steps of a
+        group run in order; the numerics do not depend on it), and the loss
+        is logged after a group once ``log_every`` steps have passed since
+        the last line. Returns (state, last loss)."""
+        last_loss = None
+        pending = []
+        step_count = last_logged = 0
+
+        def flush():
+            nonlocal last_loss, step_count, last_logged
+            for batch in pending:
+                b = batch["images"].shape[0]
+                gen = step_generator(seed, epoch, state.step)
+                last_loss = self.train_step(state, batch,
+                                            sample_augment(gen, b))
+                step_count += 1
+            if pending and log_every and logger and \
+                    step_count - last_logged >= log_every:
+                logger.info("epoch %d step %d loss %f", epoch, step_count,
+                            float(last_loss))
+                last_logged = step_count
+            pending.clear()
+
+        lead_shape = None
+        for batch in pipeline.epoch(epoch):
+            d = self.batch_tensors(batch)
+            shape = tuple(d["images"].shape)
+            if lead_shape is not None and shape != lead_shape:
+                flush()
+            lead_shape = shape
+            pending.append(d)
+            if len(pending) >= group:
+                flush()
+        flush()
+        return state, last_loss

@@ -90,3 +90,196 @@ def bilinear_to_jax(state_dict: Mapping[str, Any]):
         "bias": _numpy(sd["decode.bias"]),
     }
     return params, stats
+
+
+# ---------------------------------------------------------------------------
+# The torch7 hourglass detector (the port's copy of the hourglass_torch7
+# halves of bilinear_tpu/utils/torch_compat.py, between the JAX tree and
+# the port's MainModel state_dict):
+# - Conv ``kernel`` (kh, kw, in, out)  -> Conv2d ``weight`` (out, in, kh, kw)
+# - BN as for BilinearUnit.
+# The JAX tree has no ``conv_skip`` for an identity ResModule (flax never
+# creates an unused module's parameters); the state_dict always has one
+# (the reference registers it), filled with zeros on the way in and dropped
+# on the way out.
+# ---------------------------------------------------------------------------
+
+CONV, BN, SKIP = "conv", "bn", "skip"
+
+
+def _slot(slot: str, k: int) -> str:
+    return slot if k == 0 else f"{slot}_m{k}"
+
+
+def _torch7_leaves(n_stacks: int, depth: int, n_modules: int,
+                   features: int):
+    """(JAX module path, state_dict prefix, kind, (ci, co) or None) of every
+    conv and BN of MainModel, in the reference's registration order."""
+    def res_module(ours, theirs, ci, co):
+        yield ours + ("conv_skip",), theirs + ".conv_skip", SKIP, (ci, co)
+        seq = ((BN, "bn1"), None, (CONV, "conv1"), (BN, "bn2"), None,
+               (CONV, "conv2"), (BN, "bn3"), None, (CONV, "conv3"))
+        for j, item in enumerate(seq):  # None: the ReLUs
+            if item is not None:
+                kind, name = item
+                yield ours + (name,), f"{theirs}.resSeq.{j}", kind, None
+
+    def hourglass(ours, theirs, d):
+        for slot in ("res1", "res2", "res3"):
+            for k in range(n_modules):
+                yield from res_module(ours + (_slot(slot, k),),
+                                      f"{theirs}.{slot}.{k}", features,
+                                      features)
+        if d > 1:
+            yield from hourglass(ours + ("sub",), theirs + ".subHourglass",
+                                 d - 1)
+        else:
+            for k in range(n_modules):
+                yield from res_module(ours + (_slot("waist", k),),
+                                      f"{theirs}.resWaist.{k}", features,
+                                      features)
+
+    yield ("stem_conv",), "beforeHourglass.0", CONV, None
+    yield ("stem_bn",), "beforeHourglass.1", BN, None
+    yield from res_module(("stem_res1",), "beforeHourglass.3", 64, 128)
+    yield from res_module(("stem_res2",), "beforeHourglass.5", 128, 128)
+    yield from res_module(("stem_res3",), "beforeHourglass.6", 128, features)
+    for i in range(n_stacks):
+        yield from hourglass((f"hg_{i}",), f"hgArray.{i}", depth)
+    for i in range(n_stacks):
+        yield (f"lin_{i}", "conv"), f"linArray.{i}.0", CONV, None
+        yield (f"lin_{i}", "bn"), f"linArray.{i}.1", BN, None
+    for i in range(n_stacks):
+        yield (f"htmap_{i}",), f"htmapArray.{i}", CONV, None
+    for i in range(n_stacks - 1):
+        yield (f"ll_bar_{i}",), f"llBarArray.{i}", CONV, None
+    for i in range(n_stacks - 1):
+        yield (f"htmap_bar_{i}",), f"htmapBarArray.{i}", CONV, None
+
+
+def get_leaf(tree, path):
+    for key in path:
+        if tree is None or key not in tree:
+            return None
+        tree = tree[key]
+    return tree
+
+
+def put_leaf(tree, path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def torch7_config_of_jax(params: Mapping[str, Any]) -> Dict[str, int]:
+    """n_stacks, depth, n_modules, features and n_joints of a JAX tree."""
+    n_stacks = sum(1 for k in params
+                   if k.startswith("htmap_") and not k.startswith("htmap_bar_"))
+    depth, node = 1, params["hg_0"]
+    while "sub" in node:
+        depth, node = depth + 1, node["sub"]
+    n_modules = 1
+    while f"res1_m{n_modules}" in params["hg_0"]:
+        n_modules += 1
+    shape = np.shape(params["htmap_0"]["kernel"])
+    return dict(n_stacks=n_stacks, depth=depth, n_modules=n_modules,
+                features=int(shape[2]), n_joints=int(shape[3]))
+
+
+def torch7_config_of_state_dict(sd: Mapping[str, Any]) -> Dict[str, int]:
+    """The same, of a MainModel state_dict."""
+    n_stacks = sum(1 for k in sd if k.startswith("htmapArray.")
+                   and k.endswith(".weight"))
+    depth = 1
+    while f"hgArray.0{'.subHourglass' * depth}.res1.0.resSeq.0.weight" in sd:
+        depth += 1
+    n_modules = 1
+    while f"hgArray.0.res1.{n_modules}.resSeq.0.weight" in sd:
+        n_modules += 1
+    shape = tuple(sd["htmapArray.0.weight"].shape)
+    return dict(n_stacks=n_stacks, depth=depth, n_modules=n_modules,
+                features=int(shape[1]), n_joints=int(shape[0]))
+
+
+def torch7_param_paths(cfg: Mapping[str, int]):
+    """(state_dict key, JAX path, kind) of every trained parameter: the
+    leaves the JAX optimizer state holds. kind is "conv_w" for a conv
+    weight (transposed between the two layouts) else "plain"."""
+    leaves = _torch7_leaves(cfg["n_stacks"], cfg["depth"], cfg["n_modules"],
+                            cfg["features"])
+    for path, prefix, kind, chans in leaves:
+        if kind == SKIP and chans[0] == chans[1]:
+            continue
+        if kind == BN:
+            yield prefix + ".weight", path + ("scale",), "plain"
+            yield prefix + ".bias", path + ("bias",), "plain"
+        else:
+            yield prefix + ".weight", path + ("kernel",), "conv_w"
+            yield prefix + ".bias", path + ("bias",), "plain"
+
+
+def conv_to_jax(w) -> np.ndarray:
+    """Conv2d weight (out, in, kh, kw) -> flax kernel (kh, kw, in, out)."""
+    return _numpy(w).transpose(2, 3, 1, 0).copy()
+
+
+def conv_from_jax(k) -> torch.Tensor:
+    return _tensor(np.asarray(k).transpose(3, 2, 0, 1))
+
+
+def hourglass_torch7_from_jax(params: Mapping[str, Any],
+                              batch_stats: Mapping[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """JAX MainModel ``{params, batch_stats}`` (numpy leaves) -> the port's
+    MainModel ``state_dict``."""
+    cfg = torch7_config_of_jax(params)
+    sd: Dict[str, torch.Tensor] = {}
+    for path, prefix, kind, chans in _torch7_leaves(
+            cfg["n_stacks"], cfg["depth"], cfg["n_modules"],
+            cfg["features"]):
+        if kind == BN:
+            p, st = get_leaf(params, path), get_leaf(batch_stats, path)
+            sd[prefix + ".weight"] = _tensor(p["scale"])
+            sd[prefix + ".bias"] = _tensor(p["bias"])
+            sd[prefix + ".running_mean"] = _tensor(st["mean"])
+            sd[prefix + ".running_var"] = _tensor(st["var"])
+            sd[prefix + ".num_batches_tracked"] = torch.tensor(
+                int(np.asarray(st["count"])), dtype=torch.int64)
+            continue
+        node = get_leaf(params, path)
+        if node is None:  # identity conv_skip: absent in JAX
+            ci, co = chans
+            sd[prefix + ".weight"] = torch.zeros((co, ci, 1, 1))
+            sd[prefix + ".bias"] = torch.zeros(co)
+            continue
+        sd[prefix + ".weight"] = conv_from_jax(node["kernel"])
+        sd[prefix + ".bias"] = _tensor(node["bias"])
+    return sd
+
+
+def hourglass_torch7_to_jax(state_dict: Mapping[str, Any]):
+    """Port MainModel ``state_dict`` -> JAX ``(params, batch_stats)`` numpy
+    trees; exact inverse of ``hourglass_torch7_from_jax`` (``count`` comes
+    back int32; an identity block's conv_skip is dropped)."""
+    sd = state_dict
+    cfg = torch7_config_of_state_dict(sd)
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for path, prefix, kind, chans in _torch7_leaves(
+            cfg["n_stacks"], cfg["depth"], cfg["n_modules"],
+            cfg["features"]):
+        if kind == SKIP and chans[0] == chans[1]:
+            continue
+        if kind == BN:
+            put_leaf(params, path, {"scale": _numpy(sd[prefix + ".weight"]),
+                                "bias": _numpy(sd[prefix + ".bias"])})
+            put_leaf(stats, path, {
+                "mean": _numpy(sd[prefix + ".running_mean"]),
+                "var": _numpy(sd[prefix + ".running_var"]),
+                "count": _numpy(sd[prefix + ".num_batches_tracked"])
+                .astype(np.int32),
+            })
+            continue
+        put_leaf(params, path, {"kernel": conv_to_jax(sd[prefix + ".weight"]),
+                            "bias": _numpy(sd[prefix + ".bias"])})
+    return params, stats

@@ -6,21 +6,38 @@
 Phases (any failure exits non-zero; no phase's error is swallowed):
 1. Card: name and power limit from nvidia-smi; TF32 switched off for
    matmuls and cuDNN, so the plain f32 versions run in full f32.
-2. Build: both CUDA sources (csrc/lifting.cu, csrc/lifting_int8.cu), one
-   nvcc each, in parallel.
+2. Build: every CUDA source (csrc/lifting.cu, csrc/lifting_int8.cu,
+   csrc/resmodule.cu), one nvcc each, in parallel.
 3. Kernels vs their plain PyTorch versions, on the card, in the working
    type: K1 bf16 and f32, K2 dynamic and static, at n in NS, full-width
    weights with scrambled BN statistics from a seeded torch.Generator.
-4. The slice: a synthetic H36M dataset and an epoch-1 checkpoint written
-   by the port; for each serving mode the daemon of cli/serve.py answers
-   /v1/lift requests (JSON and .npy, concurrent ones coalesced) through
-   PoseHTTPServer, each answer is checked against the plain path, the
-   kernel's launch counter must rise, epoch 2 hot-reloads through
+   3b. K3 train (output and the six batch statistics), K3 eval and K4
+   (g_x and every parameter gradient) against res_block_ref /
+   res_block_bwd_ref at every ResModule shape of the full-width detector
+   and a tail batch, in bf16 and f32.
+4. The lifting slice: a synthetic H36M dataset and an epoch-1 checkpoint
+   written by the port; for each serving mode the daemon of cli/serve.py
+   answers /v1/lift requests (JSON and .npy, concurrent ones coalesced)
+   through PoseHTTPServer, each answer is checked against the plain path,
+   the kernel's launch counter must rise, epoch 2 hot-reloads through
    /admin/reload, and the valid-split MPJPE of the served and plain paths
    is printed.
-5. Times with CUDA events after warm-up at n = 256 (the daemon's max_rows)
-   and n = 65536, beside each kernel's bound, its plain version and, as a
-   labelled yardstick, the cuBLAS chain of six F.linear calls in bf16.
+5. Lifting times with CUDA events after warm-up at n = 256 (the daemon's
+   max_rows) and n = 65536, beside each kernel's bound, its plain version
+   and, as a labelled yardstick, the cuBLAS chain of six F.linear calls.
+6. The detector slice: a synthetic MPII tree written by the port, then
+   cli.train_hourglass.main at full width (8 stacks, 256 features, depth
+   4, batch 8) in bf16 with --fused-blocks true, twice: the second run
+   must resume from epoch 1 and write 2.save. K3-train and K4 must launch
+   exactly 107 times per step and K3-eval 107 times per overlay forward;
+   the loss must be finite.
+7. Full-width step parity: loss and per-tensor gradients of
+   MainModel(fused=True) against MainModel(fused=False) (cuDNN + torch BN)
+   from one state on one batch, f32 and bf16.
+8. Detector times: K3 train, K3 eval and K4 in bf16 at (8, 64, 64,
+   256 -> 256) and (8, 128, 128, 64 -> 128) beside their bound, plain
+   version and the standard ResModule as a labelled yardstick; and one full
+   training step, fused and standard, as ms/step and img/s.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or bilinear_tpu.
@@ -78,17 +95,21 @@ def random_state_dict(seed: int):
     return sd
 
 
-def gate_close(name, out, ref, mean_tol, max_tol=None, p99_tol=None):
-    """Mean |diff| (and max or 99th percentile) relative to mean |ref|."""
+def gate_close(name, out, ref, mean_tol, max_tol=None, p99_tol=None,
+               scale_of=None):
+    """Mean |diff| (and max or 99th percentile) relative to mean |ref|, or
+    to mean |scale_of| when given."""
     import torch
 
     out, ref = out.float(), ref.float()
     if not torch.isfinite(out).all():
         raise AssertionError(f"{name}: non-finite output")
     d = (out - ref).abs()
-    scale = float(ref.abs().mean()) or 1.0
+    scale = float((ref if scale_of is None else scale_of.float()).abs()
+                  .mean()) or 1.0
     mean, mx = float(d.mean()), float(d.max())
-    msg = f"{name}: max|d| {mx:.3e} mean|d| {mean:.3e} (mean|ref| {scale:.3e})"
+    msg = (f"{name}: max|d| {mx:.3e} mean|d| {mean:.3e} (mean|"
+           f"{'ref' if scale_of is None else 'db3'}| {scale:.3e})")
     ok = mean <= mean_tol * scale
     if max_tol is not None:
         ok = ok and mx <= max_tol * scale
@@ -226,6 +247,136 @@ def check_group_amax(params, stats, x_all):
                    p99_tol=2e-2)
 
 
+# ------------------------------------------------------------ phase 3b
+
+# Every ResModule shape of the full-width detector at batch 8 (B, H, W, Ci,
+# Co), and a tail batch.
+RES_SHAPES = (
+    (8, 128, 128, 64, 128),   # stem_res1, 1x1 skip
+    (8, 64, 64, 128, 128),    # stem_res2
+    (8, 64, 64, 128, 256),    # stem_res3, 1x1 skip
+    (8, 64, 64, 256, 256),    # hourglass body, 5 resolutions
+    (8, 32, 32, 256, 256),
+    (8, 16, 16, 256, 256),
+    (8, 8, 8, 256, 256),
+    (8, 4, 4, 256, 256),
+    (5, 16, 16, 256, 256),    # a tail batch
+)
+# Gates of K3/K4 against their plain versions: (mean |d|, max |d|), both
+# relative to mean |ref|. The two sum in another order. f32 forward: ~1e-7
+# relative. bf16: a value at a bf16 rounding boundary rounds one step apart
+# (max: one step of the largest values) and carries into later stages. K4's
+# outputs are column sums over up to 131072 rows, some of signed terms that
+# nearly cancel (sum(gy) for beta), which magnifies rounding-order
+# differences; and an element whose BN output lies within rounding distance
+# of zero takes the other side of the ReLU in one of the two, which moves
+# that element's gradient by its full size, so the max gates are loose.
+# db1 and db2 are gradients of a bias followed by a train-mode BN: zero in
+# exact arithmetic, so both sides return rounding noise; they are held to
+# the scale of db3, a column sum over the same rows.
+RES_GATES = {
+    ("K3", "f32"): (1e-5, 1e-4), ("K3", "bf16"): (1e-3, 5e-2),
+    ("K4", "f32"): (1e-3, 0.2), ("K4", "bf16"): (2e-2, 1.0),
+}
+
+
+def res_case(shape, seed, dev):
+    """x, output gradient, parameters (torch init bounds) and scrambled BN
+    statistics and gamma/beta, from a seeded torch.Generator on the card."""
+    import math
+
+    import torch
+    from bilinear_tpu_torch.ops.resmodule import BatchStats, ResParams
+
+    b, h, w, ci, co = shape
+    ch = co // 2
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def u(size, fan_in):
+        r = torch.rand(size, generator=gen, device=dev)
+        return (2 * r - 1) / math.sqrt(fan_in)
+
+    def nrm(c, base, scale):
+        return base + scale * torch.randn(c, generator=gen, device=dev)
+
+    def var(c):
+        return torch.rand(c, generator=gen, device=dev) + 0.5
+
+    skip = ci != co
+    p = ResParams(
+        w1=u((ci, ch), ci), b1=u(ch, ci), w2=u((9, ch, ch), 9 * ch),
+        b2=u(ch, 9 * ch), w3=u((ch, co), ch), b3=u(co, ch),
+        g1=nrm(ci, 1, 0.3), be1=nrm(ci, 0, 0.3), g2=nrm(ch, 1, 0.3),
+        be2=nrm(ch, 0, 0.3), g3=nrm(ch, 1, 0.3), be3=nrm(ch, 0, 0.3),
+        skip_w=u((ci, co), ci) if skip else None,
+        skip_b=u(co, ci) if skip else None)
+    stats = BatchStats(nrm(ci, 0, 0.2), var(ci), nrm(ch, 0, 0.2), var(ch),
+                       nrm(ch, 0, 0.2), var(ch))
+    x = 0.5 + 2 * torch.randn((b, h, w, ci), generator=gen, device=dev)
+    g = torch.randn((b, h, w, co), generator=gen, device=dev)
+    return x, g, p, stats
+
+
+def check_resmodule():
+    """K3 train (out + six stats), K3 eval and K4 (g_x + every parameter
+    gradient) against res_block_ref / res_block_bwd_ref on the same CUDA
+    inputs, at every RES_SHAPES entry, in bf16 and f32. Returns
+    {kernel: max |d| over all cases}; raises after logging every case when
+    any is out of its gate."""
+    import torch
+    from bilinear_tpu_torch.ops import resmodule as rm
+
+    dev = torch.device("cuda")
+    errs = {"resmodule_fwd_train": 0.0, "resmodule_fwd_eval": 0.0,
+            "resmodule_bwd": 0.0}
+    failed = []
+
+    def gate(name, kind, out, ref, scale_of=None):
+        try:
+            mx, _ = gate_close(name, out, ref, *RES_GATES[name[:2], kind],
+                               scale_of=scale_of)
+        except AssertionError as e:
+            failed.append(str(e))
+            mx = float((out.float() - ref.float()).abs().max())
+        return mx
+
+    for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for i, shape in enumerate(RES_SHAPES):
+            x, g, p, stats = res_case(shape, SEED + 10 + i, dev)
+            x = x.to(dtype)
+            tag = f"{kind} {shape}"
+            out, st = rm._fwd_cuda(x, p, True, None, dtype)
+            torch.cuda.synchronize()
+            ref, ref_st = rm.res_block_ref(x, p, train=True, dtype=dtype)
+            e = gate(f"K3 train {tag} out", kind, out, ref)
+            for name, a, b in zip(rm.BatchStats._fields, st, ref_st):
+                e = max(e, gate(f"K3 train {tag} {name}", kind, a, b))
+            errs["resmodule_fwd_train"] = max(errs["resmodule_fwd_train"], e)
+
+            out = rm._fwd_cuda(x, p, False, stats, dtype)[0]
+            torch.cuda.synchronize()
+            ref = rm.res_block_ref(x, p, train=False, stats=stats,
+                                   dtype=dtype)[0]
+            errs["resmodule_fwd_eval"] = max(
+                errs["resmodule_fwd_eval"],
+                gate(f"K3 eval {tag} out", kind, out, ref))
+
+            gx, gp = rm._bwd_cuda(x, g, p, ref_st, dtype)
+            torch.cuda.synchronize()
+            rgx, rgp = rm.res_block_bwd_ref(x, g, p, ref_st, dtype=dtype)
+            e = gate(f"K4 {tag} g_x", kind, gx, rgx)
+            for name, a, b in zip(rm.ResParams._fields, gp, rgp):
+                if b is not None:
+                    e = max(e, gate(f"K4 {tag} d{name}", kind, a, b,
+                                    rgp.b3 if name in ("b1", "b2") else None))
+            errs["resmodule_bwd"] = max(errs["resmodule_bwd"], e)
+            del x, g, p, stats, out, st, ref, ref_st, gx, gp, rgx, rgp
+    if failed:
+        raise AssertionError(f"{len(failed)} resmodule cases out of "
+                             f"tolerance:\n" + "\n".join(failed))
+    return errs
+
+
 # ------------------------------------------------------------ phase 4
 
 MODES = (  # (label, --dtype, --quantize, kernel counter)
@@ -272,13 +423,14 @@ def drive_slice(work):
     from bilinear_tpu_torch.io.checkpoint import save_checkpoint
     from bilinear_tpu_torch.ops import lifting as pl
     from bilinear_tpu_torch.ops import lifting_int8 as pq
+    from bilinear_tpu_torch.utils.weights import bilinear_to_jax
 
     counters = {"lifting": pl, "lifting_int8": pq}
     data_dir = os.path.join(work, "Human3.6M")
     run_dir = os.path.join(work, "run")
     pdir = os.path.join(run_dir, "parameter")
     write_h36m_dataset(data_dir, n_train=8192, n_valid=4096, seed=SEED)
-    save_checkpoint(pdir, 1, random_state_dict(SEED))
+    save_checkpoint(pdir, 1, *bilinear_to_jax(random_state_dict(SEED)))
     splits = load_h36m(data_dir)
     kp_pool = splits[Task.Train].raw_part.reshape(-1, 16, 2)
     launches, mpjpe = {}, {}
@@ -345,7 +497,8 @@ def drive_slice(work):
             # hot reload to epoch 2
             kp = kp_pool[:16]
             before = client.lift(kp)
-            save_checkpoint(pdir, 2, random_state_dict(SEED + 2))
+            save_checkpoint(pdir, 2,
+                            *bilinear_to_jax(random_state_dict(SEED + 2)))
             if client.reload()["lift_epoch"] != 2 or \
                     client.health()["lift"]["epoch"] != 2:
                 raise AssertionError("hot reload did not reach epoch 2")
@@ -489,6 +642,379 @@ def time_kernels(params, stats, scales):
     return table
 
 
+# ------------------------------------------------------------ phase 6
+
+# ResModules per forward of the full-width detector: 3 in the stem and 13
+# per stack (res1/res2/res3 at 4 levels + the waist), 8 stacks.
+RES_PER_FORWARD = 3 + 8 * 13
+DETECTOR_BATCH = 8
+N_TRAIN_IMAGES = 16  # 90% of them (14) in the train split: 2 steps
+
+
+def _res_counts():
+    from bilinear_tpu_torch.ops import resmodule as rm
+
+    return {"resmodule_fwd_train": rm.LAUNCHES_FWD_TRAIN,
+            "resmodule_fwd_eval": rm.LAUNCHES_FWD_EVAL,
+            "resmodule_bwd": rm.LAUNCHES_BWD}
+
+
+def _zero_res_counts():
+    from bilinear_tpu_torch.ops import resmodule as rm
+
+    rm.LAUNCHES_FWD_TRAIN = rm.LAUNCHES_FWD_EVAL = rm.LAUNCHES_BWD = 0
+
+
+def drive_detector(work):
+    """Train the full-width detector through the CLI, twice (the second
+    resumes), with --fused-blocks true in bf16; every ResModule of every
+    step must go through K3/K4. Returns (launches, data dir, losses)."""
+    import math
+
+    from bilinear_tpu_torch.cli import train_hourglass
+    from bilinear_tpu_torch.data.h36m import Task
+    from bilinear_tpu_torch.data.mpii import MPIIAnnotations
+    from bilinear_tpu_torch.data.synthetic import write_mpii_dataset
+
+    data_dir = os.path.join(work, "MPII")
+    save_root = os.path.join(work, "save")
+    write_mpii_dataset(data_dir, n_train_images=N_TRAIN_IMAGES,
+                       n_test_images=2, learnable=True, seed=SEED)
+    n_records = len(MPIIAnnotations(data_dir, Task.Train))
+    steps = -(-n_records // DETECTOR_BATCH)
+    argv = ["--data-dir", data_dir, "--save-root", save_root,
+            "--comment", "smoke", "--dtype", "bfloat16",
+            "--fused-blocks", "true", "--epochs-per-run", "1",
+            "--batch-size", str(DETECTOR_BATCH), "--seed", str(SEED)]
+    run_dir = os.path.join(save_root, "smoke")
+    launches = {k: 0 for k in _res_counts()}
+    losses = []
+    for invocation in (1, 2):
+        _zero_res_counts()
+        t0 = time.perf_counter()
+        train_hourglass.main(argv)
+        secs = time.perf_counter() - t0
+        count = _res_counts()
+        log(f"  invocation {invocation}: {n_records} records, {steps} steps "
+            f"of batch <= {DETECTOR_BATCH}, {secs:.1f} s; launches {count}")
+        want = {"resmodule_fwd_train": RES_PER_FORWARD * steps,
+                "resmodule_bwd": RES_PER_FORWARD * steps,
+                "resmodule_fwd_eval": RES_PER_FORWARD}  # one overlay forward
+        if count != want:
+            raise AssertionError(f"launches {count}, expected {want}: a "
+                                 f"ResModule took another path")
+        for k, v in count.items():
+            launches[k] += v
+        with open(os.path.join(run_dir, "debug.log")) as f:
+            text = f.read()
+        line = [ln for ln in text.splitlines()
+                if f"Epoch {invocation} saved" in ln]
+        if not line:
+            raise AssertionError(f"no 'Epoch {invocation} saved' line")
+        loss = float(line[-1].split("loss: ")[1].split(",")[0])
+        log(f"  {line[-1].split('> ')[-1]}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"loss {loss} is not finite")
+        losses.append(loss)
+        if not os.path.exists(os.path.join(run_dir, "parameter",
+                                           f"{invocation}.save")):
+            raise AssertionError(f"{invocation}.save was not written")
+    if "Resumed from epoch 1" not in text:
+        raise AssertionError("the second invocation did not resume")
+    log("  the second invocation logged 'Resumed from epoch 1' and wrote "
+        "2.save")
+    return launches, data_dir, losses
+
+
+# ------------------------------------------------------------ phase 7
+
+# Full-width step parity: fused (K3/K4) against the standard conv path
+# (cuDNN + torch BN), from one state on one batch. The two compute the same
+# function in another order. f32 gates, fused against standard: the loss's
+# relative difference, and the median and 90th percentile over parameter
+# tensors of |g_k - g_p| / |g_p|. In bf16 both paths round at every layer
+# (at other points: cuDNN's conv epilogue, torch's BN kernels) through 8
+# stacks, and the gradients of a randomly initialised net move far from the
+# f32 ones on either path; so each bf16 path is held against the f32
+# standard gradients, and the fused one may be at most PARITY_BF16_RATIO
+# times as far as the standard one (median and 90th percentile). Every conv
+# bias but the heatmap heads' only shifts channels that a later train-mode
+# BN removes again, so its gradient is zero in exact arithmetic and rounding
+# noise on both sides (norms ~1e-8 in the CPU tests): those are reported,
+# not gated.
+PARITY_F32 = (1e-4, 1e-2, 5e-2)
+PARITY_BF16_LOSS = 2e-2
+PARITY_BF16_RATIO = 1.5
+
+
+def _parity_batch(data_dir, dev):
+    from bilinear_tpu_torch.data.h36m import Task
+    from bilinear_tpu_torch.data.mpii import MPIIAnnotations
+    from bilinear_tpu_torch.data.pipeline import MPIIHostPipeline
+    from bilinear_tpu_torch.train import hourglass as th
+
+    pipe = MPIIHostPipeline(MPIIAnnotations(data_dir, Task.Train),
+                            DETECTOR_BATCH, shuffle=True, seed=SEED,
+                            transport="u8")
+    batch = next(iter(pipe.epoch(1, prefetch=0)))
+    trainer = th.HourglassTrainer(device=dev)
+    b = trainer.batch_tensors(batch)
+    aug = th.sample_augment(th.step_generator(SEED, 1, 1),
+                            b["images"].shape[0])
+    crops, targets, _ = th.preprocess_batch(
+        b["images"], b["centers"], b["scales"], b["keypoints"], b["valid"],
+        aug)
+    return crops, targets
+
+
+def _rel_errors(grads, ref, gated):
+    """Sorted (|g - r| / |r|, name) over the gated tensors."""
+    return sorted((float((grads[k] - r).norm() / r.norm().clamp_min(1e-30)),
+                   k) for k, r in ref.items() if k in gated)
+
+
+def _quantiles(rel):
+    return {q: rel[int(q * (len(rel) - 1))][0] for q in (0.5, 0.9)}
+
+
+def step_parity(data_dir):
+    """Loss and per-tensor gradients of MainModel(fused=True) against
+    MainModel(fused=False) at full width, from one state and one batch."""
+    import torch
+    from bilinear_tpu_torch.models.hourglass_torch7 import MainModel
+    from bilinear_tpu_torch.train.hourglass import heatmap_loss
+
+    dev = torch.device("cuda")
+    crops, targets = _parity_batch(data_dir, dev)
+    base = MainModel(generator=torch.Generator().manual_seed(SEED))
+    sd = base.state_dict()
+    shift_only = {f"{m}.bias" for m, mod in base.named_modules()
+                  if isinstance(mod, torch.nn.Conv2d)
+                  and not m.startswith("htmapArray.")}
+    del base
+    grads, losses = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        for fused in (True, False):
+            model = MainModel(dtype=getattr(torch, dtype), fused=fused)
+            model.load_state_dict(sd)
+            model.to(dev).train()
+            loss = heatmap_loss(model(crops), targets)
+            loss.backward()
+            losses[dtype, fused] = float(loss.detach())
+            grads[dtype, fused] = {k: p.grad.detach().clone()
+                                   for k, p in model.named_parameters()
+                                   if p.grad is not None}
+            del model, loss
+            torch.cuda.empty_cache()
+    keys = grads["float32", False].keys()
+    if any(g.keys() != keys for g in grads.values()):
+        raise AssertionError("the two paths train different tensors")
+    gated = [k for k in keys if k not in shift_only]
+    result, failed = {}, []
+    for dtype in ("float32", "bfloat16"):
+        dloss = abs(losses[dtype, True] - losses[dtype, False]) / \
+            abs(losses[dtype, False])
+        rel = _rel_errors(grads[dtype, True], grads[dtype, False], gated)
+        noise = _rel_errors(grads[dtype, True], grads[dtype, False],
+                            shift_only)
+        q = _quantiles(rel)
+        log(f"  {dtype}: loss fused {losses[dtype, True]!r} standard "
+            f"{losses[dtype, False]!r} (rel {dloss:.2e}); fused vs standard "
+            f"|g_k - g_p|/|g_p| over {len(rel)} tensors: median "
+            f"{q[0.5]:.2e}, p90 {q[0.9]:.2e}, max {rel[-1][0]:.2e} "
+            f"({rel[-1][1]}); {len(noise)} biases whose shift BN removes: "
+            f"median {noise[len(noise) // 2][0]:.2e}")
+        row = {"loss_fused": losses[dtype, True],
+               "loss_standard": losses[dtype, False], "loss_rel": dloss,
+               "grad_rel_median": q[0.5], "grad_rel_p90": q[0.9],
+               "grad_rel_max": rel[-1][0]}
+        if dtype == "float32":
+            g_loss, g_med, g_p90 = PARITY_F32
+            if not (dloss <= g_loss and q[0.5] <= g_med and q[0.9] <= g_p90):
+                failed.append(f"float32 parity out of {PARITY_F32}")
+        else:
+            ref = grads["float32", False]
+            qf = _quantiles(_rel_errors(grads[dtype, True], ref, gated))
+            qs = _quantiles(_rel_errors(grads[dtype, False], ref, gated))
+            log(f"  bfloat16 against the f32 standard gradients: fused "
+                f"median {qf[0.5]:.2e} p90 {qf[0.9]:.2e}; standard median "
+                f"{qs[0.5]:.2e} p90 {qs[0.9]:.2e}")
+            row.update({"vs_f32_fused_median": qf[0.5],
+                        "vs_f32_fused_p90": qf[0.9],
+                        "vs_f32_standard_median": qs[0.5],
+                        "vs_f32_standard_p90": qs[0.9]})
+            if not (dloss <= PARITY_BF16_LOSS and all(
+                    qf[k] <= PARITY_BF16_RATIO * qs[k] for k in qf)):
+                failed.append("bfloat16 parity: the fused path is farther "
+                              "from the f32 gradients than the standard "
+                              f"path allows ({PARITY_BF16_RATIO}x), or the "
+                              f"loss differs by more than {PARITY_BF16_LOSS}")
+        result[dtype] = row
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return result
+
+
+# ------------------------------------------------------------ phase 8
+
+RES_TIME_SHAPES = ((8, 64, 64, 256, 256), (8, 128, 128, 64, 128))
+
+
+def res_bound(shape, kind: str, itemsize: int = 2):
+    """Least time (ms): ops at the bf16 peak vs bytes at HBM bandwidth.
+    Forward (either mode): 2N(Ci Ch + 9 Ch^2 + Ch Co [+ Ci Co]) against
+    N (Ci + Co) bytes; backward 4N(...) against N (2 Ci + 2 Co)."""
+    b, h, w, ci, co = shape
+    n, ch = b * h * w, co // 2
+    macs = ci * ch + 9 * ch * ch + ch * co + (ci * co if ci != co else 0)
+    if kind == "bwd":
+        ops, nbytes = 4 * n * macs, n * (2 * ci + 2 * co) * itemsize
+    else:
+        ops, nbytes = 2 * n * macs, n * (ci + co) * itemsize
+    ops_s, bytes_s = ops / PEAK_BF16, nbytes / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def time_resmodule():
+    """K3 train, K3 eval and K4 in bf16 beside their bound, their plain
+    versions and the standard ResModule (cuDNN convs + torch BN) as a
+    labelled yardstick; plain, kernel, kernel, plain."""
+    import torch
+    from bilinear_tpu_torch.models.hourglass_torch7 import ResModule
+    from bilinear_tpu_torch.ops import resmodule as rm
+
+    dev = torch.device("cuda")
+    dt = torch.bfloat16
+    table = {}
+    for shape in RES_TIME_SHAPES:
+        x, g, p, stats = res_case(shape, SEED + 40, dev)
+        x = x.to(dt)
+        st = rm._fwd_cuda(x, p, True, None, dt)[1]
+        std = ResModule(shape[3], shape[4], dtype=dt).to(dev).train()
+        xs = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
+        gs = g.to(dt).permute(0, 3, 1, 2)
+
+        def std_fwd():
+            with torch.no_grad():
+                std(xs)
+
+        def std_fwd_bwd():
+            torch.autograd.backward(std(xs), gs)
+
+        cases = {
+            "resmodule_fwd_train": (
+                "fwd", lambda: rm._fwd_cuda(x, p, True, None, dt),
+                lambda: rm.res_block_ref(x, p, train=True, dtype=dt)),
+            "resmodule_fwd_eval": (
+                "fwd", lambda: rm._fwd_cuda(x, p, False, stats, dt),
+                lambda: rm.res_block_ref(x, p, train=False, stats=stats,
+                                         dtype=dt)),
+            "resmodule_bwd": (
+                "bwd", lambda: rm._bwd_cuda(x, g, p, st, dt),
+                lambda: rm.res_block_bwd_ref(x, g, p, st, dtype=dt)),
+        }
+        y_f = cuda_ms(std_fwd, 20)
+        y_fb = cuda_ms(std_fwd_bwd, 20)
+        for name, (kind, kern, plain) in cases.items():
+            b_ms, b_by = res_bound(shape, kind)
+            p1 = cuda_ms(plain, 5)
+            k1 = cuda_ms(kern, 20)
+            k2 = cuda_ms(kern, 20)
+            p2 = cuda_ms(plain, 5)
+            yard = y_f if kind == "fwd" else y_fb - y_f
+            row = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "yardstick_standard_module_ms": yard}
+            table.setdefault(name, {})[shape] = row
+            log(f"  {name} {shape} bf16: kernel {row['ms']:.4f} ms (turns "
+                f"{k1:.4f}, {k2:.4f}), plain {row['plain_ms']:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}), yardstick standard ResModule "
+                f"(cuDNN + torch BN) {'forward' if kind == 'fwd' else 'backward'}"
+                f" {yard:.4f} ms")
+        del x, g, p, stats, st, std, xs, gs
+    return table
+
+
+def time_train_step(data_dir):
+    """Full-width training steps (batch 8, bf16), fused and standard:
+    ms/step and img/s on one batch and one set of draws, host clock around
+    synchronised steps; standard, fused, fused, standard."""
+    import torch
+    from bilinear_tpu_torch.data.h36m import Task
+    from bilinear_tpu_torch.data.mpii import MPIIAnnotations
+    from bilinear_tpu_torch.data.pipeline import MPIIHostPipeline
+    from bilinear_tpu_torch.train import hourglass as th
+
+    dev = torch.device("cuda")
+    pipe = MPIIHostPipeline(MPIIAnnotations(data_dir, Task.Train),
+                            DETECTOR_BATCH, shuffle=True, seed=SEED,
+                            transport="u8")
+    raw = next(iter(pipe.epoch(1, prefetch=0)))
+    states, trainers = {}, {}
+    for fused in (True, False):
+        trainers[fused] = th.HourglassTrainer(dtype=torch.bfloat16,
+                                              fused_blocks=fused, device=dev)
+        states[fused] = trainers[fused].init_state(SEED)
+    batch = trainers[True].batch_tensors(raw)
+    aug = th.sample_augment(th.step_generator(SEED, 1, 1),
+                            batch["images"].shape[0])
+
+    def run(fused, steps):
+        for _ in range(2):
+            trainers[fused].train_step(states[fused], batch, aug)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainers[fused].train_step(states[fused], batch, aug)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    turns = [run(False, 5), run(True, 5), run(True, 5), run(False, 5)]
+    out = {}
+    for fused, ms in ((True, (turns[1] + turns[2]) / 2),
+                      (False, (turns[0] + turns[3]) / 2)):
+        label = "fused" if fused else "standard"
+        busy, top = _device_time(lambda: trainers[fused].train_step(
+            states[fused], batch, aug))
+        out[label] = {"ms_per_step": ms,
+                      "img_per_s": DETECTOR_BATCH * 1e3 / ms,
+                      "device_ms_per_step": busy,
+                      "device_idle_share": max(0.0, 1 - busy / ms),
+                      "device_top": top}
+        log(f"  train step {label}: {ms:.2f} ms/step, "
+            f"{DETECTOR_BATCH * 1e3 / ms:.1f} img/s (batch {DETECTOR_BATCH},"
+            f" bf16, full width; turns {turns}); device busy {busy:.2f} "
+            f"ms/step (idle {100 * max(0.0, 1 - busy / ms):.0f}%), top "
+            f"kernels ms/step: " + ", ".join(f"{k} {v:.2f}" for k, v in top))
+    return out
+
+
+def _device_time(step, steps: int = 2):
+    """Device time per step (sum of kernel and copy times in a
+    torch.profiler trace; the optimizer's '#'-named annotation ranges,
+    which span kernels already counted, are left out) and the five kernels
+    with the most of it, ms per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    per = {}
+    for evt in prof.key_averages():
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = evt.self_cuda_time_total
+        if t > 0 and "#" not in evt.key:
+            key = evt.key[:60]
+            per[key] = per.get(key, 0.0) + t / 1e3 / steps
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
+    return sum(per.values()), top
+
+
 # ------------------------------------------------------------------ main
 
 SOURCES = {
@@ -500,6 +1026,12 @@ SOURCES = {
                              "bilinear_tpu/ops/pallas/lifting_int8.py:109"),
     "lifting_int8_static": ("bilinear_tpu_torch/csrc/lifting_int8.cu",
                             "bilinear_tpu/ops/pallas/lifting_int8.py:109"),
+    "resmodule_fwd_train": ("bilinear_tpu_torch/csrc/resmodule.cu",
+                            "bilinear_tpu/ops/pallas/resmodule.py:702"),
+    "resmodule_fwd_eval": ("bilinear_tpu_torch/csrc/resmodule.cu",
+                           "bilinear_tpu/ops/pallas/resmodule.py:702"),
+    "resmodule_bwd": ("bilinear_tpu_torch/csrc/resmodule.cu",
+                      "bilinear_tpu/ops/pallas/resmodule.py:756"),
 }
 
 
@@ -523,14 +1055,16 @@ def run() -> dict:
     from bilinear_tpu_torch.utils.weights import bilinear_to_jax
 
     # phase 2: build
-    secs = _build.build_all(["lifting", "lifting_int8"])
-    log(f"phase 2: built csrc/lifting.cu and csrc/lifting_int8.cu in "
-        f"{secs:.1f} s")
+    secs = _build.build_all(["lifting", "lifting_int8", "resmodule"])
+    log(f"phase 2: built csrc/lifting.cu, csrc/lifting_int8.cu and "
+        f"csrc/resmodule.cu in {secs:.1f} s")
 
     # phase 3: kernels vs plain versions
     log("phase 3: kernels vs plain versions")
     params, stats = bilinear_to_jax(random_state_dict(SEED))
     errs, scales = check_kernels(params, stats)
+    log("phase 3b: K3 (train, eval) and K4 vs their plain versions")
+    errs.update(check_resmodule())
 
     # phase 4: the slice
     log("phase 4: serving over HTTP")
@@ -544,8 +1078,41 @@ def run() -> dict:
     log(f"phase 5: times on {card}")
     table = time_kernels(params, stats, scales)
 
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        # phase 6: the detector slice
+        log("phase 6: training the full-width detector through "
+            "cli.train_hourglass --fused-blocks true")
+        res_launches, data_dir, losses = drive_detector(work)
+        launches.update(res_launches)
+        # phase 7: step parity
+        log("phase 7: full-width step parity, fused vs standard")
+        parity = step_parity(data_dir)
+        # phase 8: times
+        log(f"phase 8: detector times on {card}")
+        res_table = time_resmodule()
+        steps = time_train_step(data_dir)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
     kernels = []
     for name, (source, replaces) in SOURCES.items():
+        if name.startswith("resmodule"):
+            at = res_table[name]
+            main, big = at[RES_TIME_SHAPES[0]], at[RES_TIME_SHAPES[1]]
+            kernels.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": errs[name],
+                "shape_bhwio": list(RES_TIME_SHAPES[0]),
+                "ms": main["ms"], "plain_ms": main["plain_ms"],
+                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                "library_ms": None,
+                "yardstick_standard_module_ms":
+                    main["yardstick_standard_module_ms"],
+                "at_" + "x".join(map(str, RES_TIME_SHAPES[1])): big,
+            })
+            continue
         at = table[name]
         main, big = at[TIME_NS[0]], at[TIME_NS[1]]
         kernels.append({
@@ -558,6 +1125,8 @@ def run() -> dict:
             "yardstick_cublas_chain_ms": main["cublas_chain_ms"],
             f"at_{TIME_NS[1]}": big,
         })
+    log(json.dumps({"detector": {"losses": losses, "step_parity": parity,
+                                 "train_step": steps}}))
     return {"kernels": kernels, "card": card}
 
 

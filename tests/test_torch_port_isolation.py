@@ -49,7 +49,11 @@ def test_port_modules_are_listed():
                      "bilinear_tpu_torch.serving_http",
                      "bilinear_tpu_torch.ops.lifting",
                      "bilinear_tpu_torch.ops.lifting_int8",
-                     "bilinear_tpu_torch.cli.serve"):
+                     "bilinear_tpu_torch.cli.serve",
+                     "bilinear_tpu_torch.ops.resmodule",
+                     "bilinear_tpu_torch.models.hourglass_torch7",
+                     "bilinear_tpu_torch.train.hourglass",
+                     "bilinear_tpu_torch.cli.train_hourglass"):
         assert expected in names
 
 

@@ -114,9 +114,9 @@ def test_checkpoint_round_trip_and_scan(tmp_path, variables):
     params, stats = variables
     pdir = str(tmp_path / "parameter")
     assert pckpt.latest_epoch(pdir) == 0
-    sd = bilinear_from_jax(params, stats)
-    pckpt.save_checkpoint(pdir, 2, sd, step=7)
-    pckpt.save_checkpoint(pdir, -1, sd)  # finalized sentinel never wins
+    trees = bilinear_to_jax(bilinear_from_jax(params, stats))
+    pckpt.save_checkpoint(pdir, 2, *trees, step=7)
+    pckpt.save_checkpoint(pdir, -1, *trees)  # finalized sentinel never wins
     assert pckpt.latest_epoch(pdir) == 2
     payload = pckpt.load_checkpoint(pdir, 2)
     assert payload["epoch"] == 2 and payload["step"] == 7

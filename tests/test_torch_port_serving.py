@@ -23,7 +23,7 @@ from bilinear_tpu_torch.data import h36m as ph36m
 from bilinear_tpu_torch.io.checkpoint import save_checkpoint
 from bilinear_tpu_torch.serving import LiftingServer
 from bilinear_tpu_torch.serving_http import PoseHTTPServer
-from bilinear_tpu_torch.utils.weights import bilinear_from_jax
+from bilinear_tpu_torch.utils.weights import bilinear_from_jax, bilinear_to_jax
 from torch_port_fixtures import scrambled_variables
 
 
@@ -85,14 +85,14 @@ def test_reload_picks_up_newer_epoch(setup, tmp_path):
     params = jax.tree.map(np.asarray, state.params)
     stats = jax.tree.map(np.asarray, state.batch_stats)
     pdir = str(tmp_path / "parameter")
-    save_checkpoint(pdir, 1, bilinear_from_jax(params, stats))
+    save_checkpoint(pdir, 1, *bilinear_to_jax(bilinear_from_jax(params, stats)))
     server, epoch = LiftingServer.from_run_dir(
         str(tmp_path), _train(d, True), dtype=torch.float32, device="cpu")
     assert epoch == 1 and server.reload() is False
     kp = _train(d, True).raw_part[:4].reshape(4, 16, 2)
     before = server.lift(kp)
     p2, s2 = scrambled_variables(1)
-    save_checkpoint(pdir, 2, bilinear_from_jax(p2, s2))
+    save_checkpoint(pdir, 2, *bilinear_to_jax(bilinear_from_jax(p2, s2)))
     assert server.reload() is True and server.epoch == 2
     assert not torch.allclose(before, server.lift(kp))
     assert server.reload() is False
@@ -135,7 +135,7 @@ def test_http_daemon_and_client(setup, tmp_path):
     params = jax.tree.map(np.asarray, state.params)
     stats = jax.tree.map(np.asarray, state.batch_stats)
     save_checkpoint(str(tmp_path / "parameter"), 1,
-                    bilinear_from_jax(params, stats))
+                    *bilinear_to_jax(bilinear_from_jax(params, stats)))
     lifting, _ = LiftingServer.from_run_dir(
         str(tmp_path), _train(d, True), dtype=torch.float32, device="cpu")
     http = PoseHTTPServer(lifting=lifting, port=0, max_delay_ms=5.0)
@@ -173,7 +173,7 @@ def test_http_daemon_and_client(setup, tmp_path):
                                    "lift_epoch": 1}
         p2, s2 = scrambled_variables(1)
         save_checkpoint(str(tmp_path / "parameter"), 2,
-                        bilinear_from_jax(p2, s2))
+                        *bilinear_to_jax(bilinear_from_jax(p2, s2)))
         assert client.reload()["lift_epoch"] == 2
         assert client.health()["lift"]["epoch"] == 2
         assert not np.allclose(client.lift(kp), want)
