@@ -103,7 +103,7 @@ class ResModule(nn.Module):
     def res_params(self) -> rk.ResParams:
         """The kernels' operands as differentiable views of the
         parameters: 1x1 kernels (in, out), the 3x3 kernel (9, in, out)."""
-        s = self.resSeq
+        s = tuple(self.resSeq)  # one walk; indexing a Sequential is slow
         ci, co = self.in_channels, self.out_channels
         half = co // 2
         skip = ci != co
@@ -119,16 +119,27 @@ class ResModule(nn.Module):
         )
 
     def _fused(self, x: torch.Tensor) -> torch.Tensor:
-        s = self.resSeq
+        """The block through K3/K4. In training the three BNs' running
+        statistics are updated in place inside ``res_block_train`` (by the
+        kernels on the card); only the cumulative average
+        (``momentum=None``) is updated here."""
+        s = tuple(self.resSeq)
         bns = (s[0], s[3], s[6])
         p = self.res_params()
         rows = x.permute(0, 2, 3, 1)  # NHWC view of channels_last memory
         if self.training:
-            out, st = rk.res_block_train(rows, p, dtype=self.dtype)
-            n = rows.shape[0] * rows.shape[1] * rows.shape[2]
-            for bn, (m, v) in zip(bns, ((st.m1, st.v1), (st.m2, st.v2),
-                                        (st.m3, st.v3))):
-                update_running_stats(bn, m, v, n)
+            momentum = bns[0].momentum
+            running = None if momentum is None else rk.RunningStats(
+                tuple(bn.running_mean for bn in bns),
+                tuple(bn.running_var for bn in bns),
+                tuple(bn.num_batches_tracked for bn in bns), momentum)
+            out, st = rk.res_block_train(rows, p, dtype=self.dtype,
+                                         running=running)
+            if running is None:
+                n = rows.shape[0] * rows.shape[1] * rows.shape[2]
+                for bn, (m, v) in zip(bns, ((st.m1, st.v1), (st.m2, st.v2),
+                                            (st.m3, st.v3))):
+                    update_running_stats(bn, m, v, n)
         else:
             stats = rk.BatchStats(*(t for bn in bns for t in
                                     (bn.running_mean, bn.running_var)))

@@ -36,7 +36,8 @@ EPS = 1e-5
 TAPS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
 
 # ResModule calls that went through the CUDA kernels: one per call of the
-# C entry (a forward launches 3 to 16 kernels, a backward 32 to 35).
+# C entry (a train forward launches 8 kernels, an eval forward 4, a backward
+# 16, or 18 with a 1x1 skip; the wrapper launches none of its own).
 LAUNCHES_FWD_TRAIN = 0
 LAUNCHES_FWD_EVAL = 0
 LAUNCHES_BWD = 0
@@ -44,7 +45,8 @@ LAUNCHES_BWD = 0
 # Tiling constants shared with csrc/resmodule.cu.
 _CHANNEL_MULTIPLE = 64   # every channel count (GEMM column tile)
 _MAX_CHANNELS = 256      # BN parameters staged in shared memory
-_ROWS_PER_COL_BLOCK = 256  # rows per block of the column reductions
+STAT_TILE_ROWS = 128     # rows of a GEMM tile and of a statistics partial
+STAT_GROUPS = 32         # ordered groups of the statistics' merge
 
 
 class ResParams(NamedTuple):
@@ -77,6 +79,17 @@ class BatchStats(NamedTuple):
     v3: torch.Tensor
 
 
+class RunningStats(NamedTuple):
+    """The three BNs' running means, running variances and
+    ``num_batches_tracked`` counters (f32, f32, int64), updated in place by
+    ``res_block_train``, and their common momentum."""
+
+    mean: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    var: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    count: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    momentum: float
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (the CPU path, and the kernels' check on the card).
 # Every tensor is held in f32; ``_rd`` rounds to the working type and back.
@@ -103,6 +116,53 @@ def _tap_masks(n: int, h: int, w: int, device, sign: int = 1):
 def _stats(h: torch.Tensor):
     m = h.mean(dim=0)
     return m, (h - m).square().mean(dim=0)
+
+
+def merged_tile_stats(h: torch.Tensor, tile: int = STAT_TILE_ROWS,
+                      groups: int = STAT_GROUPS):
+    """``_stats`` the way the kernels take it in one pass: (mean, M2) of
+    every tile of ``tile`` rows (the last may be ragged), merged with Chan's
+    formula in a fixed order (``groups`` runs of consecutive tiles, each
+    merged in order, then the runs in order). Returns (mean, biased
+    variance), f32."""
+    n = h.shape[0]
+    tiles = [h[i:i + tile] for i in range(0, n, tile)]
+    parts = []
+    for t in tiles:
+        m = t.sum(0) / t.shape[0]
+        parts.append((float(t.shape[0]), m, (t - m).square().sum(0)))
+
+    def merge(a, b):
+        (na, ma, m2a), (nb, mb, m2b) = a, b
+        tot = na + nb
+        d = mb - ma
+        f = torch.tensor(nb, dtype=torch.float32) / tot
+        return tot, ma + d * f, (m2a + m2b) + (d * d) * (na * f)
+
+    def fold(items):
+        acc = items[0]
+        for it in items[1:]:
+            acc = merge(acc, it)
+        return acc
+
+    per = -(-len(parts) // groups)
+    runs = [fold(parts[i:i + per]) for i in range(0, len(parts), per)]
+    _, mean, m2 = fold(runs)
+    return mean, m2 / n
+
+
+@torch.no_grad()
+def update_running_ref(running: RunningStats, st: BatchStats, n: int) -> None:
+    """The in-place running-statistics update of ``res_block_train``, plain
+    version: torch's BatchNorm rule with a numeric momentum."""
+    f = running.momentum
+    unbias = n / max(n - 1, 1)
+    batch = ((st.m1, st.v1), (st.m2, st.v2), (st.m3, st.v3))
+    for mean, var, count, (m, v) in zip(running.mean, running.var,
+                                        running.count, batch):
+        count += 1
+        mean.copy_((1 - f) * mean + f * m)
+        var.copy_((1 - f) * var + f * (v * unbias))
 
 
 def _bn(h, g, be, m, v):
@@ -247,23 +307,87 @@ def res_block_bwd_ref(x4d: torch.Tensor, g_out4d: torch.Tensor,
 # CUDA launches
 # ---------------------------------------------------------------------------
 
-_P = ctypes.c_void_p
+_LL = ctypes.c_longlong
 _I = ctypes.c_int
-_FWD_ARGTYPES = [_I] * 8 + [_P] * 26
-_BWD_ARGTYPES = [_I] * 7 + [_P] * 46 + [_I, _I, _P]
+_lib_ready = None
+_scratch_sizes = {}
 
 
 def _lib():
-    lib = _build.library("resmodule")
-    lib.resmodule_forward.argtypes = _FWD_ARGTYPES
-    lib.resmodule_forward.restype = _I
-    lib.resmodule_backward.argtypes = _BWD_ARGTYPES
-    lib.resmodule_backward.restype = _I
-    return lib
+    global _lib_ready
+    if _lib_ready is None:
+        lib = _build.library("resmodule")
+        lib.resmodule_forward.argtypes = [ctypes.POINTER(_LL),
+                                          ctypes.POINTER(ctypes.c_double)]
+        lib.resmodule_forward.restype = _I
+        lib.resmodule_backward.argtypes = [ctypes.POINTER(_LL)]
+        lib.resmodule_backward.restype = _I
+        lib.resmodule_scratch_bytes.argtypes = [_I] * 8
+        lib.resmodule_scratch_bytes.restype = _LL
+        for fn in (lib.resmodule_forward_slots, lib.resmodule_backward_slots):
+            fn.argtypes = []
+            fn.restype = ctypes.c_char_p
+        lib.fwd_slots = lib.resmodule_forward_slots().decode().lower().split()
+        lib.bwd_slots = lib.resmodule_backward_slots().decode().lower().split()
+        _lib_ready = lib
+    return _lib_ready
 
 
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
+def _slot_array(names, vals: dict):
+    """The C entry's argument array: ``vals`` laid out in the order of the
+    slot names the library itself reports, so a value can only land in the
+    slot of its name."""
+    if len(vals) != len(names) or any(k not in vals for k in names):
+        raise RuntimeError(
+            f"argument slots differ from the library's: missing "
+            f"{sorted(set(names) - vals.keys())}, unknown "
+            f"{sorted(vals.keys() - set(names))}")
+    return (_LL * len(names))(*[vals[k] for k in names])
+
+
+def _scratch(lib, kind: int, bf: int, shape, dev) -> torch.Tensor:
+    """One buffer for everything a call keeps between its launches (kind 0
+    eval forward, 1 train forward, 2 backward); the C side carves it."""
+    key = (kind, bf) + shape
+    nbytes = _scratch_sizes.get(key)
+    if nbytes is None:
+        nbytes = _scratch_sizes[key] = int(
+            lib.resmodule_scratch_bytes(kind, bf, *shape))
+    if nbytes < 0:
+        _, _, w, _, ch, _ = shape
+        raise ValueError(
+            f"image width {w} with {ch} bottleneck channels: the bf16 3x3 "
+            f"kernel keeps 128 + 2 W + 2 rows of 2 Ch + 16 bytes in one "
+            f"block's shared memory (W <= 217 at Ch = 128, 277 below 8192 "
+            f"rows)")
+    return torch.empty(nbytes, device=dev, dtype=torch.uint8)
+
+
+def _vec(t: torch.Tensor, c: int, dev, what: str) -> int:
+    """Address of a (c,) f32 vector on ``dev`` as the kernels read it."""
+    ptr = t.data_ptr()
+    if (t.dtype is not torch.float32 or t.device != dev or t.shape != (c,)
+            or t.stride(0) != 1 or ptr % 16):
+        raise ValueError(f"{what}: the kernels take a contiguous, 16-byte "
+                         f"aligned float32 ({c},) vector on {dev}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return ptr
+
+
+def _weight(slot: str, t: Optional[torch.Tensor], shape, dev) -> dict:
+    """Slots {slot: address, slot_[st_]si: ..., slot_so: ...} of an f32
+    weight, read where it lies by the kernel that packs the call's weights:
+    any strides, so a transposed or permuted view of a conv weight costs no
+    copy. None (no 1x1 skip) gives a null address."""
+    keys = [slot] + [f"{slot}_{k}" for k in ("st", "si", "so")[-len(shape):]]
+    if t is None:
+        return dict.fromkeys(keys, 0)
+    if t.dtype is not torch.float32 or t.device != dev or \
+            tuple(t.shape) != shape:
+        raise ValueError(f"{slot}: the kernels take a float32 {shape} weight "
+                         f"on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+    return dict(zip(keys, (t.data_ptr(), *t.stride())))
 
 
 def _check_cuda(x4d: torch.Tensor, p: ResParams, dtype) -> Tuple[int, ...]:
@@ -283,27 +407,25 @@ def _check_cuda(x4d: torch.Tensor, p: ResParams, dtype) -> Tuple[int, ...]:
                 f"of {_CHANNEL_MULTIPLE} up to {_MAX_CHANNELS}")
     if (p.skip_w is None) != (ci == co):
         raise ValueError("skip_w is given exactly when Ci != Co")
-    if b * h * w >= 2 ** 31 // _MAX_CHANNELS:
+    if b * h * w >= 2 ** 31 // _MAX_CHANNELS or h >= 2 ** 15 or w >= 2 ** 15:
         raise ValueError("too many rows for 32-bit indexing")
     return b, h, w, ci, ch, co
 
 
-def _cuda_params(p: ResParams, dtype, device):
-    """Kernel operands: weights contiguous in the working type, the rest
-    contiguous f32."""
-    def wt(t):
-        return None if t is None else t.to(device=device, dtype=dtype) \
-            .contiguous()
-
-    def f32(t):
-        return None if t is None else t.to(device=device,
-                                           dtype=torch.float32).contiguous()
-
-    return ResParams(
-        w1=wt(p.w1), b1=f32(p.b1), w2=wt(p.w2), b2=f32(p.b2), w3=wt(p.w3),
-        b3=f32(p.b3), g1=f32(p.g1), be1=f32(p.be1), g2=f32(p.g2),
-        be2=f32(p.be2), g3=f32(p.g3), be3=f32(p.be3), skip_w=wt(p.skip_w),
-        skip_b=f32(p.skip_b))
+def _param_args(p: ResParams, shape, dev) -> dict:
+    """The slots of the parameters both C entries read; the weights are
+    read in place, by their strides, and rounded to the working type by the
+    call's first launch."""
+    _, _, _, ci, ch, co = shape
+    args = {}
+    args.update(_weight("w1", p.w1, (ci, ch), dev))
+    args.update(_weight("w2", p.w2, (9, ch, ch), dev))
+    args.update(_weight("w3", p.w3, (ch, co), dev))
+    args.update(_weight("skw", p.skip_w, (ci, co), dev))
+    for k, c in (("b1", ch), ("b2", ch), ("g1", ci), ("be1", ci), ("g2", ch),
+                 ("be2", ch), ("g3", ch), ("be3", ch)):
+        args[k] = _vec(getattr(p, k), c, dev, k)
+    return args
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -313,38 +435,59 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _col_partials(n: int, c: int) -> int:
-    return 2 * -(-n // _ROWS_PER_COL_BLOCK) * c
+def _stat_args(stats: BatchStats, shape, dev) -> dict:
+    _, _, _, ci, ch, _ = shape
+    return {k: _vec(s, c, dev, k) for s, c, k in zip(
+        stats, (ci, ci, ch, ch, ch, ch), BatchStats._fields)}
 
 
 def _fwd_cuda(x4d, p: ResParams, train: bool, stats: Optional[BatchStats],
-              dtype):
+              dtype, running: Optional[RunningStats] = None):
     global LAUNCHES_FWD_TRAIN, LAUNCHES_FWD_EVAL
-    b, h, w, ci, ch, co = _check_cuda(x4d, p, dtype)
+    shape = _check_cuda(x4d, p, dtype)
+    b, h, w, ci, ch, co = shape
     dev = x4d.device
     n = b * h * w
     x = _aligned(x4d.to(dtype))
-    q = _cuda_params(p, dtype, dev)
+    lib = _lib()
+    bf = int(dtype == torch.bfloat16)
+    q = _param_args(p, shape, dev)
     if train:
-        st = BatchStats(*(torch.empty(c, device=dev) for c in
-                          (ci, ci, ch, ch, ch, ch)))
+        st = BatchStats(*torch.empty(2 * ci + 4 * ch, device=dev).split(
+            (ci, ci, ch, ch, ch, ch)))
     else:
-        st = BatchStats(*(s.to(device=dev, dtype=torch.float32).contiguous()
-                          for s in stats))
+        st = stats
+    run = dict.fromkeys(
+        (f"run_{k}{i}" for k in ("mean", "var", "count") for i in (1, 2, 3)),
+        0)
+    floats = (ctypes.c_double * 2)(0.0, 1.0)
+    if running is not None:
+        if not train or running.momentum is None:
+            raise ValueError("running statistics are updated in train mode "
+                             "with a numeric momentum")
+        for i, c in enumerate((ci, ch, ch)):
+            run[f"run_mean{i + 1}"] = _vec(running.mean[i], c, dev,
+                                           "running mean")
+            run[f"run_var{i + 1}"] = _vec(running.var[i], c, dev,
+                                          "running var")
+            t = running.count[i]
+            if t.dtype is not torch.int64 or t.device != dev or t.numel() != 1:
+                raise ValueError("num_batches_tracked must be one int64 on "
+                                 f"{dev}")
+            run[f"run_count{i + 1}"] = t.data_ptr()
+        floats = (ctypes.c_double * 2)(float(running.momentum),
+                                       n / max(n - 1, 1))
     out = torch.empty((b, h, w, co), device=dev, dtype=dtype)
-    h12 = torch.empty((2, n, ch), device=dev, dtype=dtype)
-    part = torch.empty(_col_partials(n, max(ci, ch)), device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = _scratch(lib, int(train), bf, shape, dev)
+    vals = dict(
+        q, **_stat_args(st, shape, dev), **run,
+        bf16=bf, train=int(train), b=b, h=h, w=w, ci=ci, ch=ch, co=co,
+        x=x.data_ptr(), b3=_vec(p.b3, co, dev, "b3"),
+        skb=0 if p.skip_b is None else _vec(p.skip_b, co, dev, "skip_b"),
+        out=out.data_ptr(), scratch=scratch.data_ptr(),
+        stream=torch.cuda.current_stream(dev).cuda_stream)
     with torch.cuda.device(dev):
-        rc = _lib().resmodule_forward(
-            int(dtype == torch.bfloat16), int(train), b, h, w, ci, ch, co,
-            x.data_ptr(), q.w1.data_ptr(), q.b1.data_ptr(), q.w2.data_ptr(),
-            q.b2.data_ptr(), q.w3.data_ptr(), q.b3.data_ptr(),
-            q.g1.data_ptr(), q.be1.data_ptr(), q.g2.data_ptr(),
-            q.be2.data_ptr(), q.g3.data_ptr(), q.be3.data_ptr(),
-            _ptr(q.skip_w), _ptr(q.skip_b), *(s.data_ptr() for s in st),
-            out.data_ptr(), h12[0].data_ptr(), h12[1].data_ptr(),
-            part.data_ptr(), stream)
+        rc = lib.resmodule_forward(_slot_array(lib.fwd_slots, vals), floats)
     _build.check(rc, "resmodule_forward")
     if train:
         LAUNCHES_FWD_TRAIN += 1
@@ -353,69 +496,62 @@ def _fwd_cuda(x4d, p: ResParams, train: bool, stats: Optional[BatchStats],
     return out, st
 
 
-def _wgrad_split(n: int) -> Tuple[int, int]:
-    """(splits, rows per split) of the weight-gradient reductions over N."""
-    splits = min(64, max(1, -(-n // 2048)))
-    rows = -(-n // splits)
-    rows = -(-rows // 32) * 32
-    return -(-n // rows), rows
+def _param_strides(t: torch.Tensor) -> Tuple[int, ...]:
+    """``t``'s own strides when it fills its memory without gaps or overlap
+    (a transposed or permuted view of a contiguous parameter), else the
+    contiguous ones: the layout a gradient of ``t`` is written in, so that
+    autograd can hand it to the parameter without a copy."""
+    expected = 1
+    for d in sorted(range(t.dim()), key=t.stride):
+        if t.size(d) == 1:
+            continue
+        if t.stride(d) != expected:
+            return torch.empty(t.shape, device="meta").stride()
+        expected *= t.size(d)
+    return t.stride()
 
 
 def _bwd_cuda(x4d, g_out4d, p: ResParams, stats: BatchStats, dtype):
     global LAUNCHES_BWD
-    b, h, w, ci, ch, co = _check_cuda(x4d, p, dtype)
+    shape = _check_cuda(x4d, p, dtype)
+    b, h, w, ci, ch, co = shape
     dev = x4d.device
-    n = b * h * w
     x = _aligned(x4d.to(dtype))
     g = _aligned(g_out4d.to(dtype))
     if g.shape != (b, h, w, co):
         raise ValueError(f"g_out {tuple(g.shape)} for output "
                          f"{(b, h, w, co)}")
-    q = _cuda_params(p, dtype, dev)
-    st = BatchStats(*(s.to(device=dev, dtype=torch.float32).contiguous()
-                      for s in stats))
-    # Transposed weights for the data gradients: (out, in) row-major, and
-    # w2 as the (9 * Ch, Ch) stack of w2[t]^T.
-    w1t = q.w1.t().contiguous()
-    w2t = q.w2.transpose(1, 2).contiguous()
-    w3t = q.w3.t().contiguous()
-    wskt = None if q.skip_w is None else q.skip_w.t().contiguous()
-
-    f32 = dict(device=dev, dtype=torch.float32)
+    lib = _lib()
+    bf = int(dtype == torch.bfloat16)
+    q = _param_args(p, shape, dev)
+    skip = p.skip_w is not None
+    # One buffer for every f32 gradient, each weight's in the layout of its
+    # parameter.
+    sizes = [ci * ch, ch, 9 * ch * ch, ch, ch * co, co, ci, ci, ch, ch, ch,
+             ch] + ([ci * co, co] if skip else [])
+    parts = list(torch.empty(sum(sizes), device=dev).split(sizes))
+    for i, t in ((0, p.w1), (2, p.w2), (4, p.w3)) + (
+            ((12, p.skip_w),) if skip else ()):
+        parts[i] = parts[i].as_strided(t.shape, _param_strides(t))
+    grads = ResParams(*parts, *(() if skip else (None, None)))
     gx = torch.empty((b, h, w, ci), device=dev, dtype=dtype)
-    grads = ResParams(
-        w1=torch.empty((ci, ch), **f32), b1=torch.empty(ch, **f32),
-        w2=torch.empty((9, ch, ch), **f32), b2=torch.empty(ch, **f32),
-        w3=torch.empty((ch, co), **f32), b3=torch.empty(co, **f32),
-        g1=torch.empty(ci, **f32), be1=torch.empty(ci, **f32),
-        g2=torch.empty(ch, **f32), be2=torch.empty(ch, **f32),
-        g3=torch.empty(ch, **f32), be3=torch.empty(ch, **f32),
-        skip_w=None if wskt is None else torch.empty((ci, co), **f32),
-        skip_b=None if wskt is None else torch.empty(co, **f32),
-    )
-    tmp = torch.empty((4, n, ch), device=dev, dtype=dtype)  # h1 h2 gh2 gh1
-    gyc = torch.empty((n, ch), **f32)
-    gy1 = torch.empty((n, ci), **f32)
-    skd = None if wskt is None else torch.empty((n, ci), **f32)
-    splits, rows = _wgrad_split(n)
-    wpart = torch.empty(splits * max(ci * ch, 9 * ch * ch, ch * co, ci * co),
-                        **f32)
-    cpart = torch.empty(_col_partials(n, max(ci, ch, co)), **f32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = _scratch(lib, 2, bf, shape, dev)
+    vals = dict(
+        q, **_stat_args(stats, shape, dev),
+        bf16=bf, b=b, h=h, w=w, ci=ci, ch=ch, co=co,
+        x=x.data_ptr(), gout=g.data_ptr(), gx=gx.data_ptr(),
+        scratch=scratch.data_ptr(),
+        stream=torch.cuda.current_stream(dev).cuda_stream)
+    shapes = {"w1": (ci, ch), "w2": (9, ch, ch), "w3": (ch, co),
+              "skip_w": (ci, co)}
+    for k, t in grads._asdict().items():
+        slot = "d" + {"skip_w": "skw", "skip_b": "skb"}.get(k, k)
+        if k in shapes:
+            vals.update(_weight(slot, t, shapes[k], dev))
+        else:
+            vals[slot] = 0 if t is None else t.data_ptr()
     with torch.cuda.device(dev):
-        rc = _lib().resmodule_backward(
-            int(dtype == torch.bfloat16), b, h, w, ci, ch, co,
-            x.data_ptr(), g.data_ptr(),
-            q.w1.data_ptr(), q.b1.data_ptr(), q.w2.data_ptr(),
-            q.b2.data_ptr(), q.g1.data_ptr(), q.be1.data_ptr(),
-            q.g2.data_ptr(), q.be2.data_ptr(), q.g3.data_ptr(),
-            q.be3.data_ptr(), w1t.data_ptr(), w2t.data_ptr(),
-            w3t.data_ptr(), _ptr(wskt), *(s.data_ptr() for s in st),
-            gx.data_ptr(), *(_ptr(t) for t in grads),
-            tmp[0].data_ptr(), tmp[1].data_ptr(), tmp[2].data_ptr(),
-            tmp[3].data_ptr(), gyc.data_ptr(), gy1.data_ptr(), _ptr(skd),
-            wpart.data_ptr(), cpart.data_ptr(),
-            splits, rows, stream)
+        rc = lib.resmodule_backward(_slot_array(lib.bwd_slots, vals))
     _build.check(rc, "resmodule_backward")
     LAUNCHES_BWD += 1
     return gx, grads
@@ -434,12 +570,15 @@ class _ResBlockTrain(torch.autograd.Function):
     outputs carry no gradient."""
 
     @staticmethod
-    def forward(ctx, x4d, dtype, *params):
+    def forward(ctx, x4d, dtype, running, *params):
         p = ResParams(*params)
         if x4d.device.type == "cpu":
             out, st = res_block_ref(x4d, p, train=True, dtype=dtype)
+            if running is not None:
+                b, h, w, _ = x4d.shape
+                update_running_ref(running, st, b * h * w)
         else:
-            out, st = _fwd_cuda(x4d, p, True, None, dtype)
+            out, st = _fwd_cuda(x4d, p, True, None, dtype, running)
         ctx.dtype = dtype
         ctx.has_skip = p.skip_w is not None
         ctx.save_for_backward(x4d, *(t for t in params if t is not None),
@@ -460,15 +599,27 @@ class _ResBlockTrain(torch.autograd.Function):
             gx, grads = res_block_bwd_ref(x4d, g_out, p, st, dtype=ctx.dtype)
         else:
             gx, grads = _bwd_cuda(x4d, g_out, p, st, ctx.dtype)
-        return (gx, None, *grads)
+        return (gx, None, None, *grads)
 
 
 def res_block_train(x4d: torch.Tensor, p: ResParams, *,
-                    dtype=torch.bfloat16) -> Tuple[torch.Tensor, BatchStats]:
+                    dtype=torch.bfloat16,
+                    running: Optional[RunningStats] = None
+                    ) -> Tuple[torch.Tensor, BatchStats]:
     """Fused train-mode forward, differentiable: (B, H, W, Ci) ->
     ((B, H, W, Co), BatchStats). ``x4d`` is cast to ``dtype`` before the
-    autograd boundary, so its gradient has the working type."""
-    res = _ResBlockTrain.apply(x4d.to(dtype), dtype, *p)
+    autograd boundary, so its gradient has the working type.
+
+    With ``running`` the three BNs' running statistics are updated IN PLACE
+    by the call (torch's rule: ``r = (1 - momentum) r + momentum batch``,
+    the variance unbiased by n / (n - 1), ``num_batches_tracked += 1``); on
+    the card the kernel that finishes each BN's statistics writes them. The
+    JAX package returns new statistics instead (``core/norm.py`` there).
+    ``running.momentum`` must be a number: the cumulative average
+    (``momentum=None``) stays with ``core.norm.update_running_stats``."""
+    if running is not None and running.momentum is None:
+        raise ValueError("running.momentum must be a number")
+    res = _ResBlockTrain.apply(x4d.to(dtype), dtype, running, *p)
     return res[0], BatchStats(*res[1:])
 
 

@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from bilinear_tpu_torch.core.optim import HourglassOptimizer, \
     hourglass_optimizer
@@ -35,6 +36,11 @@ from bilinear_tpu_torch.ops.heatmap import keypoints_to_heatmap_space, \
     render_heatmaps
 from bilinear_tpu_torch.ops.joints import MPII_FLIP_SWAP
 from bilinear_tpu_torch.utils import weights as wt
+
+# Profiler ranges of HourglassTrainer.train_step, in order: augmentation and
+# targets, forward + loss, zero_grad + backward, clip + RMSprop.
+STEP_RANGES = ("train_step/preprocess", "train_step/forward",
+               "train_step/backward", "train_step/optimizer")
 
 
 def make_model(variant: str = "torch7", dtype=torch.float32, n_stacks=None,
@@ -198,15 +204,22 @@ class HourglassTrainer:
 
     def train_step(self, state: TrainState, batch: dict,
                    augment: Augment) -> torch.Tensor:
-        """One update; returns the loss (a device scalar, not synced)."""
-        crops, targets, _ = preprocess_batch(
-            batch["images"], batch["centers"], batch["scales"],
-            batch["keypoints"], batch["valid"], augment)
-        state.model.train()
-        loss = heatmap_loss(state.model(crops), targets)
-        state.optimizer.zero_grad()
-        loss.backward()
-        state.optimizer.step()
+        """One update; returns the loss (a device scalar, not synced). Its
+        four phases are ``STEP_RANGES`` under ``torch.profiler`` (the ranges
+        do nothing outside a profile)."""
+        preprocess, forward, backward, optimizer = STEP_RANGES
+        with record_function(preprocess):
+            crops, targets, _ = preprocess_batch(
+                batch["images"], batch["centers"], batch["scales"],
+                batch["keypoints"], batch["valid"], augment)
+        with record_function(forward):
+            state.model.train()
+            loss = heatmap_loss(state.model(crops), targets)
+        with record_function(backward):
+            state.optimizer.zero_grad()
+            loss.backward()
+        with record_function(optimizer):
+            state.optimizer.step()
         state.step += 1
         return loss.detach()
 

@@ -11,10 +11,10 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
 3. Kernels vs their plain PyTorch versions, on the card, in the working
    type: K1 bf16 and f32, K2 dynamic and static, at n in NS, full-width
    weights with scrambled BN statistics from a seeded torch.Generator.
-   3b. K3 train (output and the six batch statistics), K3 eval and K4
-   (g_x and every parameter gradient) against res_block_ref /
-   res_block_bwd_ref at every ResModule shape of the full-width detector
-   and a tail batch, in bf16 and f32.
+   3b. K3 train (output, the six batch statistics and the running
+   statistics it updates in place), K3 eval and K4 (g_x and every parameter
+   gradient) against res_block_ref / res_block_bwd_ref at every ResModule
+   shape of the full-width detector and a tail batch, in bf16 and f32.
 4. The lifting slice: a synthetic H36M dataset and an epoch-1 checkpoint
    written by the port; for each serving mode the daemon of cli/serve.py
    answers /v1/lift requests (JSON and .npy, concurrent ones coalesced)
@@ -34,10 +34,14 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
 7. Full-width step parity: loss and per-tensor gradients of
    MainModel(fused=True) against MainModel(fused=False) (cuDNN + torch BN)
    from one state on one batch, f32 and bf16.
-8. Detector times: K3 train, K3 eval and K4 in bf16 at (8, 64, 64,
-   256 -> 256) and (8, 128, 128, 64 -> 128) beside their bound, plain
-   version and the standard ResModule as a labelled yardstick; and one full
-   training step, fused and standard, as ms/step and img/s.
+8. Detector times: K3 train, K3 eval and K4 in bf16 at the eight
+   full-width shapes of a training step, by CUDA events and as the sum of
+   kernel durations in a torch.profiler trace, with the device kernels per
+   call (at most 8, 4 and 18, wrapper included), the launches per step and
+   the bound; at (8, 64, 64, 256 -> 256) and (8, 128, 128, 64 -> 128) also
+   the plain version and the standard ResModule as a labelled yardstick;
+   and one full training step, fused and standard, as ms/step, img/s,
+   device time and kernels per step, and the host's time per phase.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or bilinear_tpu.
@@ -250,7 +254,9 @@ def check_group_amax(params, stats, x_all):
 # ------------------------------------------------------------ phase 3b
 
 # Every ResModule shape of the full-width detector at batch 8 (B, H, W, Ci,
-# Co), and a tail batch.
+# Co), then tail batches whose row count N = B*H*W is no multiple of the
+# kernels' 128-row tile: a training epoch's last batch runs the hourglass's
+# 4x4 modules at N = 96, one partial tile.
 RES_SHAPES = (
     (8, 128, 128, 64, 128),   # stem_res1, 1x1 skip
     (8, 64, 64, 128, 128),    # stem_res2
@@ -260,7 +266,12 @@ RES_SHAPES = (
     (8, 16, 16, 256, 256),
     (8, 8, 8, 256, 256),
     (8, 4, 4, 256, 256),
-    (5, 16, 16, 256, 256),    # a tail batch
+    (5, 16, 16, 256, 256),    # a tail batch of whole tiles
+    (6, 4, 4, 256, 256),      # N = 96: the main path's tail step
+    (3, 4, 4, 256, 256),      # N = 48: less than one weight-gradient chunk
+    (5, 8, 8, 256, 256),      # N = 320: two whole tiles and half a tile
+    (3, 8, 8, 128, 256),      # N = 192, 1x1 skip
+    (1, 10, 20, 64, 128),     # N = 200, 1x1 skip, H != W, Ch = 64
 )
 # Gates of K3/K4 against their plain versions: (mean |d|, max |d|), both
 # relative to mean |ref|. The two sum in another order. f32 forward: ~1e-7
@@ -317,6 +328,74 @@ def res_case(shape, seed, dev):
     return x, g, p, stats
 
 
+def check_running_update(x, p, stats, dtype, st, tag):
+    """The running statistics K3 updates in place (momentum 0.1) against
+    the plain update from the same batch statistics: the same f32 formula,
+    so 1e-6 relative; and the batch statistics of that call must be the
+    bits of the call without the update."""
+    import torch
+    from bilinear_tpu_torch.ops import resmodule as rm
+
+    def fresh():
+        return rm.RunningStats(
+            tuple(t.clone() for t in stats[0::2]),
+            tuple(t.clone() for t in stats[1::2]),
+            tuple(torch.zeros((), dtype=torch.int64, device=x.device)
+                  for _ in range(3)), 0.1)
+
+    got, want = fresh(), fresh()
+    st2 = rm._fwd_cuda(x, p, True, None, dtype, got)[1]
+    torch.cuda.synchronize()
+    if any(not torch.equal(a, b) for a, b in zip(st, st2)):
+        raise AssertionError(f"K3 train {tag}: batch statistics change with "
+                             f"the running update")
+    b, h, w, _ = x.shape
+    rm.update_running_ref(want, st, b * h * w)
+    worst = 0.0
+    for a, r in zip(got.mean + got.var, want.mean + want.var):
+        worst = max(worst, float(((a - r).abs() / r.abs().clamp_min(1e-3))
+                                 .max()))
+    counts = [int(c) for c in got.count]
+    log(f"  K3 train {tag} running statistics in place: max rel diff "
+        f"{worst:.2e}, num_batches_tracked {counts}")
+    if worst > 1e-6 or counts != [1, 1, 1]:
+        raise AssertionError(f"K3 train {tag}: running statistics disagree")
+
+
+WIDE_SHAPE = (1, 4, 320, 256, 256)
+
+
+def check_wide_image(gate):
+    """An image wider than the bf16 3x3's shared-memory tile takes (W <= 217
+    at Ch = 128, 277 below 8192 rows) is refused by name in bf16, before anything is launched,
+    and computed in f32."""
+    import torch
+    from bilinear_tpu_torch.ops import resmodule as rm
+
+    x, g, p, stats = res_case(WIDE_SHAPE, SEED + 30, torch.device("cuda"))
+    before = (rm.LAUNCHES_FWD_EVAL, rm.LAUNCHES_BWD)
+    for call in (lambda: rm._fwd_cuda(x.bfloat16(), p, False, stats,
+                                      torch.bfloat16),
+                 lambda: rm._bwd_cuda(x.bfloat16(), g.bfloat16(), p, stats,
+                                      torch.bfloat16)):
+        try:
+            call()
+        except ValueError as e:
+            if "image width 320" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"bf16 {WIDE_SHAPE} was not refused")
+    if (rm.LAUNCHES_FWD_EVAL, rm.LAUNCHES_BWD) != before:
+        raise AssertionError("a refused call was counted as a launch")
+    log(f"  bf16 {WIDE_SHAPE}: refused with a ValueError that names the "
+        f"width")
+    out = rm._fwd_cuda(x, p, False, stats, torch.float32)[0]
+    torch.cuda.synchronize()
+    ref = rm.res_block_ref(x, p, train=False, stats=stats,
+                           dtype=torch.float32)[0]
+    gate(f"K3 eval f32 {WIDE_SHAPE} out", "f32", out, ref)
+
+
 def check_resmodule():
     """K3 train (out + six stats), K3 eval and K4 (g_x + every parameter
     gradient) against res_block_ref / res_block_bwd_ref on the same CUDA
@@ -352,6 +431,7 @@ def check_resmodule():
             for name, a, b in zip(rm.BatchStats._fields, st, ref_st):
                 e = max(e, gate(f"K3 train {tag} {name}", kind, a, b))
             errs["resmodule_fwd_train"] = max(errs["resmodule_fwd_train"], e)
+            check_running_update(x, p, stats, dtype, st, tag)
 
             out = rm._fwd_cuda(x, p, False, stats, dtype)[0]
             torch.cuda.synchronize()
@@ -371,6 +451,7 @@ def check_resmodule():
                                     rgp.b3 if name in ("b1", "b2") else None))
             errs["resmodule_bwd"] = max(errs["resmodule_bwd"], e)
             del x, g, p, stats, out, st, ref, ref_st, gx, gp, rgx, rgp
+    check_wide_image(gate)
     if failed:
         raise AssertionError(f"{len(failed)} resmodule cases out of "
                              f"tolerance:\n" + "\n".join(failed))
@@ -675,6 +756,7 @@ def drive_detector(work):
     from bilinear_tpu_torch.data.h36m import Task
     from bilinear_tpu_torch.data.mpii import MPIIAnnotations
     from bilinear_tpu_torch.data.synthetic import write_mpii_dataset
+    from bilinear_tpu_torch.models import hourglass_torch7 as hg
 
     data_dir = os.path.join(work, "MPII")
     save_root = os.path.join(work, "save")
@@ -689,10 +771,18 @@ def drive_detector(work):
     run_dir = os.path.join(save_root, "smoke")
     launches = {k: 0 for k in _res_counts()}
     losses = []
+    python_updates = []
+    real_update = hg.update_running_stats
+    hg.update_running_stats = lambda *a, **k: (python_updates.append(1),
+                                               real_update(*a, **k))
     for invocation in (1, 2):
         _zero_res_counts()
         t0 = time.perf_counter()
-        train_hourglass.main(argv)
+        try:
+            train_hourglass.main(argv)
+        finally:
+            if invocation == 2:
+                hg.update_running_stats = real_update
         secs = time.perf_counter() - t0
         count = _res_counts()
         log(f"  invocation {invocation}: {n_records} records, {steps} steps "
@@ -719,6 +809,11 @@ def drive_detector(work):
         if not os.path.exists(os.path.join(run_dir, "parameter",
                                            f"{invocation}.save")):
             raise AssertionError(f"{invocation}.save was not written")
+    if python_updates:
+        raise AssertionError(f"{len(python_updates)} running-statistics "
+                             f"updates went through Python; the kernels "
+                             f"update them in place")
+    log("  every running-statistics update was made by the kernels")
     if "Resumed from epoch 1" not in text:
         raise AssertionError("the second invocation did not resume")
     log("  the second invocation logged 'Resumed from epoch 1' and wrote "
@@ -792,7 +887,7 @@ def step_parity(data_dir):
                   if isinstance(mod, torch.nn.Conv2d)
                   and not m.startswith("htmapArray.")}
     del base
-    grads, losses = {}, {}
+    grads, losses, buffers = {}, {}, {}
     for dtype in ("float32", "bfloat16"):
         for fused in (True, False):
             model = MainModel(dtype=getattr(torch, dtype), fused=fused)
@@ -804,8 +899,28 @@ def step_parity(data_dir):
             grads[dtype, fused] = {k: p.grad.detach().clone()
                                    for k, p in model.named_parameters()
                                    if p.grad is not None}
+            buffers[dtype, fused] = {k: b.detach().clone()
+                                     for k, b in model.named_buffers()}
             del model, loss
             torch.cuda.empty_cache()
+    # The BN buffers after that one step, f32: the fused path's kernels
+    # update them in place, the standard path's are torch's own. Both take
+    # the same statistics of activations that agree to ~1e-6, so 1e-4.
+    worst = 0.0
+    for k, ref in buffers["float32", False].items():
+        got = buffers["float32", True][k]
+        if k.endswith("num_batches_tracked"):
+            if int(got) != int(ref):
+                raise AssertionError(f"{k}: {int(got)} fused, {int(ref)} "
+                                     f"standard")
+        else:
+            worst = max(worst, float(((got - ref).abs()
+                                      / ref.abs().clamp_min(1e-2)).max()))
+    log(f"  float32: BN running statistics after the step, fused vs "
+        f"standard, max rel diff {worst:.2e} over "
+        f"{len(buffers['float32', False])} buffers")
+    if worst > 1e-4:
+        raise AssertionError("the fused path's running statistics disagree")
     keys = grads["float32", False].keys()
     if any(g.keys() != keys for g in grads.values()):
         raise AssertionError("the two paths train different tensors")
@@ -858,6 +973,16 @@ def step_parity(data_dir):
 # ------------------------------------------------------------ phase 8
 
 RES_TIME_SHAPES = ((8, 64, 64, 256, 256), (8, 128, 128, 64, 128))
+# The eight full-width shapes of one training step and how many ResModules
+# of the detector have each (3 in the stem; per stack 1 at 64x64 and 3 at
+# each of 32, 16, 8 and 4, the waist among the last).
+RES_STEP_SHAPES = RES_SHAPES[:8]
+# Shapes whose calls are also broken down by kernel in the log.
+RES_BREAKDOWN_SHAPES = RES_TIME_SHAPES + ((8, 8, 8, 256, 256),)
+# Most device kernels one call may launch, the wrapper's own included.
+RES_KERNEL_CAPS = {"resmodule_fwd_train": 8, "resmodule_fwd_eval": 4,
+                   "resmodule_bwd": 18}
+RES_STEP_LAUNCHES = (1, 1, 1, 8, 24, 24, 24, 24)
 
 
 def res_bound(shape, kind: str, itemsize: int = 2):
@@ -876,10 +1001,44 @@ def res_bound(shape, kind: str, itemsize: int = 2):
                                        else "bytes")
 
 
+def _trace(fn, calls: int):
+    """{kernel name: (ms per call, launches per call)} from a
+    torch.profiler trace of ``calls`` calls of ``fn``: every device kernel
+    and copy, whoever launched it. Annotation ranges, which span kernels
+    already counted, are left out: the trainer's own ('train_step/...') and
+    the optimizer's ('Optimizer.step#RMSprop.step'); a kernel whose name
+    holds a '#' further in (a lambda of an elementwise kernel) is counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for evt in prof.key_averages():
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = evt.self_cuda_time_total
+        if getattr(evt, "is_user_annotation", False) or \
+                evt.key.startswith("train_step/"):
+            continue
+        if t > 0 and "#" not in evt.key.split("(")[0].split("<")[0]:
+            ms, cnt = per.get(evt.key, (0.0, 0.0))
+            per[evt.key] = (ms + t / 1e3 / calls, cnt + evt.count / calls)
+    return per
+
+
 def time_resmodule():
-    """K3 train, K3 eval and K4 in bf16 beside their bound, their plain
-    versions and the standard ResModule (cuDNN convs + torch BN) as a
-    labelled yardstick; plain, kernel, kernel, plain."""
+    """K3 train, K3 eval and K4 in bf16 at the eight full-width shapes of a
+    training step: CUDA-event time of back-to-back calls (kernel, kernel;
+    it includes host time where the host is slower than the device), the
+    sum of kernel durations and the number of device kernels per call from a
+    trace (the wrapper's own casts and copies included), the bound, and the
+    launches per training step. At RES_TIME_SHAPES also the plain version
+    (plain, kernel, kernel, plain) and the standard ResModule (cuDNN convs +
+    torch BN) as a labelled yardstick."""
     import torch
     from bilinear_tpu_torch.models.hourglass_torch7 import ResModule
     from bilinear_tpu_torch.ops import resmodule as rm
@@ -887,20 +1046,26 @@ def time_resmodule():
     dev = torch.device("cuda")
     dt = torch.bfloat16
     table = {}
-    for shape in RES_TIME_SHAPES:
+    for shape, per_step in zip(RES_STEP_SHAPES, RES_STEP_LAUNCHES):
         x, g, p, stats = res_case(shape, SEED + 40, dev)
         x = x.to(dt)
+        g = g.to(dt)
         st = rm._fwd_cuda(x, p, True, None, dt)[1]
-        std = ResModule(shape[3], shape[4], dtype=dt).to(dev).train()
-        xs = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
-        gs = g.to(dt).permute(0, 3, 1, 2)
+        full = shape in RES_TIME_SHAPES
+        if full:
+            std = ResModule(shape[3], shape[4], dtype=dt).to(dev).train()
+            xs = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
+            gs = g.permute(0, 3, 1, 2)
 
-        def std_fwd():
-            with torch.no_grad():
-                std(xs)
+            def std_fwd():
+                with torch.no_grad():
+                    std(xs)
 
-        def std_fwd_bwd():
-            torch.autograd.backward(std(xs), gs)
+            def std_fwd_bwd():
+                torch.autograd.backward(std(xs), gs)
+
+            y_f = cuda_ms(std_fwd, 20)
+            y_fb = cuda_ms(std_fwd_bwd, 20)
 
         cases = {
             "resmodule_fwd_train": (
@@ -914,25 +1079,51 @@ def time_resmodule():
                 "bwd", lambda: rm._bwd_cuda(x, g, p, st, dt),
                 lambda: rm.res_block_bwd_ref(x, g, p, st, dtype=dt)),
         }
-        y_f = cuda_ms(std_fwd, 20)
-        y_fb = cuda_ms(std_fwd_bwd, 20)
         for name, (kind, kern, plain) in cases.items():
             b_ms, b_by = res_bound(shape, kind)
-            p1 = cuda_ms(plain, 5)
+            p1 = cuda_ms(plain, 5) if full else None
             k1 = cuda_ms(kern, 20)
             k2 = cuda_ms(kern, 20)
-            p2 = cuda_ms(plain, 5)
-            yard = y_f if kind == "fwd" else y_fb - y_f
-            row = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-                   "bound_ms": b_ms, "bound_by": b_by,
-                   "yardstick_standard_module_ms": yard}
+            p2 = cuda_ms(plain, 5) if full else None
+            per = _trace(kern, 3)
+            row = {"ms": (k1 + k2) / 2,
+                   "trace_ms": sum(ms for ms, _ in per.values()),
+                   "device_kernels_per_call":
+                       sum(cnt for _, cnt in per.values()),
+                   "launches_per_step": per_step,
+                   "bound_ms": b_ms, "bound_by": b_by}
+            msg = (f"  {name} {shape} bf16: kernel {row['ms']:.4f} ms by "
+                   f"events (turns {k1:.4f}, {k2:.4f}), {row['trace_ms']:.4f} "
+                   f"ms as the trace's sum over "
+                   f"{row['device_kernels_per_call']:.1f} device kernels per "
+                   f"call, bound {b_ms:.4f} ms ({b_by}), {per_step} per "
+                   f"training step")
+            if full:
+                yard = y_f if kind == "fwd" else y_fb - y_f
+                row.update({"plain_ms": (p1 + p2) / 2,
+                            "yardstick_standard_module_ms": yard})
+                msg += (f", plain {row['plain_ms']:.4f} ms, yardstick "
+                        f"standard ResModule (cuDNN + torch BN) "
+                        f"{'forward' if kind == 'fwd' else 'backward'} "
+                        f"{yard:.4f} ms")
+            log(msg)
+            if shape in RES_BREAKDOWN_SHAPES and name != "resmodule_fwd_eval":
+                log("    by kernel, us per call (launches): " + "; ".join(
+                    f"{k.split('(')[0].replace('void rm::', '')} "
+                    f"{ms * 1e3:.1f} ({cnt:.0f})" for k, (ms, cnt) in
+                    sorted(per.items(), key=lambda kv: -kv[1][0])))
+            if row["device_kernels_per_call"] > RES_KERNEL_CAPS[name]:
+                raise AssertionError(
+                    f"{name} {shape}: {row['device_kernels_per_call']} device "
+                    f"kernels per call, at most {RES_KERNEL_CAPS[name]}")
             table.setdefault(name, {})[shape] = row
-            log(f"  {name} {shape} bf16: kernel {row['ms']:.4f} ms (turns "
-                f"{k1:.4f}, {k2:.4f}), plain {row['plain_ms']:.4f} ms, bound "
-                f"{b_ms:.4f} ms ({b_by}), yardstick standard ResModule "
-                f"(cuDNN + torch BN) {'forward' if kind == 'fwd' else 'backward'}"
-                f" {yard:.4f} ms")
-        del x, g, p, stats, st, std, xs, gs
+        del x, g, p, stats, st
+    for name, rows in table.items():
+        by_trace, by_events = (
+            sum(r[key] * r["launches_per_step"] for r in rows.values())
+            for key in ("trace_ms", "ms"))
+        log(f"  {name}: sum over a training step's 107 modules "
+            f"{by_trace:.2f} ms by trace, {by_events:.2f} ms by events")
     return table
 
 
@@ -975,44 +1166,70 @@ def time_train_step(data_dir):
     for fused, ms in ((True, (turns[1] + turns[2]) / 2),
                       (False, (turns[0] + turns[3]) / 2)):
         label = "fused" if fused else "standard"
-        busy, top = _device_time(lambda: trainers[fused].train_step(
-            states[fused], batch, aug))
+        busy, n_kernels, top = _device_time(
+            lambda: trainers[fused].train_step(states[fused], batch, aug))
+        split = host_split(
+            lambda: trainers[fused].train_step(states[fused], batch, aug))
         out[label] = {"ms_per_step": ms,
                       "img_per_s": DETECTOR_BATCH * 1e3 / ms,
                       "device_ms_per_step": busy,
+                      "device_kernels_per_step": n_kernels,
                       "device_idle_share": max(0.0, 1 - busy / ms),
-                      "device_top": top}
+                      "device_top": top, "host_split_ms": split}
         log(f"  train step {label}: {ms:.2f} ms/step, "
             f"{DETECTOR_BATCH * 1e3 / ms:.1f} img/s (batch {DETECTOR_BATCH},"
             f" bf16, full width; turns {turns}); device busy {busy:.2f} "
-            f"ms/step (idle {100 * max(0.0, 1 - busy / ms):.0f}%), top "
+            f"ms/step in {n_kernels:.0f} device kernels (idle "
+            f"{100 * max(0.0, 1 - busy / ms):.0f}%), top "
             f"kernels ms/step: " + ", ".join(f"{k} {v:.2f}" for k, v in top))
+        log(f"  train step {label}: host ms per phase of train_step under the "
+            f"profiler, no sync between phases: " + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
     return out
 
 
 def _device_time(step, steps: int = 2):
-    """Device time per step (sum of kernel and copy times in a
-    torch.profiler trace; the optimizer's '#'-named annotation ranges,
-    which span kernels already counted, are left out) and the five kernels
-    with the most of it, ms per step."""
+    """Device time and device kernels per step (from a trace of ``steps``
+    steps) and the five kernels with the most time, ms per step."""
+    per = _trace(step, steps)
+    by_name = {}
+    for key, (ms, _) in per.items():
+        by_name[key[:60]] = by_name.get(key[:60], 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return (sum(ms for ms, _ in per.values()),
+            sum(cnt for _, cnt in per.values()), top)
+
+
+def host_split(step, steps: int = 3):
+    """Host milliseconds per phase of the trainer's own train_step, read
+    from its record_function ranges (train.hourglass.STEP_RANGES) in a
+    torch.profiler trace with CPU activity: what the host spends launching
+    each phase, with no synchronisation between phases, and then the wait
+    for the device. The profiler's bookkeeping of every operator is inside
+    these times, so they sum to more than an unprofiled step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from bilinear_tpu_torch.train.hourglass import STEP_RANGES
+
+    wait = 0.0
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
         for _ in range(steps):
             step()
-        torch.cuda.synchronize()
-    per = {}
-    for evt in prof.key_averages():
-        t = getattr(evt, "self_device_time_total", None)
-        if t is None:
-            t = evt.self_cuda_time_total
-        if t > 0 and "#" not in evt.key:
-            key = evt.key[:60]
-            per[key] = per.get(key, 0.0) + t / 1e3 / steps
-    top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
-    return sum(per.values()), top
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            wait += (time.perf_counter() - t0) * 1e3 / steps
+    ranges = {evt.key: evt for evt in prof.key_averages()}
+    split = {}
+    for name in STEP_RANGES:
+        evt = ranges.get(name)
+        if evt is None or evt.count != steps:
+            raise AssertionError(f"train_step ran the range {name!r} "
+                                 f"{evt.count if evt else 0} times in "
+                                 f"{steps} steps")
+        split[name.split("/")[1]] = evt.cpu_time_total / 1e3 / steps
+    split["device_wait"] = wait
+    return split
 
 
 # ------------------------------------------------------------------ main
@@ -1110,7 +1327,11 @@ def run() -> dict:
                 "library_ms": None,
                 "yardstick_standard_module_ms":
                     main["yardstick_standard_module_ms"],
+                "trace_ms": main["trace_ms"],
+                "device_kernels_per_call": main["device_kernels_per_call"],
                 "at_" + "x".join(map(str, RES_TIME_SHAPES[1])): big,
+                "per_shape": [dict(row, shape_bhwio=list(shape))
+                              for shape, row in at.items()],
             })
             continue
         at = table[name]

@@ -221,3 +221,188 @@ def test_cuda_wrapper_refuses_a_cpu_tensor():
     tx, tp, _ = _torch(x, p, [np.zeros(1)] * 6)
     with pytest.raises(ValueError, match="CUDA"):
         prm._fwd_cuda(tx, tp, True, None, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# The wrapper's interface: weights read where PyTorch keeps them, running
+# statistics updated in place, one-pass statistics.
+# ---------------------------------------------------------------------------
+
+
+def _module(ci, co, momentum=0.1, fused=True, seed=0):
+    from bilinear_tpu_torch.models.hourglass_torch7 import ResModule
+
+    torch.manual_seed(seed)
+    mod = ResModule(ci, co, momentum=momentum, fused=fused)
+    with torch.no_grad():
+        for bn in (mod.resSeq[0], mod.resSeq[3], mod.resSeq[6]):
+            bn.weight.uniform_(0.5, 1.5)
+            bn.bias.normal_(0, 0.3)
+            bn.running_mean.normal_(0, 0.2)
+            bn.running_var.uniform_(0.5, 1.5)
+    return mod
+
+
+@pytest.mark.parametrize("dtype_name", list(DTYPES))
+@pytest.mark.parametrize("ci,co", [(16, 16), (8, 16)], ids=["identity", "skip"])
+def test_strided_param_views_equal_contiguous_copies(ci, co, dtype_name):
+    """res_block_train / res_block_eval fed ResModule.res_params()' strided
+    views of the conv weights give the bits of contiguous copies, forward
+    and gradients."""
+    _, td = DTYPES[dtype_name]
+    mod = _module(ci, co)
+    views = mod.res_params()
+    assert not views.w1.is_contiguous() and not views.w2.is_contiguous()
+    x = torch.from_numpy(np.random.RandomState(5).randn(2, 8, 8, ci)
+                         .astype(np.float32))
+    probe = torch.from_numpy(np.random.RandomState(6).randn(2, 8, 8, co)
+                             .astype(np.float32))
+    stats = prm.BatchStats(*(t for bn in (mod.resSeq[0], mod.resSeq[3],
+                                          mod.resSeq[6])
+                             for t in (bn.running_mean, bn.running_var)))
+    results = []
+    for contiguous in (False, True):
+        p = prm.ResParams(*(None if t is None else
+                            (t.detach().contiguous() if contiguous
+                             else t.detach()).requires_grad_(True)
+                            for t in views))
+        xr = x.clone().requires_grad_(True)
+        out, st = prm.res_block_train(xr, p, dtype=td)
+        (out.float() * probe).sum().backward()
+        with torch.no_grad():
+            ev = prm.res_block_eval(x, p, stats, dtype=td)
+        results.append((out, st, xr.grad, [t.grad for t in p if t is not None],
+                        ev))
+    (o1, s1, gx1, gp1, e1), (o2, s2, gx2, gp2, e2) = results
+    assert torch.equal(o1, o2) and torch.equal(e1, e2)
+    assert torch.equal(gx1, gx2)
+    for a, b in zip(s1, s2):
+        assert torch.equal(a, b)
+    for a, b in zip(gp1, gp2):
+        assert torch.equal(a, b)
+
+
+def test_inplace_running_update_equals_update_running_stats():
+    """momentum=0.1: the update done inside res_block_train is
+    core.norm.update_running_stats bit for bit."""
+    from bilinear_tpu_torch.core.norm import update_running_stats
+
+    mod = _module(8, 16)
+    bns = (mod.resSeq[0], mod.resSeq[3], mod.resSeq[6])
+    ref = [torch.nn.BatchNorm2d(bn.num_features, momentum=0.1) for bn in bns]
+    for r, bn in zip(ref, bns):
+        r.load_state_dict(bn.state_dict())
+    x = torch.from_numpy(np.random.RandomState(11).randn(2, 8, 8, 8)
+                         .astype(np.float32))
+    running = prm.RunningStats(tuple(bn.running_mean for bn in bns),
+                               tuple(bn.running_var for bn in bns),
+                               tuple(bn.num_batches_tracked for bn in bns),
+                               0.1)
+    with torch.no_grad():
+        _, st = prm.res_block_train(x, mod.res_params(), dtype=torch.float32,
+                                    running=running)
+    for r, (m, v) in zip(ref, ((st.m1, st.v1), (st.m2, st.v2),
+                               (st.m3, st.v3))):
+        update_running_stats(r, m, v, 2 * 8 * 8)
+    for r, bn in zip(ref, bns):
+        assert torch.equal(r.running_mean, bn.running_mean)
+        assert torch.equal(r.running_var, bn.running_var)
+        assert int(bn.num_batches_tracked) == int(r.num_batches_tracked) == 1
+
+
+@pytest.mark.parametrize("momentum", [0.1, None], ids=["momentum", "cumulative"])
+def test_fused_module_running_stats_follow_the_standard_module(momentum):
+    """ResModule(fused=True) in training leaves its BN buffers where the
+    standard module (torch's own BatchNorm) leaves them; a numeric momentum
+    goes through res_block_train, momentum=None through the Python path."""
+    fused = _module(8, 16, momentum=momentum, fused=True)
+    std = _module(8, 16, momentum=momentum, fused=False)
+    std.load_state_dict(fused.state_dict())
+    x = torch.from_numpy(np.random.RandomState(12).randn(2, 8, 8, 8)
+                         .astype(np.float32)).permute(0, 3, 1, 2)
+    calls = []
+    orig = prm.res_block_train
+
+    def spy(*a, **kw):
+        calls.append(kw.get("running"))
+        return orig(*a, **kw)
+
+    prm.res_block_train = spy
+    try:
+        for _ in range(2):
+            fused.train()(x)
+            std.train()(x)
+    finally:
+        prm.res_block_train = orig
+    assert all((r is None) == (momentum is None) for r in calls)
+    for (k, a), (_, b) in zip(fused.state_dict().items(),
+                              std.state_dict().items()):
+        if "running" in k or "num_batches" in k:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                       atol=1e-6, err_msg=k)
+
+
+def test_running_update_needs_a_numeric_momentum():
+    mod = _module(8, 16)
+    bns = (mod.resSeq[0], mod.resSeq[3], mod.resSeq[6])
+    running = prm.RunningStats(tuple(bn.running_mean for bn in bns),
+                               tuple(bn.running_var for bn in bns),
+                               tuple(bn.num_batches_tracked for bn in bns),
+                               None)
+    with pytest.raises(ValueError, match="momentum"):
+        prm.res_block_train(torch.zeros(1, 4, 4, 8), mod.res_params(),
+                            dtype=torch.float32, running=running)
+
+
+@pytest.mark.parametrize("n", [128, 700, 32768])
+def test_merged_tile_stats_equal_two_pass_stats(n):
+    """Per-tile (count, mean, M2) merged in a fixed order against the
+    two-pass ``_stats``, f32, on columns whose |mean| / std is 100: 1e-6
+    relative (of the mean, and of the variance)."""
+    rng = np.random.RandomState(n)
+    std = rng.uniform(0.5, 2.0, 16).astype(np.float32)
+    sign = np.where(rng.rand(16) < 0.5, -1.0, 1.0).astype(np.float32)
+    h = torch.from_numpy((100.0 * std * sign
+                          + std * rng.randn(n, 16)).astype(np.float32))
+    m_ref, v_ref = prm._stats(h)
+    m, v = prm.merged_tile_stats(h)
+    assert m.dtype == v.dtype == torch.float32
+    np.testing.assert_allclose(m.numpy(), m_ref.numpy(), rtol=1e-6, atol=0)
+    np.testing.assert_allclose(v.numpy(), v_ref.numpy(), rtol=1e-6, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The C entries' argument array is filled by the slot names the library
+# reports.
+# ---------------------------------------------------------------------------
+
+
+def test_slot_array_follows_the_librarys_names():
+    names = ["bf16", "x", "w1", "w1_si", "w1_so", "stream"]
+    w = torch.zeros(4, 6).t()  # a (6, 4) view with strides (1, 6)
+    vals = dict(prm._weight("w1", w, (6, 4), w.device), stream=7, x=5, bf16=1)
+    assert list(prm._slot_array(names, vals)) == [1, 5, w.data_ptr(), 1, 6, 7]
+    w9 = prm._weight("dw2", None, (9, 4, 4), w.device)
+    assert w9 == {"dw2": 0, "dw2_st": 0, "dw2_si": 0, "dw2_so": 0}
+
+
+@pytest.mark.parametrize("change", ["missing", "unknown", "renamed"])
+def test_slot_array_refuses_other_names(change):
+    names = ["bf16", "x", "stream"]
+    vals = {"bf16": 1, "x": 5, "stream": 7}
+    if change == "missing":
+        del vals["x"]
+    elif change == "unknown":
+        vals["gout"] = 3
+    else:
+        vals["xx"] = vals.pop("x")
+    with pytest.raises(RuntimeError, match="argument slots differ"):
+        prm._slot_array(names, vals)
+
+
+def test_weight_slots_refuse_another_shape_or_type():
+    with pytest.raises(ValueError, match="w3"):
+        prm._weight("w3", torch.zeros(4, 6), (6, 4), torch.device("cpu"))
+    with pytest.raises(ValueError, match="w3"):
+        prm._weight("w3", torch.zeros(6, 4, dtype=torch.bfloat16), (6, 4),
+                    torch.device("cpu"))

@@ -111,3 +111,31 @@ def test_jax_checkpoint_restores_in_port(tmp_path, jax_template):
     _assert_trees_equal(params, payload["state"]["params"])
     _assert_trees_equal(stats, payload["state"]["batch_stats"])
     _assert_trees_equal(opt, payload["optimizer"])
+
+
+def test_train_step_carries_its_profiler_ranges(run):
+    """One CPU-profiled step of the trainer shows each of STEP_RANGES once,
+    in order, nested in nothing: what a host-time split of the step reads."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bilinear_tpu_torch.data.h36m import Task
+    from bilinear_tpu_torch.data.mpii import MPIIAnnotations
+    from bilinear_tpu_torch.data.pipeline import MPIIHostPipeline
+    from bilinear_tpu_torch.train import hourglass as th
+
+    data = os.path.join(os.path.dirname(os.path.dirname(run)), "mpii")
+    pipe = MPIIHostPipeline(MPIIAnnotations(data, Task.Train), 2, canvas=256,
+                            transport="u8")
+    trainer = HourglassTrainer(**SIZE, fused_blocks=True, device="cpu")
+    state = trainer.init_state(0)
+    batch = trainer.batch_tensors(next(iter(pipe.epoch(1, prefetch=0))))
+    aug = th.sample_augment(th.step_generator(0, 1, 1), 2)
+    before = state.step
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        loss = trainer.train_step(state, batch, aug)
+    assert np.isfinite(float(loss)) and state.step == before + 1
+    ranges = sorted((e for e in prof.events() if e.name in th.STEP_RANGES),
+                    key=lambda e: e.time_range.start)
+    assert tuple(e.name for e in ranges) == th.STEP_RANGES
+    for a, b in zip(ranges, ranges[1:]):
+        assert a.time_range.end <= b.time_range.start
