@@ -1,36 +1,75 @@
 // Shared building blocks of the lifting kernels (lifting.cu, lifting_int8.cu):
-// one tiled GEMM per layer, Y = epilogue(A @ W), with A (M, K) and W (K, N)
-// row-major (the JAX package's Dense layout), an f32 (or int32) accumulator
-// and a fused epilogue: [dequant] + bias, [ReLU], round to the output type,
-// [+ skip, round again], store, [per-row-group amax of the stored value].
+// one GEMM per layer, Y = epilogue(A @ W^T), and the same tiles walked by one
+// persistent kernel for a serving batch.
 //
-// Tensor-core route: WMMA 16x16x16 fragments (bf16 -> f32, s8 -> s32), 8
-// warps as 2 (rows) x 4 (cols). The block tile follows the row count: 32 x 64
-// for serving batches (enough blocks to spread over the SMs), 64 x 64, and
-// 128 x 128 for bulk batches (fewer shared-memory reads per product). The
-// inner dimension advances 32 at a time through a 3-stage cp.async ring, so
-// the loads of later slices are in flight while one slice is multiplied.
-// Shared memory holds each slice chunked by 16 along the inner dimension
-// (A as [k/16][BM][16], W as [n/16][32][16]) with rows padded to 48 bytes:
-// fragment pointers stay 32-byte aligned and the 16-byte row reads of a
-// fragment load hit distinct banks. The ragged edge in M and N is masked:
-// loads zero-fill, the epilogue skips rows >= M and columns >= N.
+// What bounds a layer on an H100: a hidden layer is n x 1024 x 1024 products
+// (2.1 MFLOP per row) against 2 to 6 KB of activation per row, so at bulk
+// size the tensor cores are the limit and only `wgmma` reaches their rate;
+// at a serving batch (n <= 256) the 2 to 8 MB of weights streamed from L2
+// and the launches are.
+//
+// Why the six layers are not one kernel at bulk size: the smallest wgmma row
+// tile is 64 rows; a 64 x 1024 bf16 activation is 128 KB and a layer needs
+// its input and its output at once (256 KB > the 227 KB a block may use).
+// Even a 2-block cluster that holds one activation and a weight ring would
+// stream all 8.4 MB of weights from L2 for every 64 rows: 1024 tiles x 8.4
+// MB = 8.6 GB per call at n = 65536, as much as L2 delivers in ~1.5 ms. One
+// GEMM per layer with 128-row tiles reads a layer's 2 MB of weights once per
+// 128 rows (half as much per row) and its activation round trips (~1.6 GB
+// per bf16 call, ~0.5 ms of device memory time) overlap the products. So bulk
+// batches run one GEMM per layer; the whole chain is one launch only for a
+// serving batch, where launches, not bytes, are the cost.
+//
+// The GEMM (gemm_tile): A is (M, K) and the weight a K-contiguous (N, K) copy
+// made once per checkpoint, so both operands reach wgmma as 128-byte swizzled
+// rows of K (64 bf16 or 128 int8 values: the loaders and descriptors count
+// bytes and serve both types). A block is NWG warpgroups, each owning 64
+// rows x BN columns of accumulators in registers. Bulk: 2 x (64 x 128) with
+// two blocks to an SM, so that one block's epilogue and load latency run
+// under the other's products (2 x (64 x 256) with one block to an SM moves
+// a quarter less from L2 per product and measured slower all the same: on
+// this card the layer is held by the latency of its L2 reads and by its
+// epilogue, not by L2 bytes alone); serving: 1 x (64 x 64). All threads
+// copy slabs into a DEPTH-stage cp.async ring, ahead of the product; one
+// block barrier per slab publishes a stage. Every path runs the k-steps
+// of one output in the same order with the same instruction family, so a
+// row's result does not depend on the batch it came in (checked on the
+// card, bit for bit).
+//
+// Epilogue: accumulators are staged through the freed ring, then every
+// thread finishes 8 consecutive columns of a row: [dequant] + bias, [ReLU],
+// round to the working type, [+ skip, round again], 16-byte stores in up to
+// three forms (working type, bf16, int8 quantised with the NEXT layer's
+// static scale) and the per-row-group amax. A thread's bias and scales are
+// loaded once per tile and four rows' skip loads fly together: the epilogue
+// is bound by load latency, not by bytes. Quantising divides without the
+// division instruction (see quantize). The ragged edge is masked: loads
+// zero-fill, the epilogue skips rows >= M and columns >= N, and masked rows
+// never enter an amax.
+//
+// Dynamic int8 scales span 512 rows x 1024 columns, 32 tiles: such a layer
+// runs as a persistent cooperative grid that takes a group's tiles together
+// (gemm_wgmma_groups), each block waiting for its group's amax with its
+// finished tile still in shared memory, then quantising it itself. One group
+// of more tiles than the card holds at once (a calibration batch run as one
+// group) cannot wait so: the wrapper asks how many rows fit and runs such a
+// call as plain GEMMs with one quantise pass before each hidden layer.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "wgmma_sm90.cuh"
 
 namespace lifting {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
-constexpr int BK = 32;         // inner-dimension slice
-constexpr int STAGES = 3;      // slices in flight
-constexpr int THREADS = 256;   // 8 warps
-constexpr int ROW_BYTES = 48;  // padded shared-memory row of 16 elements
+constexpr int HID = 1024, IN_F = 32, OUT_F = 48;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
@@ -39,245 +78,676 @@ template <> __device__ __forceinline__ float from_f<float>(float v) { return v; 
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
   return __float2bfloat16_rn(v);
 }
-
-// Activation scale of an int8 layer for row group g: dynamic (amax of the
-// group's input over 127, as _quant_dot computes it) or a static constant.
-__device__ __forceinline__ float act_scale(const float* amax, int g,
-                                           float static_scale) {
-  return amax ? __fdiv_rn(fmaxf(amax[g], 1e-12f), 127.0f) : static_scale;
+// v rounded to T and back.
+template <typename T> __device__ __forceinline__ float rnd(float v) {
+  return to_f(from_f<T>(v));
 }
 
-// Every layer's epilogue. Null pointers switch parts off.
-template <typename TOut>
+// Activation scale of an int8 layer from a group's amax, as _quant_dot
+// computes it.
+__device__ __forceinline__ float scale_of_amax(float amax) {
+  return __fdiv_rn(fmaxf(amax, 1e-12f), 127.0f);
+}
+// A scale with its correctly rounded reciprocal, made once per tile or group.
+struct Scale {
+  float s, r;
+};
+__device__ __forceinline__ Scale make_scale(float s) {
+  return {s, __frcp_rn(s)};
+}
+// clip(rint(v / s), -127, 127): true division, round half to even. v / s is
+// formed without the division instruction, whose slow path every zero (half
+// of all ReLU outputs) takes. With r = RN(1 / s): q0 = RN(v r) is within two
+// ulps of the quotient; e = v - q s is exact in an FMA, so one correction
+// RN(q0 + e r) is a faithful quotient and a second one its correct rounding
+// (Markstein's theorem). A quotient small enough to underflow rounds to 0
+// either way; one too large is clipped.
+__device__ __forceinline__ int quantize(float v, Scale sc) {
+  float q = __fmul_rn(v, sc.r);
+  q = __fmaf_rn(__fmaf_rn(-q, sc.s, v), sc.r, q);
+  q = __fmaf_rn(__fmaf_rn(-q, sc.s, v), sc.r, q);
+  return (int)fminf(fmaxf(rintf(q), -127.f), 127.f);
+}
+
+// ---- V consecutive values to and from global memory ------------------------
+// Addresses are aligned to V elements. Loads bypass L1 (__ldcg): inside the
+// persistent kernel another SM wrote the data earlier in the same launch.
+
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[V]) {
+#pragma unroll
+  for (int i = 0; i < V / 4; ++i) {
+    float4 t = __ldcg(reinterpret_cast<const float4*>(p) + i);
+    v[4 * i] = t.x, v[4 * i + 1] = t.y, v[4 * i + 2] = t.z, v[4 * i + 3] = t.w;
+  }
+}
+__device__ __forceinline__ void unpack_bf16x2(uint32_t w, float& a, float& b) {
+  __nv_bfloat162 t = *reinterpret_cast<__nv_bfloat162*>(&w);
+  a = __low2float(t), b = __high2float(t);
+}
+__device__ __forceinline__ void load_vec(const bf16* p, float (&v)[4]) {
+  uint2 t = __ldcg(reinterpret_cast<const uint2*>(p));
+  unpack_bf16x2(t.x, v[0], v[1]);
+  unpack_bf16x2(t.y, v[2], v[3]);
+}
+__device__ __forceinline__ void load_vec(const bf16* p, float (&v)[8]) {
+  uint4 t = __ldcg(reinterpret_cast<const uint4*>(p));
+  unpack_bf16x2(t.x, v[0], v[1]);
+  unpack_bf16x2(t.y, v[2], v[3]);
+  unpack_bf16x2(t.z, v[4], v[5]);
+  unpack_bf16x2(t.w, v[6], v[7]);
+}
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[V]) {
+#pragma unroll
+  for (int i = 0; i < V / 4; ++i)
+    reinterpret_cast<float4*>(p)[i] =
+        make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+}
+__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+__device__ __forceinline__ void store_vec(bf16* p, const float (&v)[4]) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
+}
+__device__ __forceinline__ void store_vec(bf16* p, const float (&v)[8]) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
+                 pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
+}
+// The values quantised with scale s, as int8.
+template <int V>
+__device__ __forceinline__ void store_quantized(int8_t* p, const float (&v)[V],
+                                                Scale s) {
+  uint32_t w[V / 4];
+#pragma unroll
+  for (int i = 0; i < V / 4; ++i) {
+    w[i] = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      w[i] |= (uint32_t)(quantize(v[4 * i + b], s) & 0xff) << (8 * b);
+  }
+  if (V == 8)
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[V / 4 - 1]);
+  else
+    *reinterpret_cast<uint32_t*>(p) = w[0];
+}
+
+// ---- every layer's epilogue -------------------------------------------------
+// W is the working type the layer's value is rounded to (bf16, or float for
+// no rounding). Null pointers switch parts off.
+template <typename W>
 struct Epilogue {
   const float* bias;      // (N,)
   const float* wscale;    // (N,) int8 per-output-channel weight scale, or null
   const float* in_amax;   // per-group amax of the layer input (dynamic int8)
   float in_scale;         // static activation scale (int8, in_amax null)
-  const TOut* skip;       // (M, N) residual added after the ReLU, or null
-  TOut* out;              // (M, N)
-  float* out_amax;        // per-group amax of the stored output, or null
+  const W* skip;          // (M, N) residual added after the ReLU, or null
+  W* out;                 // (M, N) in the working type, or null
+  bf16* out_bf16;         // (M, N) the value rounded to bf16, or null
+  int8_t* out_q;          // (M, N) the value quantised with q_scale, or null
+  float q_scale;          // the next layer's static activation scale
+  float* out_amax;        // per-group amax of the value, or null
+  unsigned* done;         // group-synchronous tiles only: per-group count of
+  int8_t* dyn_q;          // finished tiles, and where the value goes as int8
+                          // once its group's amax is whole
   int group_rows;         // rows per dynamic-scale group
   int relu;
 
-  // Returns the stored value (as float) for the amax.
-  __device__ __forceinline__ float apply(int row, int col, int ldo,
-                                         float acc) const {
-    float y = acc;
+  // What a thread needs of its V columns, loaded once per tile: the bias and,
+  // for an int8 layer, (s_x * s_w): formed first, it then multiplies acc
+  // (lifting_int8.py _quant_dot). `row` is any row of the tile: a tile lies
+  // in one scale group.
+  template <int V>
+  struct Cols {
+    float b[V], sw[V];
+    Scale q;  // q_scale
+  };
+  template <int V>
+  __device__ __forceinline__ void load_cols(int row, int col,
+                                            Cols<V>& c) const {
+    load_vec(bias + col, c.b);
+    if (out_q) c.q = make_scale(q_scale);
     if (wscale) {
-      // (s_x * s_w) is formed first, then multiplies acc (lifting_int8.py
-      // _quant_dot); explicit _rn ops keep nvcc from contracting to FMA.
-      float s = act_scale(in_amax, row / group_rows, in_scale);
-      y = __fmul_rn(y, __fmul_rn(s, wscale[col]));
+      const float s = in_amax
+                          ? scale_of_amax(__ldcg(in_amax + row / group_rows))
+                          : in_scale;
+      load_vec(wscale + col, c.sw);
+#pragma unroll
+      for (int i = 0; i < V; ++i) c.sw[i] = __fmul_rn(s, c.sw[i]);
     }
-    y = __fadd_rn(y, bias[col]);
-    if (relu) y = fmaxf(y, 0.0f);
-    TOut o = from_f<TOut>(y);
-    size_t idx = (size_t)row * ldo + col;
-    if (skip) o = from_f<TOut>(__fadd_rn(to_f(o), to_f(skip[idx])));
-    out[idx] = o;
-    return to_f(o);
+  }
+  template <int V>
+  __device__ __forceinline__ void load_skip(size_t idx, float (&sk)[V]) const {
+    if (skip) load_vec(skip + idx, sk);
+  }
+
+  // Finishes V values of a row at flat index idx = row * N + col; sk holds
+  // the skip's values there when there is a skip. Returns the largest value
+  // (all are >= 0 wherever an amax is taken). Explicit _rn ops keep nvcc from
+  // contracting to FMA.
+  template <int V>
+  __device__ __forceinline__ float finish(size_t idx, float (&y)[V],
+                                          const Cols<V>& c,
+                                          const float (&sk)[V]) const {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      if (wscale) y[i] = __fmul_rn(y[i], c.sw[i]);
+      y[i] = __fadd_rn(y[i], c.b[i]);
+      if (relu) y[i] = fmaxf(y[i], 0.0f);
+      y[i] = rnd<W>(y[i]);
+      if (skip) y[i] = rnd<W>(__fadd_rn(y[i], sk[i]));
+    }
+    if (out) store_vec(out + idx, y);
+    if (out_bf16) store_vec(out_bf16 + idx, y);
+    if (out_q) store_quantized<V>(out_q + idx, y, c.q);
+    float m = 0.0f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) m = fmaxf(m, y[i]);
+    return m;
   }
 };
 
-// ---- asynchronous copies --------------------------------------------------
+// One layer: Y (M, N) = epilogue(A (M, K) @ B), with B the K-contiguous
+// (N, K) weight for the wgmma kernels and the (K, N) one for the f32 kernel.
+template <typename W>
+struct Layer {
+  const void* A;
+  const void* B;
+  int M, N, K;
+  Epilogue<W> ep;
+};
+
+// ---- asynchronous copies ----------------------------------------------------
 
 // 16 bytes global -> shared; pred false zero-fills (reads nothing).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(pred ? 16 : 0));
+__device__ __forceinline__ void cp16z(uint32_t dst, const void* src,
+                                      bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+// Waits until at most N of this thread's committed groups are pending.
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// ---- slice loaders (global -> chunked shared) -----------------------------
-// LDS: the padded row length in elements of TC.
+// Byte offset of the 16-byte chunk j of row r in a 128-byte swizzled tile.
+__device__ __forceinline__ uint32_t swz(int r, int j) {
+  return (uint32_t)(r * 128 + ((j ^ (r & 7)) << 4));
+}
 
-// A slice (BM_ x BK) with the compute type in global memory: cp.async.
-template <int BM_, typename TC>
-__device__ __forceinline__ void load_a(TC* As, const TC* A, int M, int K,
-                                       int m0, int k0) {
-  constexpr int CH = 16 / sizeof(TC), LDS = ROW_BYTES / sizeof(TC);
-  constexpr int PER_ROW = BK / CH;
-  for (int c = threadIdx.x; c < BM_ * PER_ROW; c += THREADS) {
-    int row = c / PER_ROW, k = (c % PER_ROW) * CH;
-    bool ok = m0 + row < M;
-    const TC* src = A + (size_t)(ok ? m0 + row : 0) * K + k0 + k;
-    cp_async16(As + ((k >> 4) * BM_ + row) * LDS + (k & 15), src, ok);
+// ---- the wgmma GEMM tile ----------------------------------------------------
+
+template <typename TC, int BN> struct MmaOf;
+template <int BN> struct MmaOf<bf16, BN> {
+  using acc_t = float;
+  __device__ __forceinline__ static void run(float (&d)[BN / 2], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    wg::Mma<BN, 0, 0>::run(d, da, db, scale_d);
   }
-}
-
-// A slice from f32 rows rounded to bf16 (the int8 path's decode input is
-// h.astype(bf16)): loaded through registers.
-template <int BM_>
-__device__ __forceinline__ void load_a(bf16* As, const float* A, int M, int K,
-                                       int m0, int k0) {
-  constexpr int LDS = ROW_BYTES / sizeof(bf16);
-  for (int c = threadIdx.x; c < BM_ * BK / 4; c += THREADS) {
-    int row = c / (BK / 4), k = (c % (BK / 4)) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (m0 + row < M)
-      v = *reinterpret_cast<const float4*>(A + (size_t)(m0 + row) * K + k0 + k);
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
-        As + ((k >> 4) * BM_ + row) * LDS + (k & 15));
-    dst[0] = __floats2bfloat162_rn(v.x, v.y);
-    dst[1] = __floats2bfloat162_rn(v.z, v.w);
+};
+template <int BN> struct MmaOf<int8_t, BN> {
+  using acc_t = int;
+  __device__ __forceinline__ static void run(int (&d)[BN / 2], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    wg::MmaS8<BN>::run(d, da, db, scale_d);
   }
+};
+
+// NWG warpgroups of 64 rows, BN columns, a ring of DEPTH slabs of 128 bytes
+// of K.
+template <int NWG, int BN, int DEPTH>
+struct Tile {
+  // Slabs the copies run ahead of the product. A ring of 4 or more keeps two
+  // products in flight (the newest and the one before it), so its
+  // copies run DEPTH - 2 ahead. A ring of 3 (two blocks to an SM) waits for
+  // each product before the next barrier instead, so copies run 2 ahead; the
+  // other block on the SM fills the tensor cores meanwhile.
+  static constexpr bool DRAIN = DEPTH == 3;
+  static constexpr int AHEAD = DRAIN ? DEPTH - 1 : DEPTH - 2;
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int BM = 64 * NWG;
+  static constexpr int A_BYTES = BM * 128;
+  static constexpr int STAGE = A_BYTES + BN * 128;
+  static constexpr int RING = DEPTH * STAGE;
+  static constexpr int LDS = BN + 8;  // staged accumulator row, in words
+  static_assert(DEPTH >= 3, "a stage is multiplied while others fill");
+  static_assert(BM * LDS * 4 <= RING, "the staged accumulators reuse the ring");
+  static_assert(BN * 8 % THREADS == 0, "whole B chunks per thread");
+  static constexpr int SMEM = 1024 + RING;  // the ring is 1024-byte aligned
+};
+
+__device__ __forceinline__ unsigned char* align_ring(unsigned char* raw) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~(uintptr_t)1023);
 }
 
-// W slice (BK x BN_): cp.async, N a multiple of 16 bytes' worth of columns.
-template <int BN_, typename TC>
-__device__ __forceinline__ void load_b(TC* Bs, const TC* B, int N, int k0,
-                                       int n0) {
-  constexpr int CH = 16 / sizeof(TC), LDS = ROW_BYTES / sizeof(TC);
-  constexpr int PER_ROW = BN_ / CH;
-  for (int c = threadIdx.x; c < BK * PER_ROW; c += THREADS) {
-    int kr = c / PER_ROW, n = (c % PER_ROW) * CH;
-    bool ok = n0 + n < N;
-    const TC* src = B + (size_t)(k0 + kr) * N + (ok ? n0 + n : 0);
-    cp_async16(Bs + ((n >> 4) * BK + kr) * LDS + (n & 15), src, ok);
-  }
-}
-
-template <typename T> struct Acc { using type = float; };
-template <> struct Acc<int8_t> { using type = int; };
-
-template <int BM_, int BN_, typename TC>
-constexpr int smem_bytes() {
-  constexpr int stage = (BK / 16) * BM_ * ROW_BYTES + (BN_ / 16) * BK * ROW_BYTES;
-  constexpr int staging = (THREADS / 32) * 256 * 4;  // epilogue, reuses ring
-  return STAGES * stage > staging ? STAGES * stage : staging;
-}
-
-// ---- the tensor-core GEMM -------------------------------------------------
-// TA: global A element type; TC: compute type (bf16 or int8_t).
-// Grid: (ceil(M / BM_), ceil(N / BN_)). K % BK == 0.
-template <int BM_, int BN_, typename TA, typename TC, typename TOut>
-__global__ void __launch_bounds__(THREADS)
-gemm_tc(const TA* __restrict__ A, const TC* __restrict__ B, int M, int N,
-        int K, Epilogue<TOut> ep) {
-  using TAcc = typename Acc<TC>::type;
-  constexpr int LDS = ROW_BYTES / sizeof(TC);
-  constexpr int WM = BM_ / 2, WN = BN_ / 4;    // warp tile
-  constexpr int FM = WM / 16, FN = WN / 16;    // fragments per warp
-  constexpr int A_STAGE = (BK / 16) * BM_ * LDS;  // elements
-  constexpr int B_STAGE = (BN_ / 16) * BK * LDS;
-  extern __shared__ __align__(128) unsigned char smem[];
-  TC* As = reinterpret_cast<TC*>(smem);
-  TC* Bs = As + STAGES * A_STAGE;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.x * BM_, n0 = blockIdx.y * BN_;
-  const int ktiles = K / BK;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, TAcc> acc[FM][FN];
+// acc = A[m0 .. m0 + BM, :] @ B[n0 .. n0 + BN, :]^T for this thread's
+// warpgroup. kbytes: a row of K in bytes (a multiple of 32). The copies of
+// slab s + AHEAD start when slab s is multiplied, into the stage whose
+// product every warpgroup has waited for. Ends with the ring free.
+template <typename TC, int NWG, int BN, int DEPTH>
+__device__ __forceinline__ void mainloop(
+    const unsigned char* __restrict__ A, const unsigned char* __restrict__ B,
+    int M, int N, int kbytes, int m0, int n0, unsigned char* ring,
+    typename MmaOf<TC, BN>::acc_t (&acc)[BN / 2]) {
+  using C = Tile<NWG, BN, DEPTH>;
+  const int tid = threadIdx.x, j = tid & 7, rb = tid >> 3;
+  const int wgid = tid >> 7;
+  const int slabs = (kbytes + 127) >> 7;
+  const uint32_t ring_s = (uint32_t)__cvta_generic_to_shared(ring);
+  int fetched = 0, fstage = 0;
+  auto fetch = [&]() {
+    if (fetched < slabs) {
+      const uint32_t st = ring_s + fstage * C::STAGE;
+      const int kb = fetched * 128 + j * 16;
+      const bool kok = kb < kbytes;
 #pragma unroll
-  for (int i = 0; i < FM; ++i)
+      for (int i = 0; i < 4; ++i) {
+        const int r = rb + i * (C::THREADS / 8);
+        const bool ok = kok && m0 + r < M;
+        cp16z(st + swz(r, j), A + (ok ? (size_t)(m0 + r) * kbytes + kb : 0),
+              ok);
+      }
 #pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], (TAcc)0);
-
-  auto load = [&](int stage, int kt) {
-    load_a<BM_>(As + stage * A_STAGE, A, M, K, m0, kt * BK);
-    load_b<BN_>(Bs + stage * B_STAGE, B, N, kt * BK, n0);
+      for (int i = 0; i < BN * 8 / C::THREADS; ++i) {
+        const int n = rb + i * (C::THREADS / 8);
+        const bool ok = kok && n0 + n < N;
+        cp16z(st + C::A_BYTES + swz(n, j),
+              B + (ok ? (size_t)(n0 + n) * kbytes + kb : 0), ok);
+      }
+    }
+    ++fetched;
+    fstage = fstage + 1 == DEPTH ? 0 : fstage + 1;
+    cp_commit();  // one group per slab, empty past the end
   };
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load(s, s);
-    cp_async_commit();
+  for (int s = 0; s < C::AHEAD; ++s) fetch();
+  int cstage = 0;
+  for (int s = 0; s < slabs; ++s) {
+    const unsigned char* st = ring + cstage * C::STAGE;
+    cstage = cstage + 1 == DEPTH ? 0 : cstage + 1;
+    cp_wait<C::AHEAD - 1>();  // this thread's copies of slab s have landed
+    wg::fence_async_shared();
+    __syncthreads();  // slab s is whole; the stage to refill is read out
+    fetch();
+    const int steps = min(4, (kbytes - s * 128) >> 5);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      if (kk < steps)
+        MmaOf<TC, BN>::run(acc, wg::desc(st + wgid * 8192 + kk * 32, 16, 1024),
+                           wg::desc(st + C::A_BYTES + kk * 32, 16, 1024),
+                           (s | kk) != 0);
+    wg::commit();
+    if (C::DRAIN)
+      wg::wait<0>();
+    else
+      wg::wait<1>();
   }
+  wg::wait<0>();
+  cp_wait<0>();
+  __syncthreads();
+}
 
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // slice kt landed; slice kt - 1 is no longer read
-    if (kt + STAGES - 1 < ktiles) load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
-    cp_async_commit();
-
-    const TC* as = As + (kt % STAGES) * A_STAGE;
-    const TC* bs = Bs + (kt % STAGES) * B_STAGE;
+// The (M, HID) f32 matrix h quantised into q by the whole grid, each group of
+// group_rows rows with its own scale (amax[g] / 127). A thread takes every
+// nthreads-th vector of 8 values, whatever group it lies in, four at a time.
+__device__ __forceinline__ void quantize_groups(const float* __restrict__ h,
+                                                int8_t* __restrict__ q, int M,
+                                                int group_rows,
+                                                const float* amax) {
+  constexpr int UNROLL = 4;
+  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t nthreads = (size_t)gridDim.x * blockDim.x;
+  const size_t vecs = (size_t)M * (HID / 8);
+  for (size_t i0 = t; i0 < vecs; i0 += nthreads * UNROLL) {
+    float v[UNROLL][8];
 #pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, TC, wmma::row_major> a[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, TC, wmma::row_major> b[FN];
+    for (int u = 0; u < UNROLL; ++u)
+      if (i0 + u * nthreads < vecs) load_vec<8>(h + (i0 + u * nthreads) * 8, v[u]);
 #pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(a[i], as + (kc * BM_ + wm * WM + i * 16) * LDS,
-                               LDS);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(
-            b[j], bs + ((wn * (WN / 16) + j) * BK + kc * 16) * LDS, LDS);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free: reuse it to stage the epilogue
-
-  // Epilogue through a per-warp 16 x 16 staging tile.
-  TAcc* stage = reinterpret_cast<TAcc*>(smem) + warp * 256;
-  float vmax = 0.0f;
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        int row = m0 + wm * WM + i * 16 + (e >> 4);
-        int col = n0 + wn * WN + j * 16 + (e & 15);
-        if (row < M && col < N)
-          vmax = fmaxf(vmax, ep.apply(row, col, N, (float)stage[e]));
+    for (int u = 0; u < UNROLL; ++u) {
+      const size_t i = i0 + u * nthreads;
+      if (i < vecs) {
+        const int g = (int)(i / (HID / 8)) / group_rows;
+        store_quantized<8>(q + i * 8, v[u],
+                           make_scale(scale_of_amax(__ldcg(amax + g))));
       }
-      __syncwarp();
     }
-  if (ep.out_amax) {
+  }
+}
+
+// Spins until *counter >= target. Only among blocks that are resident
+// together (a cooperative launch). A wait that lasts seconds is a fault of
+// the schedule: it traps, so the launch fails where it would have hung.
+__device__ __forceinline__ void wait_count(const unsigned* counter,
+                                           unsigned target) {
+  unsigned seen;
+  for (unsigned spins = 0;; ++spins) {
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                 : "=r"(seen)
+                 : "l"(counter)
+                 : "memory");
+    if (seen >= target) return;
+    if (spins > (1u << 24)) __trap();
+    __nanosleep(100);
+  }
+}
+
+// 8 finished values back into the staged tile, as their bits.
+__device__ __forceinline__ void store_staged(float* p, const float (&y)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(y[0], y[1], y[2], y[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(y[4], y[5], y[6], y[7]);
+}
+__device__ __forceinline__ void store_staged(int* p, const float (&y)[8]) {
+  store_staged(reinterpret_cast<float*>(p), y);
+}
+__device__ __forceinline__ void load_finished(const float* p, float (&y)[8]) {
+  float4 a = reinterpret_cast<const float4*>(p)[0];
+  float4 b = reinterpret_cast<const float4*>(p)[1];
+  y[0] = a.x, y[1] = a.y, y[2] = a.z, y[3] = a.w;
+  y[4] = b.x, y[5] = b.y, y[6] = b.z, y[7] = b.w;
+}
+__device__ __forceinline__ void load_finished(const int* p, float (&y)[8]) {
+  load_finished(reinterpret_cast<const float*>(p), y);
+}
+
+// 8 staged accumulators (32-byte aligned) as floats.
+__device__ __forceinline__ void load_staged(const float* p, float (&y)[8]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float4 t = reinterpret_cast<const float4*>(p)[i];
+    y[4 * i] = t.x, y[4 * i + 1] = t.y, y[4 * i + 2] = t.z, y[4 * i + 3] = t.w;
+  }
+}
+__device__ __forceinline__ void load_staged(const int* p, float (&y)[8]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    int4 t = reinterpret_cast<const int4*>(p)[i];
+    y[4 * i] = (float)t.x, y[4 * i + 1] = (float)t.y;
+    y[4 * i + 2] = (float)t.z, y[4 * i + 3] = (float)t.w;
+  }
+}
+
+// One output tile: rows m0.., columns n0.. of layer L. Leaves the ring free
+// (ends on a block barrier), so persistent callers may loop over tiles.
+// GROUPSYNC (dynamic int8, every tile of the tile's scale group resident at
+// once): the finished values stay in the staged tile; the block adds its
+// amax, counts itself in (ep.done), waits until the whole group has, and
+// quantises its own tile with the group's scale into ep.dyn_q, so the
+// activation never makes an f32 round trip to be quantised.
+template <typename TC, typename W, int NWG, int BN, int DEPTH,
+          bool GROUPSYNC = false>
+__device__ __forceinline__ void gemm_tile(const Layer<W>& L, int m0, int n0,
+                                          unsigned char* ring) {
+  using C = Tile<NWG, BN, DEPTH>;
+  using acc_t = typename MmaOf<TC, BN>::acc_t;
+  const int tid = threadIdx.x;
+  const int wgid = tid >> 7, warp = (tid & 127) >> 5, lane = tid & 31;
+
+  acc_t acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+  mainloop<TC, NWG, BN, DEPTH>(static_cast<const unsigned char*>(L.A),
+                               static_cast<const unsigned char*>(L.B), L.M, L.N,
+                               L.K * (int)sizeof(TC), m0, n0, ring, acc);
+
+  acc_t* stg = reinterpret_cast<acc_t*>(ring);
+  {
+    const int frow = wgid * 64 + warp * 16 + (lane >> 2), fcol = 2 * (lane & 3);
+    using pair_t = typename std::conditional<std::is_same<acc_t, int>::value,
+                                             int2, float2>::type;
+#pragma unroll
+    for (int jj = 0; jj < BN / 8; ++jj) {
+      pair_t lo, hi;
+      lo.x = acc[4 * jj], lo.y = acc[4 * jj + 1];
+      hi.x = acc[4 * jj + 2], hi.y = acc[4 * jj + 3];
+      *reinterpret_cast<pair_t*>(stg + frow * C::LDS + 8 * jj + fcol) = lo;
+      *reinterpret_cast<pair_t*>(stg + (frow + 8) * C::LDS + 8 * jj + fcol) = hi;
+    }
+  }
+  __syncthreads();
+
+  // Pass 2: a thread finishes the same 8 columns of every STEP-th row, four
+  // rows at a time so that their skip loads are in flight together.
+  float vmax = 0.0f;
+  constexpr int CHUNKS = BN / 8;  // 8-column chunks per row
+  constexpr int STEP = C::THREADS / CHUNKS, UNROLL = 4;
+  static_assert(C::BM % (STEP * UNROLL) == 0, "whole row groups per thread");
+  const int c = tid % CHUNKS, col = n0 + 8 * c;
+  if (col < L.N) {
+    typename Epilogue<W>::template Cols<8> cols;
+    L.ep.template load_cols<8>(m0, col, cols);
+    for (int r = tid / CHUNKS; r < C::BM; r += STEP * UNROLL) {
+      float sk[UNROLL][8];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+        if (m0 + r + u * STEP < L.M)
+          L.ep.template load_skip<8>(
+              (size_t)(m0 + r + u * STEP) * L.N + col, sk[u]);
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int row = m0 + r + u * STEP;
+        if (row < L.M) {
+          float y[8];
+          load_staged(stg + (r + u * STEP) * C::LDS + 8 * c, y);
+          vmax = fmaxf(vmax, L.ep.template finish<8>((size_t)row * L.N + col,
+                                                     y, cols, sk[u]));
+          if (GROUPSYNC) store_staged(stg + (r + u * STEP) * C::LDS + 8 * c, y);
+        }
+      }
+    }
+  }
+  if (L.ep.out_amax) {
     // Values entering an int8 layer are >= 0 (ReLU outputs or sums of two),
     // so the float's bits order like ints and atomicMax is exact and
-    // order-independent. BM_ divides the group size: one group per block.
+    // order-independent. BM divides the group size: one group per tile.
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       vmax = fmaxf(vmax, __shfl_xor_sync(0xffffffffu, vmax, o));
     if (lane == 0)
-      atomicMax(reinterpret_cast<int*>(ep.out_amax) + m0 / ep.group_rows,
+      atomicMax(reinterpret_cast<int*>(L.ep.out_amax) + m0 / L.ep.group_rows,
                 __float_as_int(vmax));
+  }
+  if constexpr (GROUPSYNC) {
+    const int group = m0 / L.ep.group_rows;
+    __threadfence();  // this block's amax before its count
+    __syncthreads();
+    if (tid == 0) {
+      const int rows = min(L.ep.group_rows, L.M - group * L.ep.group_rows);
+      const unsigned tiles = (unsigned)((rows + C::BM - 1) / C::BM) *
+                             (unsigned)((L.N + BN - 1) / BN);
+      __threadfence();  // and every warp's amax, seen through the barrier
+      atomicAdd(L.ep.done + group, 1u);
+      wait_count(L.ep.done + group, tiles);
+    }
+    __syncthreads();
+    if (col < L.N) {
+      const Scale s = make_scale(scale_of_amax(__ldcg(L.ep.out_amax + group)));
+      for (int r = tid / CHUNKS; r < C::BM && m0 + r < L.M; r += STEP) {
+        float y[8];  // the values this thread stored itself
+        load_finished(stg + r * C::LDS + 8 * c, y);
+        store_quantized<8>(L.ep.dyn_q + (size_t)(m0 + r) * L.N + col, y, s);
+      }
+    }
+  }
+  __syncthreads();  // the staged tile is read: the ring is free again
+}
+
+// ---- launches ---------------------------------------------------------------
+
+// One layer, one launch: block b computes row tile b / tiles_n, column tile
+// b % tiles_n, so the column tiles of a row tile run together (A comes from
+// device memory once, the weights from L2).
+template <typename TC, typename W, int NWG, int BN, int DEPTH, int MINB>
+__global__ void __launch_bounds__(128 * NWG, MINB)
+gemm_wgmma(const __grid_constant__ Layer<W> L) {
+  extern __shared__ unsigned char smem_raw[];
+  const int tiles_n = (L.N + BN - 1) / BN;
+  gemm_tile<TC, W, NWG, BN, DEPTH>(
+      L, (int)(blockIdx.x / tiles_n) * Tile<NWG, BN, DEPTH>::BM,
+      (int)(blockIdx.x % tiles_n) * BN, align_ring(smem_raw));
+}
+
+template <typename TC, typename W, int NWG, int BN, int DEPTH, int MINB = 1>
+inline cudaError_t launch_layer(const Layer<W>& L, cudaStream_t stream) {
+  using C = Tile<NWG, BN, DEPTH>;
+  auto kernel = gemm_wgmma<TC, W, NWG, BN, DEPTH, MINB>;
+  cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (attr != cudaSuccess) return attr;
+  const unsigned tiles = (unsigned)((L.M + C::BM - 1) / C::BM) *
+                         (unsigned)((L.N + BN - 1) / BN);
+  kernel<<<tiles, C::THREADS, C::SMEM, stream>>>(L);
+  return cudaSuccess;
+}
+
+// The bulk tile: 2 warpgroups, 128 rows x 128 columns, two blocks per SM
+// with 3-slab rings, so that one block's epilogue runs under the other's
+// products. The decode's 48 columns take a 64-column tile.
+template <typename TC, typename W>
+inline cudaError_t launch_bulk(const Layer<W>& L, cudaStream_t stream) {
+  if (L.N <= 64) return launch_layer<TC, W, 2, 64, 6>(L, stream);  // decode
+  return launch_layer<TC, W, 2, 128, 3, 2>(L, stream);
+}
+
+// Dynamic int8, one launch per layer without a quantise pass: a persistent
+// grid whose blocks take the tiles of a scale group TOGETHER. Block b works
+// on group b / tpg + k * (grid / tpg), tile b % tpg of it (tpg tiles per
+// group, its column tiles adjacent), so all tiles of a group are in flight
+// at once and may wait for each other (gemm_tile, GROUPSYNC). The launch is
+// cooperative, which guarantees that every block is resident.
+template <typename TC, int NWG, int BN, int DEPTH, int MINB>
+__global__ void __launch_bounds__(128 * NWG, MINB)
+gemm_wgmma_groups(const __grid_constant__ Layer<float> L, int tpg) {
+  using C = Tile<NWG, BN, DEPTH>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align_ring(smem_raw);
+  const int tiles_n = (L.N + BN - 1) / BN;
+  const int group_rows = min(L.ep.group_rows, (L.M + C::BM - 1) / C::BM * C::BM);
+  const int groups = (L.M + group_rows - 1) / group_rows;
+  const int t = blockIdx.x % tpg;
+  for (int g = blockIdx.x / tpg; g < groups; g += gridDim.x / tpg) {
+    const int m0 = g * group_rows + t / tiles_n * C::BM;
+    if (m0 < L.M && m0 < (g + 1) * group_rows)
+      gemm_tile<TC, float, NWG, BN, DEPTH, true>(L, m0, t % tiles_n * BN, ring);
   }
 }
 
-template <int BM_, int BN_, typename TA, typename TC, typename TOut>
-inline void launch_tile(const TA* A, const TC* B, int M, int N, int K,
-                        const Epilogue<TOut>& ep, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<BM_, BN_, TC>();
-  auto kernel = gemm_tc<BM_, BN_, TA, TC, TOut>;
-  if (bytes > 48 * 1024)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         bytes);
-  dim3 grid((M + BM_ - 1) / BM_, (N + BN_ - 1) / BN_);
-  kernel<<<grid, THREADS, bytes, stream>>>(A, B, M, N, K, ep);
+// Blocks of `kernel` that are resident together on the current device.
+template <typename K>
+inline cudaError_t resident_blocks(K kernel, int threads, int smem,
+                                   int* resident) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                      smem);
+  *resident = sms * per_sm;
+  return e;
 }
 
-// Largest row tile MAX_BM: 128, which must divide a dynamic scale group.
-constexpr int MAX_BM = 128;
+// The group-synchronous kernel of operand type TC, ready to launch, and how
+// many of its blocks the current device holds at once.
+template <typename TC>
+inline cudaError_t groups_kernel(const void** kernel_out, int* resident_out) {
+  using C = Tile<2, 128, 3>;
+  auto kernel = gemm_wgmma_groups<TC, 2, 128, 3, 2>;
+  *kernel_out = reinterpret_cast<const void*>(kernel);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return e;
+  static int resident_on[64] = {};
+  int dev = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  int& resident = resident_on[dev & 63];
+  if (resident == 0) {
+    e = resident_blocks(kernel, C::THREADS, C::SMEM, &resident);
+    if (e != cudaSuccess) return e;
+  }
+  *resident_out = resident;
+  return cudaSuccess;
+}
 
-template <typename TA, typename TC, typename TOut>
-inline void launch_gemm_tc(const TA* A, const TC* B, int M, int N, int K,
-                           const Epilogue<TOut>& ep, cudaStream_t stream) {
-  if (M <= 1024)
-    launch_tile<32, 64>(A, B, M, N, K, ep, stream);
-  else if (M <= 8192)
-    launch_tile<64, 64>(A, B, M, N, K, ep, stream);
-  else
-    launch_tile<MAX_BM, 128>(A, B, M, N, K, ep, stream);
+// Launches layer L group-synchronously. A scale group whose tiles the card
+// does not hold at once is an error (cudaErrorCooperativeLaunchTooLarge):
+// the caller asks groups_kernel first and runs such a call with a quantise
+// pass instead.
+template <typename TC>
+inline cudaError_t launch_groups(const Layer<float>& L, cudaStream_t stream) {
+  using C = Tile<2, 128, 3>;
+  constexpr int BN = 128;
+  const void* kernel = nullptr;
+  int resident = 0;
+  cudaError_t e = groups_kernel<TC>(&kernel, &resident);
+  if (e != cudaSuccess) return e;
+  const int row_tiles = (L.M + C::BM - 1) / C::BM;
+  const int group_tiles = L.ep.group_rows / C::BM < row_tiles
+                              ? L.ep.group_rows / C::BM
+                              : row_tiles;
+  int tpg = group_tiles * ((L.N + BN - 1) / BN);
+  if (tpg > resident) return cudaErrorCooperativeLaunchTooLarge;
+  const int groups = (row_tiles + group_tiles - 1) / group_tiles;
+  int waves = resident / tpg < groups ? resident / tpg : groups;
+  void* params[] = {const_cast<Layer<float>*>(&L), &tpg};
+  return cudaLaunchCooperativeKernel(kernel, dim3(waves * tpg),
+                                     dim3(C::THREADS), params, C::SMEM, stream);
+}
+
+// The serving tile of the persistent kernels: 1 warpgroup, 64 x 64.
+constexpr int SERVE_BN = 64, SERVE_DEPTH = 6;
+using ServeTile = Tile<1, SERVE_BN, SERVE_DEPTH>;
+
+// All tiles of layer L, strided over the grid's blocks.
+template <typename TC, typename W>
+__device__ __forceinline__ void serve_layer(const Layer<W>& L,
+                                            unsigned char* ring) {
+  const int tiles_n = (L.N + SERVE_BN - 1) / SERVE_BN;
+  const int tiles = (L.M + ServeTile::BM - 1) / ServeTile::BM * tiles_n;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+    gemm_tile<TC, W, 1, SERVE_BN, SERVE_DEPTH>(
+        L, t / tiles_n * ServeTile::BM, t % tiles_n * SERVE_BN, ring);
+}
+
+// Cooperative launch of a persistent kernel over at most `max_tiles` blocks:
+// every block must be resident, so the grid is sized from the occupancy the
+// runtime reports for this kernel.
+template <typename K, typename Args>
+inline cudaError_t launch_persistent(K kernel, const Args& args, int max_tiles,
+                                     cudaStream_t stream) {
+  cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ServeTile::SMEM);
+  if (attr != cudaSuccess) return attr;
+  static int resident_on[64] = {};  // by device: blocks that fit at once
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  int& resident = resident_on[dev & 63];
+  if (resident == 0) {
+    e = resident_blocks(kernel, ServeTile::THREADS, ServeTile::SMEM, &resident);
+    if (e != cudaSuccess) return e;
+    if (resident < 1) return cudaErrorLaunchOutOfResources;
+  }
+  const int grid = max_tiles < resident ? max_tiles : resident;
+  void* params[] = {const_cast<Args*>(&args)};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
+                                     dim3(grid), dim3(ServeTile::THREADS),
+                                     params, ServeTile::SMEM, stream);
+}
+
+inline int serve_tiles(int M, int N) {
+  return (M + ServeTile::BM - 1) / ServeTile::BM *
+         ((N + SERVE_BN - 1) / SERVE_BN);
 }
 
 }  // namespace lifting

@@ -7,14 +7,20 @@ folded into each Linear, dropout as the identity (counterpart of
 CPU tensor it runs ``lifting_forward_ref``, the plain PyTorch version of
 the same arithmetic. There is no fallback from one to the other.
 
+The kernel has two paths, chosen by row count in ``choose_path``: one
+cooperative launch that runs all six layers (a serving batch), or one
+``wgmma`` GEMM launch per layer (bulk batches; the f32 mode always, with a
+SIMT GEMM). Both give the same bits for a row.
+
 Numerics (the TPU kernel's): matmuls accumulate in f32; each
 ``dense_relu`` output and each residual sum is rounded to the working type;
 the decode output is f32. Rows are independent, so nothing is padded.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Any, List, Mapping, Optional, Tuple
+from typing import Any, Callable, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,11 +34,37 @@ OUT_F = 48
 LAYER_NAMES = ["encode", "bilinear_0_0", "bilinear_0_1", "bilinear_1_0",
                "bilinear_1_1"]
 
-# Forwards that went through the CUDA kernel chain (one per call of the C
-# entry, which launches the six layer kernels).
+# Forwards that went through the CUDA kernels (one per call of the C entry,
+# which launches the one serving kernel or the six layer kernels).
 LAUNCHES = 0
 
-Prepared = List[Tuple[torch.Tensor, torch.Tensor]]
+# The kernel's paths. "fused": one cooperative launch for all six layers;
+# "layers": one launch per layer; "empty": nothing to launch.
+PATHS = ("empty", "fused", "layers")
+# Largest row count the one-launch kernel takes: up to here it measured
+# faster on an H100 than six launches (chip_smoke.py prints both sides).
+FUSED_MAX_ROWS = 1024
+
+
+def choose_path(n: int, fused_ok: bool = True) -> str:
+    """The kernel path for ``n`` rows, one of ``PATHS``. ``fused_ok`` is
+    False where no one-launch kernel exists (the f32 mode)."""
+    if n <= 0:
+        return "empty"
+    if fused_ok and n <= FUSED_MAX_ROWS:
+        return "fused"
+    return "layers"
+
+
+class Prepared(list):
+    """Six (kernel (in, out) in the working type, bias f32) pairs, as the
+    plain version and the f32 kernel read them. ``kmajor`` holds the
+    K-contiguous (out, in) copy of each kernel that the bf16 ``wgmma``
+    kernels read (None for f32 weights). ``checked`` is the wrapper's
+    note of the tensors it has validated (``check_if_changed``)."""
+
+    kmajor: Optional[List[torch.Tensor]] = None
+    checked: Optional[Tuple] = None
 
 
 def _f32(a, device) -> torch.Tensor:
@@ -66,9 +98,10 @@ def folded_layer(params, batch_stats, name: str, device):
 def prepare_weights(params, batch_stats, dtype=torch.bfloat16,
                     device=None) -> Prepared:
     """Fold BN and cast, once per checkpoint: six (kernel (in, out) in
-    ``dtype``, bias f32) pairs on ``device`` (default: the card)."""
+    ``dtype``, bias f32) pairs on ``device`` (default: the card) and, for
+    bf16, their (out, in) copies."""
     device = resolve_device(device)
-    weights = []
+    weights = Prepared()
     for name in LAYER_NAMES:
         k, b = folded_layer(params, batch_stats, name, device)
         weights.append((k.to(dtype).contiguous(), b.contiguous()))
@@ -76,6 +109,8 @@ def prepare_weights(params, batch_stats, dtype=torch.bfloat16,
         _f32(params["decode"]["kernel"], device).to(dtype).contiguous(),
         _f32(params["decode"]["bias"], device).contiguous(),
     ))
+    if dtype == torch.bfloat16:
+        weights.kmajor = [w.t().contiguous() for w, _ in weights]
     return weights
 
 
@@ -107,16 +142,64 @@ def rows_for_kernel(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 17 + [ctypes.c_int,
-                                                       ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 2
+             + [ctypes.c_void_p])
+
+
+_fn = None
 
 
 def _lib():
-    lib = _build.library("lifting")
-    fn = lib.lifting_forward
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+    global _fn
+    if _fn is None:
+        fn = _build.library("lifting").lifting_forward
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def on_device(device: torch.device):
+    """Context that makes ``device`` current for a launch; free when it
+    already is."""
+    if torch.cuda.current_device() == device.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def check_if_changed(holder, tensors: Sequence[torch.Tensor], key,
+                     check: Callable[[], None]) -> None:
+    """Run ``check()``, which validates ``tensors``, unless it passed at the
+    last call with this ``key`` and each tensor is still the very object at
+    the very address (``holder.checked`` keeps those objects, so none can
+    have been freed and its identity reused). A ``holder`` without that
+    attribute (a plain list or dict) is checked at every call."""
+    ptrs = [t.data_ptr() for t in tensors]
+    seen = getattr(holder, "checked", None)
+    if (seen is not None and seen[0] == key and seen[2] == ptrs
+            and len(seen[1]) == len(tensors)
+            and all(a is b for a, b in zip(seen[1], tensors))):
+        return
+    check()
+    if hasattr(type(holder), "checked"):
+        holder.checked = (key, tuple(tensors), ptrs)
+
+
+def _weight_pointers(weights: Prepared, x: torch.Tensor) -> List[int]:
+    """Addresses of the six (kernel, bias) pairs as the kernel reads them,
+    validated against ``x``."""
+    bf16 = x.dtype == torch.bfloat16
+    kmajor = getattr(weights, "kmajor", None) if bf16 else None
+    if bf16 and (kmajor is None or len(kmajor) != 6):
+        raise ValueError("bf16 weights need their K-contiguous copies: "
+                         "make them with prepare_weights")
+    read, seen = [], []
+    for i, (w, b) in enumerate(weights):
+        read += [kmajor[i] if bf16 else w, b]
+        seen += [w, b] + ([kmajor[i]] if bf16 else [])
+    check_if_changed(weights, seen, (x.dtype, x.device),
+                     lambda: _check_weights(weights, x))
+    return [t.data_ptr() for t in read]
 
 
 def _check_weights(weights: Prepared, x: torch.Tensor) -> None:
@@ -131,11 +214,20 @@ def _check_weights(weights: Prepared, x: torch.Tensor) -> None:
             raise ValueError("weights and rows must be on the same device")
         if not (w.is_contiguous() and b.is_contiguous()) or w.data_ptr() % 16:
             raise ValueError("weights must be contiguous and 16-byte aligned")
+    if x.dtype == torch.bfloat16:
+        for (w, _), wt in zip(weights, weights.kmajor):
+            if (wt.shape != w.t().shape or wt.dtype != w.dtype
+                    or wt.device != w.device or not wt.is_contiguous()
+                    or wt.data_ptr() % 16):
+                raise ValueError("a K-contiguous weight copy does not match "
+                                 "its weight")
 
 
-def lifting_forward_cuda(weights: Prepared, x: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel chain on the current stream. ``x``: (n, 32) CUDA
-    tensor in the weights' type (bf16 or f32)."""
+def lifting_forward_cuda(weights: Prepared, x: torch.Tensor,
+                         path: Optional[str] = None) -> torch.Tensor:
+    """Launch the kernel on the current stream. ``x``: (n, 32) CUDA tensor
+    in the weights' type (bf16 or f32). ``path`` ("fused" or "layers")
+    overrides ``choose_path``, to time both sides of their boundary."""
     global LAUNCHES
     if x.device.type != "cuda":
         raise ValueError("lifting_forward_cuda needs a CUDA tensor")
@@ -144,21 +236,24 @@ def lifting_forward_cuda(weights: Prepared, x: torch.Tensor) -> torch.Tensor:
     if x.dim() != 2 or x.shape[1] != IN_F:
         raise ValueError(f"x must be (n, {IN_F}), got {tuple(x.shape)}")
     x = rows_for_kernel(x)
-    _check_weights(weights, x)
+    weight_ptrs = _weight_pointers(weights, x)
     n = x.shape[0]
     out = torch.empty((n, OUT_F), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
+    bf16 = x.dtype == torch.bfloat16
+    if path is None:
+        path = choose_path(n, fused_ok=bf16)
+    if path not in ("fused", "layers") or (path == "fused" and not bf16):
+        raise ValueError(f"no kernel path {path!r} for {x.dtype}")
     scratch = torch.empty((3, n, HIDDEN), dtype=x.dtype, device=x.device)
-    ptrs = [x.data_ptr()]
-    for w, b in weights:
-        ptrs += [w.data_ptr(), b.data_ptr()]
-    fn = _lib()
+    h0 = scratch.data_ptr()
+    step = n * HIDDEN * scratch.element_size()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = fn(int(x.dtype == torch.bfloat16), *ptrs, out.data_ptr(),
-                scratch[0].data_ptr(), scratch[1].data_ptr(),
-                scratch[2].data_ptr(), n, stream)
+    with on_device(x.device):
+        rc = _lib()(int(bf16), x.data_ptr(), *weight_ptrs, out.data_ptr(),
+                    h0, h0 + step, h0 + 2 * step, n, int(path == "fused"),
+                    stream)
     _build.check(rc, "lifting_forward")
     LAUNCHES += 1
     return out

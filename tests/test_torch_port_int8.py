@@ -205,3 +205,145 @@ def test_trained_accuracy_within_gates(trained, static):
     jref = np.asarray(jl.lifting_forward(params, stats, jnp.asarray(xn),
                                          dtype=jnp.float32, interpret=True))
     np.testing.assert_allclose(ref, jref, rtol=2e-3, atol=2e-3)
+
+
+# ---- the kernel's prepared form, scratch and producer-side quantisation ----
+
+
+def test_kmajor_copies_are_exact_transposes(variables):
+    """int8 wgmma reads both operands K-contiguous: every weight has an
+    (out, in) copy for the kernel, and wq stays (in, out) for the plain
+    version (and bit-equal to JAX, test_prepare_weights_int8_matches_jax)."""
+    _, _, _, tp = variables
+    weights = [tp["encode"][0], *(h[0] for h in tp["hidden"]),
+               tp["decode"][0]]
+    assert len(tp["kmajor"]) == 6
+    for w, wt in zip(weights, tp["kmajor"]):
+        assert wt.is_contiguous() and wt.dtype == w.dtype
+        assert wt.shape == (w.shape[1], w.shape[0])
+        assert torch.equal(wt, w.t())
+    assert [w.dtype for w in tp["kmajor"]] == [torch.bfloat16] \
+        + [torch.int8] * 4 + [torch.bfloat16]
+
+
+@pytest.mark.parametrize("quantize", ["int8", "int8-static"])
+def test_reload_rebuilds_kmajor_copies(variables, tmp_path, quantize):
+    from bilinear_tpu_torch.io.checkpoint import save_checkpoint
+    from bilinear_tpu_torch.serving import LiftingServer
+
+    params, stats, _, _ = variables
+    one, zero = np.ones(32, np.float32), np.zeros(32, np.float32)
+    server = LiftingServer(params, stats, zero, one, np.zeros(48, np.float32),
+                           np.ones(48, np.float32), device="cpu",
+                           quantize=quantize)
+    before = server._engine.prepared
+    pdir = str(tmp_path / "parameter")
+    save_checkpoint(pdir, 2, *scrambled_variables(1))
+    server.parameter_dir, server.epoch = pdir, 1
+    assert server.reload() is True
+    after = server._engine.prepared
+    assert not torch.equal(after["hidden"][0][0], before["hidden"][0][0])
+    for (wq, _, _), wt in zip(after["hidden"], after["kmajor"][1:5]):
+        assert torch.equal(wt, wq.t())
+    assert torch.equal(after["kmajor"][0], after["encode"][0].t())
+    assert torch.equal(after["kmajor"][5], after["decode"][0].t())
+
+
+def _static_chain_quantised_at_producer(tp, scales, x):
+    """The static forward as the kernel runs it: every activation is
+    quantised where it is PRODUCED, with the scale of the layer that will
+    consume it, and travels as int8; f32 survives only as a skip."""
+    enc_w, enc_b = tp["encode"]
+    dec_w, dec_b = tp["decode"]
+    h0 = torch.relu(x.to(torch.bfloat16).float() @ enc_w.float() + enc_b)
+    q = pq.quantize_activation(h0, torch.tensor(scales[0]))
+    skip, out = h0, None
+    for l, (wq, ws, b) in enumerate(tp["hidden"]):
+        s = torch.tensor(scales[l], dtype=torch.float32)
+        y = torch.relu((q @ wq.float()) * (s * ws) + b)
+        if l in (1, 3):
+            y = y + skip
+            skip = y
+        if l < 3:
+            q = pq.quantize_activation(y, torch.tensor(scales[l + 1]))
+        else:
+            out = y.to(torch.bfloat16).float() @ dec_w.float() + dec_b
+    return out
+
+
+@pytest.mark.parametrize("n", [100, 512, 1024])
+def test_quantising_at_the_producer_is_bit_equal(variables, n):
+    _, _, _, tp = variables
+    x = torch.from_numpy(rows(n, 11))
+    scales = pq.calibrate_scales(tp, rows(1024, 5))
+    ref = pq.forward_chain(tp, scales, x[None])[0]
+    out = _static_chain_quantised_at_producer(tp, scales, x)
+    np.testing.assert_array_equal(out.numpy(), ref.numpy())
+
+
+@pytest.mark.parametrize("n", [1, 512, 513, 65536])
+def test_dynamic_scratch_sizing(n):
+    """One amax and one tile counter per hidden layer and 512-row group of
+    the rows the kernel sees: n, or n + 1 with the padding row."""
+    m = n if n % pq.GROUP == 0 else n + 1
+    groups, shape = pq.dynamic_scratch(m, pq.GROUP)
+    assert groups == -(-n // pq.GROUP)  # the padding row opens no group
+    assert shape == (2, 4, groups)
+    assert pq.dynamic_scratch(4096, pq._ONE_GROUP) == (1, (2, 4, 1))
+    assert pq.GROUP % 128 == 0  # a row tile never straddles two groups
+
+
+def test_quantize_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        pq.quantize_rows_cuda(torch.zeros((4, 1024)), torch.ones(1), 512)
+
+
+def test_launch_refuses_mixed_scales_and_bad_groups(variables):
+    """Argument checks that need no card come before any launch."""
+    _, _, _, tp = variables
+    before = pq.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        pq._launch(tp, torch.zeros((4, 32), dtype=torch.bfloat16),
+                   (0.1, None, 0.1, 0.1), pq.GROUP)
+    assert pq.LAUNCHES == before
+
+
+@pytest.mark.parametrize("m, launches", [
+    (0, 0), (1, 2), (257, 2), (pl.FUSED_MAX_ROWS, 2),
+    (pl.FUSED_MAX_ROWS + 1, 7), (65536, 7)])
+def test_dynamic_launches_follow_the_path(m, launches):
+    """A serving batch is the scratch's memset and one kernel; a bulk batch
+    the memset and six GEMMs."""
+    assert pq.dynamic_launches(m) == launches
+
+
+@pytest.mark.parametrize("m, group_rows, capacity, want", [
+    (1025, pq.GROUP, 4224, False), (65537, pq.GROUP, 4224, False),
+    (4096, pq._ONE_GROUP, 4224, False), (4224, pq._ONE_GROUP, 4224, False),
+    (4225, pq._ONE_GROUP, 4224, True), (8192, pq._ONE_GROUP, 4224, True),
+    (8192, pq._ONE_GROUP, 8192, False), (2048, pq.GROUP, 256, True)])
+def test_quantize_pass_only_for_a_group_the_card_cannot_hold(
+        m, group_rows, capacity, want):
+    """Served batches (512-row groups) quantise where they are produced; one
+    group of more rows than the card holds tiles for runs the pass."""
+    assert pq.needs_quantize_pass(m, group_rows, capacity) is want
+    assert pq.dynamic_launches(m, want) == (11 if want else 7)
+
+
+def test_prepared_form_holds_only_its_weights(variables):
+    """The wrapper's note of what it validated is no entry of the prepared
+    form, and a replaced tensor is validated again."""
+    _, _, _, tp = variables
+    dev = torch.device("cpu")
+    first = pq._weight_pointers(tp, dev)
+    assert set(tp) == {"encode", "hidden", "decode", "kmajor"}
+    assert tp.checked is not None and pq._weight_pointers(tp, dev) == first
+    wq, ws, b = tp["hidden"][1]
+    old = tp["hidden"][1]
+    try:
+        tp["hidden"][1] = (wq, ws[:512].contiguous(), b)
+        with pytest.raises(ValueError, match="expected"):
+            pq._weight_pointers(tp, dev)
+    finally:
+        tp["hidden"][1] = old
+    assert pq._weight_pointers(tp, dev) == first

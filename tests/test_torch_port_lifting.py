@@ -116,3 +116,109 @@ def test_kernel_wrapper_refuses_cpu_tensors(variables):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             pl.prepare_weights(params, stats)
+
+
+# ---- the kernel's prepared form and its choice of path ----
+
+
+def test_kmajor_copies_are_exact_transposes(variables):
+    """The bf16 wgmma kernels read a K-contiguous (out, in) copy of every
+    weight; f32 weights have none (the SIMT kernel reads (in, out))."""
+    params, stats = variables
+    w = pl.prepare_weights(params, stats, torch.bfloat16, device="cpu")
+    assert len(w.kmajor) == 6
+    for (k, _), kt in zip(w, w.kmajor):
+        assert kt.is_contiguous() and kt.dtype == torch.bfloat16
+        assert kt.shape == (k.shape[1], k.shape[0])
+        assert torch.equal(kt, k.t())
+    assert pl.prepare_weights(params, stats, torch.float32,
+                              device="cpu").kmajor is None
+
+
+def _server(params, stats, **kw):
+    from bilinear_tpu_torch.serving import LiftingServer
+
+    one, zero = np.ones(32, np.float32), np.zeros(32, np.float32)
+    return LiftingServer(params, stats, zero, one, np.zeros(48, np.float32),
+                         np.ones(48, np.float32), device="cpu", **kw)
+
+
+def test_reload_rebuilds_kmajor_copies(variables, tmp_path):
+    from bilinear_tpu_torch.io.checkpoint import save_checkpoint
+
+    params, stats = variables
+    server = _server(params, stats)
+    before = server._engine.prepared
+    pdir = str(tmp_path / "parameter")
+    save_checkpoint(pdir, 2, *scrambled_variables(1))
+    server.parameter_dir, server.epoch = pdir, 1
+    assert server.reload() is True
+    after = server._engine.prepared
+    assert after is not before
+    assert not torch.equal(after[1][0], before[1][0])
+    for (k, _), kt in zip(after, after.kmajor):
+        assert torch.equal(kt, k.t())
+
+
+PATH_NS = [0, 1, 256, 257, pl.FUSED_MAX_ROWS, pl.FUSED_MAX_ROWS + 1, 65536]
+
+
+@pytest.mark.parametrize("n", PATH_NS)
+def test_choose_path_names_an_existing_path(n):
+    path = pl.choose_path(n)
+    assert path in pl.PATHS
+    assert (path == "empty") == (n == 0)
+    assert (path == "fused") == (0 < n <= pl.FUSED_MAX_ROWS)
+    # the f32 mode has no one-launch kernel
+    assert pl.choose_path(n, fused_ok=False) in ("empty", "layers")
+
+
+def test_choose_path_is_monotone_in_n():
+    """empty, then one launch, then one launch per layer: never back."""
+    order = [pl.PATHS.index(pl.choose_path(n)) for n in range(0, 70000, 7)]
+    assert order == sorted(order)
+    assert set(order) == {0, 1, 2}
+    assert pl.FUSED_MAX_ROWS >= 256  # the daemon's max_rows is one launch
+
+
+def test_cuda_wrapper_checks_before_it_launches(variables):
+    """Shape and type are refused by name on the CPU side, before any
+    library is built."""
+    params, stats = variables
+    w = pl.prepare_weights(params, stats, torch.bfloat16, device="cpu")
+    before = pl.LAUNCHES
+    for bad in (torch.zeros((4, 31), dtype=torch.bfloat16),
+                torch.zeros((4, 32), dtype=torch.float16)):
+        with pytest.raises(ValueError):
+            pl.lifting_forward_cuda(w, bad)
+    assert pl.LAUNCHES == before
+
+
+def test_weights_are_checked_again_when_a_tensor_is_replaced(variables):
+    """The wrapper validates a prepared form once and then only compares
+    identities and addresses; a replaced tensor is validated anew, and a
+    wrong one refused, before any address reaches a kernel."""
+    params, stats = variables
+    w = pl.prepare_weights(params, stats, torch.bfloat16, device="cpu")
+    x = torch.zeros((4, 32), dtype=torch.bfloat16)
+    runs = []
+    real = pl._check_weights
+    try:
+        pl._check_weights = lambda *a: (runs.append(1), real(*a))
+        first = pl._weight_pointers(w, x)
+        assert pl._weight_pointers(w, x) == first and len(runs) == 1
+        w[2] = (w[2][0].clone(), w[2][1])  # same values, another tensor
+        again = pl._weight_pointers(w, x)
+        assert len(runs) == 2 and again[5] == first[5]  # bias 2 unchanged
+        w.kmajor[3] = w.kmajor[3][:, :512].contiguous()
+        with pytest.raises(ValueError, match="K-contiguous"):
+            pl._weight_pointers(w, x)
+        # a plain list of pairs is validated at every call
+        w32 = list(pl.prepare_weights(params, stats, torch.float32,
+                                      device="cpu"))
+        runs.clear()
+        pl._weight_pointers(w32, x.float())
+        pl._weight_pointers(w32, x.float())
+        assert len(runs) == 2
+    finally:
+        pl._check_weights = real
