@@ -1,19 +1,57 @@
-"""Configuration of the detector's trainer (counterpart of
-``HourglassConfig`` and ``parse_config`` in ``bilinear_tpu/config.py``):
-the reference's static config as a dataclass, with every field a CLI flag
-(``--batch-size 8``, booleans as ``--fused-blocks true``).
+"""Configuration of the trainers (counterpart of ``LRDecayConfig``,
+``BilinearConfig``, ``HourglassConfig`` and ``parse_config`` in
+``bilinear_tpu/config.py``): the reference's static configs as dataclasses,
+with every field a CLI flag (``--batch-size 8``, booleans as
+``--fused-blocks true``) except a nested config, which is no flag in the
+JAX package either (``lr_decay``: its trainer ignores it, and so does the
+port's).
 
 The XLA compile cache and the platform override have no counterpart here,
-and the JAX config's unused fields (prefetch, total_runs, profile) and
-process_id are left out; unknown flags are ignored, as in the JAX package.
-``device`` is the port's own: empty for the GPU (no CPU fallback), ``cpu``
-for the plain-PyTorch path the tests take.
+and the JAX configs' unused fields (prefetch, total_runs, the detector's
+profile) and process_id are left out; unknown flags are ignored, as in the
+JAX package. ``profile``, ``debug_nans`` and ``coordinator`` are kept where
+a CLI refuses them ("not ported yet"). ``device`` is the port's own:
+empty for the GPU (no CPU fallback), ``cpu`` for the plain-PyTorch path the
+tests take.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+
+from bilinear_tpu_torch.data.h36m import Protocol
+
+
+@dataclass
+class LRDecayConfig:
+    """util/config.py:19-23: lr = base * rate^(step/period), re-set when
+    step == 1 or step % period == 0."""
+
+    activate: bool = True
+    base_lr: float = 1.0e-3
+    rate: float = 0.96
+    period: int = 100_000
+
+
+@dataclass
+class BilinearConfig:
+    comment: str = "Bilinear GT"
+    batch_size: int = 64
+    data_dir: str = "data/Human3.6M"
+    save_root: str = "save"
+    protocol: str = Protocol.GT
+    lr_decay: LRDecayConfig = field(default_factory=LRDecayConfig)
+    epochs_per_run: int = 10  # train_bilinear.py:56
+    seed: int = 0
+    dtype: str = "float32"  # "bfloat16": bf16 Linears, f32 BN and loss
+    profile: bool = False  # not ported yet
+    keep_checkpoints: int = 0
+    keep_every: int = 0
+    debug_nans: bool = False  # not ported yet
+    coordinator: str = ""  # multi-process DP: not ported yet
+    num_processes: int = 1
+    device: str = ""  # '' = the GPU; 'cpu' = the plain path (tests)
 
 
 @dataclass
@@ -44,8 +82,14 @@ class HourglassConfig:
     device: str = ""  # '' = the GPU; 'cpu' = the plain path (tests)
 
 
+def _flag_fields(cfg):
+    """The fields that are CLI flags: all but nested configs."""
+    return [f for f in dataclasses.fields(cfg)
+            if not dataclasses.is_dataclass(getattr(cfg, f.name))]
+
+
 def _add_dataclass_args(parser: argparse.ArgumentParser, cfg) -> None:
-    for f in dataclasses.fields(cfg):
+    for f in _flag_fields(cfg):
         arg = "--" + f.name.replace("_", "-")
         val = getattr(cfg, f.name)
         if isinstance(val, bool):
@@ -62,6 +106,6 @@ def parse_config(cfg, argv=None):
     parser = argparse.ArgumentParser()
     _add_dataclass_args(parser, cfg)
     args, _ = parser.parse_known_args(argv)
-    for f in dataclasses.fields(cfg):
+    for f in _flag_fields(cfg):
         setattr(cfg, f.name, getattr(args, f.name))
     return cfg

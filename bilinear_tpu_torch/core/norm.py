@@ -11,11 +11,21 @@ num_batches_tracked``). The JAX tree's ``{mean, var, count}`` are
 ``update_running_stats`` applies that same update to statistics computed
 elsewhere (by the fused ResModule kernel), as ``_BNState`` does in
 ``bilinear_tpu/models/hourglass_torch7.py``.
+
+The reference's eval-time recalibration (``reset_statistics()``) resets
+every BN's statistics and then re-estimates them with the cumulative
+average: ``reset_batch_stats`` and ``cumulative_momentum``. The JAX package
+passes the momentum at call time (``TorchBatchNorm.__call__``); torch keeps
+it on the module, so the context manager sets it and puts it back.
 """
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator
+
 import torch
 from torch import nn
+from torch.nn.modules.batchnorm import _BatchNorm
 
 
 @torch.no_grad()
@@ -23,12 +33,41 @@ def update_running_stats(bn: nn.BatchNorm2d, batch_mean: torch.Tensor,
                          batch_var: torch.Tensor, n: int) -> None:
     """In place: count += 1, then ``r = (1 - f) r + f batch`` for the mean
     and for the unbiased variance ``var * n / (n - 1)``, with ``f =
-    momentum`` or, for ``momentum=None``, ``1 / count``."""
+    momentum`` or, for ``momentum=None``, ``1 / count`` in f32 (as the JAX
+    package computes it), a tensor on the counter's device: reading the
+    counter on the host would wait for the card at every BN."""
     unbiased = batch_var * (n / max(n - 1, 1))
     bn.num_batches_tracked += 1
     if bn.momentum is None:
-        factor = 1.0 / float(bn.num_batches_tracked)
+        factor = 1.0 / bn.num_batches_tracked.to(bn.running_mean.dtype)
     else:
         factor = bn.momentum
     bn.running_mean.copy_((1 - factor) * bn.running_mean + factor * batch_mean)
     bn.running_var.copy_((1 - factor) * bn.running_var + factor * unbiased)
+
+
+def _batch_norms(model: nn.Module) -> Iterator[_BatchNorm]:
+    return (m for m in model.modules() if isinstance(m, _BatchNorm))
+
+
+@torch.no_grad()
+def reset_batch_stats(model: nn.Module) -> None:
+    """In place, every BN of ``model``: running mean 0, running variance 1,
+    ``num_batches_tracked`` 0 (``reset_batch_stats`` of the JAX package)."""
+    for bn in _batch_norms(model):
+        bn.reset_running_stats()
+
+
+@contextlib.contextmanager
+def cumulative_momentum(model: nn.Module):
+    """Every BN of ``model`` with ``momentum=None`` (the cumulative average)
+    inside the block; the old momenta are restored on exit."""
+    bns = list(_batch_norms(model))
+    old = [bn.momentum for bn in bns]
+    for bn in bns:
+        bn.momentum = None
+    try:
+        yield model
+    finally:
+        for bn, m in zip(bns, old):
+            bn.momentum = m

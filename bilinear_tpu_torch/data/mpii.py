@@ -1,5 +1,6 @@
-"""MPII annotation parsing and the persisted train/valid split (the port's
-copy of ``MPIIAnnotations`` from ``bilinear_tpu/data/mpii.py``).
+"""MPII annotation parsing, the persisted train/valid split and the official
+test rects (the port's copy of ``MPIIAnnotations`` and
+``MPIITestAnnotations`` from ``bilinear_tpu/data/mpii.py``).
 
 - parses the official ``mpii_human_pose_v1_u12_1.mat`` with
   ``scipy.io.loadmat(squeeze_me=True, struct_as_record=False)``;
@@ -137,6 +138,71 @@ class MPIIAnnotations:
             img_idx=img_idx,
             r_idx=r_idx,
         )
+
+    def image_path(self, record: MPIIRecord) -> str:
+        return os.path.join(self.image_dir, record.image_name)
+
+
+class MPIITestAnnotations:
+    """The official MPII test-set rects for prediction export, with the
+    reference's conventions (``eval_hourglass.py:62-126``):
+
+    - ``img_idx`` / ``r_idx`` are 1-based and relative to the subset
+      (annolist filtered to ``img_train == 0``; ``== 1`` with
+      ``train_subset``), as the exporter and ``eval_converter.m`` walk it;
+    - only rects listed in ``single_person`` with an intact objpos;
+    - center = the raw objpos (no +15 * scale shift, unlike training),
+      scale = 1.25 * the raw scale.
+
+    Duck-typed for ``MPIIHostPipeline`` (``__len__``, ``record``,
+    ``image_path``)."""
+
+    def __init__(self, root: str, train_subset: bool = False,
+                 mat_name: str = "mpii_human_pose_v1_u12_2/mpii_human_pose_v1_u12_1.mat"):
+        self.root = root
+        self.image_dir = os.path.join(root, "images")
+        release = scipy.io.loadmat(
+            os.path.join(root, mat_name), squeeze_me=True,
+            struct_as_record=False)["RELEASE"]
+        annolist = _as_list(release.annolist)
+        img_train = np.atleast_1d(np.asarray(release.img_train))
+        singles = _as_list(release.single_person)
+
+        want = 1 if train_subset else 0
+        self.entries: List[MPIIRecord] = []
+        subset_img_idx = 0
+        for img_idx in range(len(annolist)):
+            if img_train[img_idx] != want:
+                continue
+            subset_img_idx += 1
+            rects = _as_list(annolist[img_idx].annorect)
+            sp = np.atleast_1d(np.asarray(singles[img_idx])).reshape(-1)
+            for r_idx, rect in enumerate(rects):
+                try:
+                    if (r_idx + 1) not in sp:
+                        continue
+                    center = np.asarray(
+                        [float(rect.objpos.x), float(rect.objpos.y)],
+                        np.float32)
+                    scale = 1.25 * float(rect.scale)
+                except Exception:
+                    continue
+                self.entries.append(MPIIRecord(
+                    image_name=str(annolist[img_idx].image.name),
+                    center=center,
+                    scale=scale,
+                    head=1.0,
+                    keypoints=np.full((NUM_JOINTS, 2), np.nan, np.float32),
+                    valid=np.zeros(NUM_JOINTS, bool),
+                    img_idx=subset_img_idx,  # 1-based, subset-relative
+                    r_idx=r_idx + 1,  # 1-based
+                ))
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def record(self, index: int) -> MPIIRecord:
+        return self.entries[index]
 
     def image_path(self, record: MPIIRecord) -> str:
         return os.path.join(self.image_dir, record.image_name)

@@ -8,8 +8,10 @@ suffixes merged (``Walking_1`` -> ``Walking``, done by ``load_h36m``);
 per-action MPJPE = total / (count * 16); overall = grand total / (N * 16).
 
 The forward is a function argument, so one split can score the served
-kernel path and the plain path alike. Rows go through in fixed chunks; the
-last chunk is zero-padded and its padding rows are dropped before scoring.
+kernel path and the plain path alike; ``make_mpjpe_fn`` makes one from a
+model (the counterpart of the JAX package's ``make_mpjpe_fn``). Rows go
+through in fixed chunks (8192 by default); the last chunk is zero-padded
+and its padding rows are dropped before scoring.
 """
 from __future__ import annotations
 
@@ -58,3 +60,22 @@ def evaluate_mpjpe(
     }
     overall = float(dist_sum.sum() / (count.sum() * NUM_JOINTS))
     return per_action, overall
+
+
+def make_mpjpe_fn(model: torch.nn.Module) -> Callable:
+    """The forward for ``evaluate_mpjpe`` of a ``BilinearUnit``: its
+    eval-mode forward under ``no_grad`` on the model's device (numpy rows
+    in, f32 tensor out). The model's train/eval mode is restored after each
+    call."""
+    dev = next(model.parameters()).device
+
+    @torch.no_grad()
+    def forward(x) -> torch.Tensor:
+        was_training = model.training
+        model.eval()
+        try:
+            return model(torch.as_tensor(x, device=dev)).float()
+        finally:
+            model.train(was_training)
+
+    return forward

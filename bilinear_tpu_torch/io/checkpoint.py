@@ -8,9 +8,11 @@ numpy dicts and ``optimizer`` the JAX optimizer state as the same
 (``flax.serialization.to_state_dict`` of it). The port reads checkpoints
 that the JAX trainer wrote and writes ones in the same layout, without
 importing JAX; models convert through ``utils/weights.py``. Resume reads
-the newest epoch; ``-1`` is the "finalized" sentinel and never wins.
+the newest epoch; ``-1`` is the "finalized" sentinel (``mark_finalized``:
+the detector's BN statistics after the one-time recalibration of
+``eval_hourglass``), which never wins the scan and is loaded by its epoch.
 ``{epoch}.orbax`` directories are recognised by the scan but not readable
-here.
+here, and the JAX package's asynchronous save is not ported either.
 
 The payload is a pickle: load only checkpoints this project wrote.
 """
@@ -47,15 +49,16 @@ def latest_epoch(parameter_dir: Optional[str]) -> int:
 
 
 def load_checkpoint(parameter_dir: str, epoch: int) -> Dict[str, Any]:
-    """Load ``{epoch}.save``. An ``{epoch}.orbax`` checkpoint raises: that
-    backend is not ported."""
+    """Load ``{epoch}.save`` (``FINALIZED_EPOCH`` for the sentinel). An
+    ``{epoch}.orbax`` checkpoint raises: that backend is not ported."""
     path = os.path.join(parameter_dir, f"{epoch}.save")
     if os.path.exists(path):
         with open(path, "rb") as f:
             return pickle.load(f)
     if os.path.isdir(os.path.join(parameter_dir, f"{epoch}.orbax")):
         raise NotImplementedError(
-            "Orbax checkpoints are not ported; see ROADMAP.md"
+            "Orbax checkpoints are not ported (nor is the asynchronous "
+            "save); see ROADMAP.md"
         )
     raise FileNotFoundError(
         f"no checkpoint for epoch {epoch} in {parameter_dir} "
@@ -88,6 +91,22 @@ def save_checkpoint(parameter_dir: str, epoch: int,
         if os.path.exists(tmp):
             os.remove(tmp)
     return path
+
+
+def mark_finalized(parameter_dir: str, params: Mapping[str, Any],
+                   batch_stats: Mapping[str, Any],
+                   optimizer: Optional[Mapping[str, Any]] = None,
+                   step: int = 1) -> str:
+    """Write the ``-1.save`` 'training over' sentinel
+    (``eval_hourglass.py:47-57`` of the reference), arguments as for
+    ``save_checkpoint``."""
+    return save_checkpoint(parameter_dir, FINALIZED_EPOCH, params,
+                           batch_stats, optimizer, step)
+
+
+def is_finalized(parameter_dir: str) -> bool:
+    return os.path.exists(os.path.join(parameter_dir,
+                                       f"{FINALIZED_EPOCH}.save"))
 
 
 def resume_or_init(state, parameter_dir: Optional[str]):

@@ -11,12 +11,22 @@ weights to and from the JAX package's parameter tree.
 The JAX package's ``TorchBatchNorm`` re-implements torch's own
 ``BatchNorm1d`` semantics, so this module uses ``nn.BatchNorm1d`` directly
 (eps 1e-5, momentum 0.1; the JAX ``count`` is ``num_batches_tracked``).
+
+Precision as in JAX: parameters are f32; each Linear runs in ``dtype``
+(input and weight cast, the product rounded to ``dtype``, the bias rounded
+to ``dtype`` and added in ``dtype``), BN runs in f32 and is rounded back to
+``dtype``, and the output is f32. The casts are explicit, no autocast.
+
+Train-mode dropout draws its keep mask from the ``generator`` passed to
+``forward`` (on the activations' device), never from torch's global RNG:
+``x / (1 - p)`` where ``rand < 1 - p``, else 0, as flax's ``Dropout``.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from bilinear_tpu_torch.core.initializers import init_linear
@@ -26,31 +36,67 @@ IN_FEATURES = 2 * NUM_JOINTS  # 32
 OUT_FEATURES = 3 * NUM_JOINTS  # 48
 
 
+def linear_in(linear: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    """The Linear in ``dtype``: round(x @ W^T) + round(b), in ``dtype``."""
+    return F.linear(x.to(dtype), linear.weight.to(dtype)) + \
+        linear.bias.to(dtype)
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with a mask drawn from ``generator``; identity in
+    eval mode or at ``p == 0``."""
+    if not training or p == 0.0:
+        return x
+    if p >= 1.0:
+        return torch.zeros_like(x)
+    if generator is None:
+        raise ValueError("train-mode dropout needs an explicit "
+                         "torch.Generator on the activations' device")
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
 class HeavyLinear(nn.Sequential):
     """Linear -> BatchNorm1d -> ReLU -> Dropout."""
 
     def __init__(self, in_features: int, features: int,
-                 dropout: float = 0.5, bn_momentum: Optional[float] = 0.1):
+                 dropout: float = 0.5, bn_momentum: Optional[float] = 0.1,
+                 dtype=torch.float32):
         super().__init__(
             nn.Linear(in_features, features),
             nn.BatchNorm1d(features, eps=1e-5, momentum=bn_momentum),
             nn.ReLU(),
             nn.Dropout(dropout),
         )
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        lin, bn, _, drop = self
+        h = linear_in(lin, x, self.dtype)
+        h = torch.relu(bn(h.float()).to(self.dtype))
+        return dropout(h, drop.p, self.training, generator)
 
 
 class BilinearUnit(nn.Module):
     """The lifting network. ``generator`` seeds the reference init
-    (kaiming-normal weights, torch-default biases)."""
+    (kaiming-normal weights, torch-default biases); ``dtype`` is the compute
+    type of the Linears."""
 
     def __init__(self, hidden: int = 1024, num_blocks: int = 2,
                  dropout: float = 0.5, bn_momentum: Optional[float] = 0.1,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype=torch.float32):
         super().__init__()
-        self.encode = HeavyLinear(IN_FEATURES, hidden, dropout, bn_momentum)
+        self.dtype = dtype
+        self.encode = HeavyLinear(IN_FEATURES, hidden, dropout, bn_momentum,
+                                  dtype)
         self.bilinear = nn.ModuleList(
             nn.ModuleList(
-                HeavyLinear(hidden, hidden, dropout, bn_momentum)
+                HeavyLinear(hidden, hidden, dropout, bn_momentum, dtype)
                 for _ in range(2)
             )
             for _ in range(num_blocks)
@@ -60,11 +106,14 @@ class BilinearUnit(nn.Module):
             if isinstance(m, nn.Linear):
                 init_linear(m, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.encode(x)
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(N, 32) -> (N, 48) f32. ``generator`` draws the train-mode
+        dropout masks, in layer order."""
+        x = self.encode(x.to(self.dtype), generator)
         for block in self.bilinear:
             skip = x
             for layer in block:
-                x = layer(x)
+                x = layer(x, generator)
             x = x + skip
-        return self.decode(x)
+        return linear_in(self.decode, x, self.dtype).float()

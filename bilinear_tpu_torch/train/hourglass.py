@@ -104,6 +104,17 @@ def preprocess_batch(images, centers, scales, keypoints, valid,
     return crops, render_heatmaps(hm_xy, valid, size=heatmap_size), keypoints
 
 
+def batch_tensors(batch, device, rows: Optional[int] = None) -> dict:
+    """A CanvasBatch's images, centres, scales, keypoints and validity as
+    tensors on ``device``; ``rows`` keeps the first rows only."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a[:rows])).to(device)
+
+    return dict(images=t(batch.images), centers=t(batch.centers),
+                scales=t(batch.scales), keypoints=t(batch.keypoints),
+                valid=t(batch.valid))
+
+
 def heatmap_loss(out: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Sum over stacks of the per-stack mean MSE; out (S, B, H, W, J),
     targets (B, J, H, W)."""
@@ -195,12 +206,7 @@ class HourglassTrainer:
 
     def batch_tensors(self, batch):
         """A CanvasBatch's arrays as tensors on the trainer's device."""
-        def t(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
-        return dict(images=t(batch.images), centers=t(batch.centers),
-                    scales=t(batch.scales), keypoints=t(batch.keypoints),
-                    valid=t(batch.valid))
+        return batch_tensors(batch, self.device)
 
     def train_step(self, state: TrainState, batch: dict,
                    augment: Augment) -> torch.Tensor:

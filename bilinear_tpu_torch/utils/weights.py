@@ -7,6 +7,8 @@ JAX tree -> state_dict:
 - BN ``scale``/``bias`` (params)        -> BN ``weight``/``bias``
 - BN ``mean``/``var``/``count`` (stats) -> ``running_mean``/``running_var``/
                                            ``num_batches_tracked``
+- Adam ``mu``/``nu`` (the params tree)  -> ``exp_avg``/``exp_avg_sq`` per
+                                           parameter
 """
 from __future__ import annotations
 
@@ -41,30 +43,28 @@ def _numpy(t) -> np.ndarray:
 def bilinear_from_jax(params: Mapping[str, Any],
                       batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``{params, batch_stats}`` (numpy leaves) -> port ``state_dict``."""
+    named = bilinear_params_from_jax(params)
     sd: Dict[str, torch.Tensor] = {}
     for ours, theirs in _layers():
-        lin, bn, st = params[ours]["linear"], params[ours]["bn"], batch_stats[ours]["bn"]
-        sd[f"{theirs}.0.weight"] = _tensor(np.asarray(lin["kernel"]).T)
-        sd[f"{theirs}.0.bias"] = _tensor(lin["bias"])
-        sd[f"{theirs}.1.weight"] = _tensor(bn["scale"])
-        sd[f"{theirs}.1.bias"] = _tensor(bn["bias"])
+        st = batch_stats[ours]["bn"]
+        for k in ("0.weight", "0.bias", "1.weight", "1.bias"):
+            sd[f"{theirs}.{k}"] = named[f"{theirs}.{k}"]
         sd[f"{theirs}.1.running_mean"] = _tensor(st["mean"])
         sd[f"{theirs}.1.running_var"] = _tensor(st["var"])
         sd[f"{theirs}.1.num_batches_tracked"] = torch.tensor(
             int(np.asarray(st["count"])), dtype=torch.int64
         )
-    sd["decode.weight"] = _tensor(np.asarray(params["decode"]["kernel"]).T)
-    sd["decode.bias"] = _tensor(params["decode"]["bias"])
+    sd["decode.weight"] = named["decode.weight"]
+    sd["decode.bias"] = named["decode.bias"]
     return sd
 
 
-def bilinear_to_jax(state_dict: Mapping[str, Any]):
-    """Port ``state_dict`` -> JAX ``(params, batch_stats)`` as numpy trees.
-    Exact inverse of ``bilinear_from_jax`` (``count`` comes back int32, the
-    JAX package's dtype)."""
-    sd = state_dict
+def bilinear_params_to_jax(tensors: Mapping[str, Any]) -> Dict[str, Any]:
+    """The trained parameters of a ``state_dict``-keyed mapping (a
+    ``state_dict``, or one tensor per parameter such as Adam's moments) ->
+    the JAX ``params`` tree (Dense kernels transposed to (in, out))."""
+    sd = tensors
     params: Dict[str, Any] = {}
-    stats: Dict[str, Any] = {}
     for ours, theirs in _layers():
         params[ours] = {
             "linear": {
@@ -76,6 +76,35 @@ def bilinear_to_jax(state_dict: Mapping[str, Any]):
                 "bias": _numpy(sd[f"{theirs}.1.bias"]),
             },
         }
+    params["decode"] = {
+        "kernel": _numpy(sd["decode.weight"]).T.copy(),
+        "bias": _numpy(sd["decode.bias"]),
+    }
+    return params
+
+
+def bilinear_params_from_jax(params: Mapping[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``bilinear_params_to_jax``: {parameter name: tensor}."""
+    out: Dict[str, torch.Tensor] = {}
+    for ours, theirs in _layers():
+        lin, bn = params[ours]["linear"], params[ours]["bn"]
+        out[f"{theirs}.0.weight"] = _tensor(np.asarray(lin["kernel"]).T)
+        out[f"{theirs}.0.bias"] = _tensor(lin["bias"])
+        out[f"{theirs}.1.weight"] = _tensor(bn["scale"])
+        out[f"{theirs}.1.bias"] = _tensor(bn["bias"])
+    out["decode.weight"] = _tensor(np.asarray(params["decode"]["kernel"]).T)
+    out["decode.bias"] = _tensor(params["decode"]["bias"])
+    return out
+
+
+def bilinear_to_jax(state_dict: Mapping[str, Any]):
+    """Port ``state_dict`` -> JAX ``(params, batch_stats)`` as numpy trees.
+    Exact inverse of ``bilinear_from_jax`` (``count`` comes back int32, the
+    JAX package's dtype)."""
+    sd = state_dict
+    stats: Dict[str, Any] = {}
+    for ours, theirs in _layers():
         stats[ours] = {
             "bn": {
                 "mean": _numpy(sd[f"{theirs}.1.running_mean"]),
@@ -85,11 +114,27 @@ def bilinear_to_jax(state_dict: Mapping[str, Any]):
                 ),
             }
         }
-    params["decode"] = {
-        "kernel": _numpy(sd["decode.weight"]).T.copy(),
-        "bias": _numpy(sd["decode.bias"]),
-    }
-    return params, stats
+    return bilinear_params_to_jax(sd), stats
+
+
+def bilinear_opt_to_jax(count: int, exp_avg: Mapping[str, Any],
+                        exp_avg_sq: Mapping[str, Any]) -> Dict[str, Any]:
+    """Adam's state -> the JAX optimizer payload ``(EmptyState,
+    TorchAdamState(count, mu, nu))`` as ``{'0': {}, '1': {'count', 'mu',
+    'nu'}}``, the moments in the parameter tree's layout. ``exp_avg`` /
+    ``exp_avg_sq`` map each parameter name to its moment."""
+    return {"0": {}, "1": {"count": np.asarray(count, np.int32),
+                           "mu": bilinear_params_to_jax(exp_avg),
+                           "nu": bilinear_params_to_jax(exp_avg_sq)}}
+
+
+def bilinear_opt_from_jax(optimizer: Mapping[str, Any]):
+    """Exact inverse of ``bilinear_opt_to_jax``: (count, exp_avg,
+    exp_avg_sq), the moments keyed by parameter name."""
+    adam = optimizer["1"]
+    return (int(np.asarray(adam["count"])),
+            bilinear_params_from_jax(adam["mu"]),
+            bilinear_params_from_jax(adam["nu"]))
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,9 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    3b. K3 train (output, the six batch statistics and the running
    statistics it updates in place), K3 eval and K4 (g_x and every parameter
    gradient) against res_block_ref / res_block_bwd_ref at every ResModule
-   shape of the full-width detector and a tail batch, in bf16 and f32.
+   shape of the full-width detector and a tail batch, in bf16 and f32; and
+   K3 eval and K3 train with running=None under no_grad at three batch-16
+   shapes of the evaluation slice (the BN buffers bit-unchanged).
 4. The lifting slice: a synthetic H36M dataset and an epoch-1 checkpoint
    written by the port; for each serving mode the daemon of cli/serve.py
    answers /v1/lift requests (JSON and .npy, concurrent ones coalesced)
@@ -55,6 +57,25 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    the plain version and the standard ResModule as a labelled yardstick;
    and one full training step, fused and standard, as ms/step, img/s,
    device time and kernels per step, and the host's time per phase.
+9. The lifting training slice: a synthetic H36M tree written by the port
+   (200 steps of 64 rows and a tail step per epoch), cli.train_bilinear at
+   full width in bf16 for 2 epochs and then 1 more that must resume from
+   2.save (finite losses; Adam's count and the step counter those of 3
+   epochs of n // 64 + 1 steps), cli.valid_bilinear, and the checkpoint
+   served through LiftingServer (K1 bf16 and f32, launches counted): its
+   valid MPJPE within 1% (bf16) and 0.1% (f32) of the CLI's. Then
+   BilinearTrainer's ms/step and poses/s over 1000 steps, f32 and bf16,
+   with device-busy ms and device kernels per step from a trace.
+10. The detector evaluation slice, on phase 6's tree and 2.save:
+   cli.valid_hourglass in f32 with --fused-blocks true and false (per-joint
+   PCKh hits within one; exactly 107 K3-train launches per recalibration
+   batch and 107 K3-eval launches per flip-TTA forward of 16, none without
+   the fused blocks), cli.eval_hourglass twice (-1.save written once and
+   reused; one .txt per test rect; the converter's count), the fused
+   model's recalibrated statistics and batch-16 heatmaps against the
+   standard model's (f32), and img/s of the recalibration forward and the
+   PCKh step in bf16, fused and standard, with device-busy ms and kernels
+   per call.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or bilinear_tpu.
@@ -529,6 +550,66 @@ def check_wide_image(gate):
     gate(f"K3 eval f32 {WIDE_SHAPE} out", "f32", out, ref)
 
 
+# The batch-16 shapes of the evaluation slice: the flip-TTA forward runs
+# [crops; hflip(crops)] (262,144 stem rows), and its smallest modules.
+RES_SHAPES_16 = (
+    (16, 128, 128, 64, 128),  # stem_res1, 1x1 skip: 262,144 rows
+    (16, 64, 64, 256, 256),
+    (16, 4, 4, 256, 256),
+)
+
+
+def check_resmodule_16(gate, errs):
+    """K3 eval and K3 train with ``running=None`` under ``no_grad`` (the
+    recalibration pass: the cumulative update is Python's) at
+    RES_SHAPES_16, bf16 and f32, against res_block_ref with the batch-8
+    gates; the BN buffers of a ResModule whose parameters the call used
+    must be bit-unchanged by it."""
+    import torch
+    from bilinear_tpu_torch.models.hourglass_torch7 import ResModule
+    from bilinear_tpu_torch.ops import resmodule as rm
+
+    dev = torch.device("cuda")
+    for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for i, shape in enumerate(RES_SHAPES_16):
+            x, _, _, stats = res_case(shape, SEED + 50 + i, dev)
+            x = x.to(dtype)
+            tag = f"{kind} {shape}"
+            mod = ResModule(shape[3], shape[4], momentum=None, dtype=dtype,
+                            fused=True).to(dev)
+            s = mod.resSeq
+            for bn, m, v in zip((s[0], s[3], s[6]), stats[0::2],
+                                stats[1::2]):
+                bn.running_mean.copy_(m)
+                bn.running_var.copy_(v)
+            before = [b.clone() for b in mod.buffers()]
+            p = mod.res_params()
+            with torch.no_grad():
+                out, st = rm.res_block_train(x, p, dtype=dtype, running=None)
+                torch.cuda.synchronize()
+                ref, ref_st = rm.res_block_ref(x, p, train=True, dtype=dtype)
+            e = gate(f"K3 train no_grad {tag} out", kind, out, ref)
+            for name, a, b in zip(rm.BatchStats._fields, st, ref_st):
+                e = max(e, gate(f"K3 train no_grad {tag} {name}", kind, a, b))
+            errs["resmodule_fwd_train"] = max(errs["resmodule_fwd_train"], e)
+            if not all(torch.equal(a, b) for a, b in zip(before,
+                                                         mod.buffers())):
+                raise AssertionError(f"K3 train {tag} with running=None "
+                                     f"changed the BN buffers")
+            with torch.no_grad():
+                out = rm.res_block_eval(x, p, stats, dtype=dtype)
+                torch.cuda.synchronize()
+                ref = rm.res_block_ref(x, p, train=False, stats=stats,
+                                       dtype=dtype)[0]
+            errs["resmodule_fwd_eval"] = max(
+                errs["resmodule_fwd_eval"],
+                gate(f"K3 eval {tag} out", kind, out, ref))
+            del x, stats, mod, p, out, st, ref, ref_st, before
+            torch.cuda.empty_cache()
+    log(f"  batch 16: the BN buffers were bit-unchanged by every "
+        f"running=None call")
+
+
 def check_resmodule():
     """K3 train (out + six stats), K3 eval and K4 (g_x + every parameter
     gradient) against res_block_ref / res_block_bwd_ref on the same CUDA
@@ -584,6 +665,7 @@ def check_resmodule():
                                     rgp.b3 if name in ("b1", "b2") else None))
             errs["resmodule_bwd"] = max(errs["resmodule_bwd"], e)
             del x, g, p, stats, out, st, ref, ref_st, gx, gp, rgx, rgp
+    check_resmodule_16(gate, errs)
     check_wide_image(gate)
     if failed:
         raise AssertionError(f"{len(failed)} resmodule cases out of "
@@ -1120,7 +1202,10 @@ def drive_detector(work):
     save_root = os.path.join(work, "save")
     write_mpii_dataset(data_dir, n_train_images=N_TRAIN_IMAGES,
                        n_test_images=2, learnable=True, seed=SEED)
-    n_records = len(MPIIAnnotations(data_dir, Task.Train))
+    # The train/valid split is drawn here, from SEED, and persisted: the
+    # CLI would draw it at random, and phase 7's batch and phase 10's
+    # splits would change from run to run.
+    n_records = len(MPIIAnnotations(data_dir, Task.Train, split_seed=SEED))
     steps = -(-n_records // DETECTOR_BATCH)
     argv = ["--data-dir", data_dir, "--save-root", save_root,
             "--comment", "smoke", "--dtype", "bfloat16",
@@ -1399,11 +1484,12 @@ def _trace(fn, calls: int):
 
 
 def _trace_whole(fn, calls: int):
-    """``_trace``, repeated (at most five times) while the profiler has
+    """``_trace``, repeated (at most ten times) while the profiler has
     dropped records, as it does now and then on a busy host, sometimes a
     whole trace's: every kernel must show a whole number of launches per
-    call, and there must be some."""
-    for attempt in range(5):
+    call, and there must be some. (On a busy host one call of three can
+    lose some of its kernels' records in five traces running.)"""
+    for attempt in range(10):
         per = _trace(fn, calls)
         if per and all(abs(cnt - round(cnt)) < 1e-6 for _, cnt in per.values()):
             return per
@@ -1615,6 +1701,351 @@ def host_split(step, steps: int = 3):
     return split
 
 
+# ------------------------------------------------------------ phase 9
+
+LIFT_TRAIN_ROWS = 64 * 200 + 37  # 200 whole steps and a 37-row tail
+LIFT_VALID_ROWS = 4096
+LIFT_TIME_STEPS = 1000
+
+
+def _log_value(text, prefix, key):
+    """Floats after ``key`` on the log lines that hold ``prefix``."""
+    return [float(ln.split(key)[1].split(")")[0].split(",")[0])
+            for ln in text.splitlines() if prefix in ln]
+
+
+def drive_lifting_training(work):
+    """Train the full-width lifting MLP through cli.train_bilinear (2
+    epochs, then 1 more that resumes from 2.save), validate it through
+    cli.valid_bilinear, and serve that checkpoint through LiftingServer
+    (K1 bf16 and f32): its valid MPJPE must agree with the CLI's. Returns
+    ({kernel: K1 launches while serving}, the CLI's MPJPE, {kernel: served
+    MPJPE}, losses)."""
+    import math
+
+    import torch
+    from bilinear_tpu_torch.cli import train_bilinear, valid_bilinear
+    from bilinear_tpu_torch.data.h36m import Task, load_h36m
+    from bilinear_tpu_torch.data.synthetic import write_h36m_dataset
+    from bilinear_tpu_torch.eval.mpjpe import evaluate_mpjpe
+    from bilinear_tpu_torch.io.checkpoint import load_checkpoint
+    from bilinear_tpu_torch.ops import lifting as pl
+    from bilinear_tpu_torch.serving import LiftingServer
+
+    data_dir = os.path.join(work, "Human3.6M")
+    save_root = os.path.join(work, "save")
+    write_h36m_dataset(data_dir, n_train=LIFT_TRAIN_ROWS,
+                       n_valid=LIFT_VALID_ROWS, seed=SEED)
+    argv = ["--data-dir", data_dir, "--save-root", save_root, "--comment",
+            "lift", "--dtype", "bfloat16", "--seed", str(SEED)]
+    run_dir = os.path.join(save_root, "lift")
+    steps_per_epoch = LIFT_TRAIN_ROWS // 64 + 1
+    for epochs in (2, 1):
+        t0 = time.perf_counter()
+        train_bilinear.main(argv + ["--epochs-per-run", str(epochs)])
+        log(f"  cli.train_bilinear --epochs-per-run {epochs}: "
+            f"{time.perf_counter() - t0:.1f} s")
+    with open(os.path.join(run_dir, "debug.log")) as f:
+        text = f.read()
+    if "Resumed from epoch 2 (step " not in text:
+        raise AssertionError("the second invocation did not resume")
+    losses = _log_value(text, "saved (loss:", "loss: ")
+    log("  " + "; ".join(ln.split(" > ", 1)[-1] for ln in text.splitlines()
+                         if "saved (loss:" in ln or "poses/sec" in ln))
+    if len(losses) != 3 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"losses {losses}")
+    payload = load_checkpoint(os.path.join(run_dir, "parameter"), 3)
+    count = int(payload["optimizer"]["1"]["count"])
+    log(f"  3.save: step {payload['step']}, Adam count {count}; "
+        f"{steps_per_epoch} steps per epoch expected (n // 64 + 1)")
+    if count != 3 * steps_per_epoch or \
+            payload["step"] != 3 * steps_per_epoch + 1:
+        raise AssertionError("the steps taken are not 3 epochs of "
+                             f"{steps_per_epoch}")
+
+    valid_bilinear.main(argv)
+    with open(os.path.join(run_dir, "mpjpe_epoch3.json")) as f:
+        cli_mpjpe = json.load(f)["overall"]
+    splits = load_h36m(data_dir)
+    served, launches = {}, {}
+    for name, dtype, tol in (("lifting_bf16", torch.bfloat16, 0.01),
+                             ("lifting_f32", torch.float32, 0.001)):
+        server, epoch = LiftingServer.from_run_dir(
+            run_dir, splits[Task.Train], dtype=dtype)
+        pl.LAUNCHES = 0
+        _, served[name] = evaluate_mpjpe(server.lift_normalized,
+                                         splits[Task.Valid])
+        launches[name] = pl.LAUNCHES
+        log(f"  served epoch {epoch} through {name}: valid MPJPE "
+            f"{served[name]!r} mm, cli.valid_bilinear {cli_mpjpe!r} mm (f32 "
+            f"module); {launches[name]} K1 launches")
+        if launches[name] == 0:
+            raise AssertionError(f"{name}: the kernel was not launched")
+        if abs(served[name] - cli_mpjpe) > tol * cli_mpjpe:
+            raise AssertionError(f"served {name} MPJPE off the CLI's by more "
+                                 f"than {tol:.1%}")
+    return launches, cli_mpjpe, served, losses
+
+
+def time_lifting_training():
+    """BilinearTrainer at full width, f32 and bf16: ms/step and poses/s over
+    LIFT_TIME_STEPS steps of 64 rows after one warm-up epoch (host clock
+    around a synchronised epoch), device-busy ms and device kernels per step
+    from a trace of a few steps. Measurements only."""
+    import torch
+    from bilinear_tpu_torch.train.bilinear import BilinearTrainer
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    n = 64 * LIFT_TIME_STEPS
+    x = torch.randn((n, IN_F), generator=gen, device=dev)
+    y = torch.randn((n, OUT_F), generator=gen, device=dev)
+    out = {}
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        trainer = BilinearTrainer(dtype=dtype, device=dev)
+        state = trainer.init_state(SEED)
+        trainer.train_epoch(state, x[:64 * 100], y[:64 * 100], 1, SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = trainer.train_epoch(state, x, y, 2, SEED)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if not bool(torch.isfinite(losses).all()):
+            raise AssertionError(f"{name}: non-finite training loss")
+        bx, by = x[:64], y[:64]
+        drop = trainer.dropout_generator(SEED, 3)
+        busy, kernels, top = _device_time(
+            lambda: trainer.train_step(state, bx, by, drop), 5)
+        ms = secs * 1e3 / LIFT_TIME_STEPS
+        out[name] = {"ms_per_step": ms, "poses_per_s": n / secs,
+                     "device_ms_per_step": busy,
+                     "device_kernels_per_step": kernels,
+                     "device_idle_share": max(0.0, 1 - busy / ms),
+                     "device_top": top}
+        log(f"  lifting train step {name}: {ms:.4f} ms/step, "
+            f"{n / secs:.0f} poses/s over {LIFT_TIME_STEPS} steps of 64; "
+            f"device busy {busy:.4f} ms/step in {kernels:.0f} device "
+            f"kernels (idle {100 * max(0.0, 1 - busy / ms):.0f}%), top "
+            f"kernels ms/step: " + ", ".join(f"{k} {v:.4f}" for k, v in top))
+    return out
+
+
+# ------------------------------------------------------------ phase 10
+
+# Images of phase 6's tree: 14 train records (2 recalibration batches of
+# at most 8), 2 valid records (one flip-TTA forward of 16), 2 test rects.
+RECAL_BATCHES = 2
+PCKH_FORWARDS = 1
+EVAL_TIME_CALLS = 10
+
+
+def _detector_model(run_dir, dtype, fused, dev):
+    """The full-width detector of phase 6's 2.save, on the card."""
+    from bilinear_tpu_torch.io.checkpoint import load_checkpoint
+    from bilinear_tpu_torch.train.hourglass import HourglassTrainer
+
+    state = HourglassTrainer(dtype=dtype, fused_blocks=fused,
+                             device=dev).init_state(SEED)
+    state.restore(load_checkpoint(os.path.join(run_dir, "parameter"), 2))
+    return state.model
+
+
+def drive_detector_eval(data_dir, work):
+    """cli.valid_hourglass on phase 6's 2.save, f32, with --fused-blocks
+    true and then false: per-joint PCKh hits within one, and with the fused
+    blocks exactly 107 K3-train launches per recalibration batch and 107
+    K3-eval launches per PCKh forward (none without). Then
+    cli.eval_hourglass twice with the fused blocks: the first writes -1.save,
+    the second reuses it; one .txt per test rect, the converter's count the
+    exporter's. Returns the launches of the first valid run."""
+    from bilinear_tpu_torch.cli import eval_hourglass, valid_hourglass
+    from bilinear_tpu_torch.data.mpii import MPIITestAnnotations
+
+    run_dir = os.path.join(work, "save", "smoke")
+    argv = ["--data-dir", data_dir, "--save-root", os.path.join(work, "save"),
+            "--comment", "smoke", "--batch-size", str(DETECTOR_BATCH),
+            "--seed", str(SEED)]
+    results, launches = {}, None
+    for fused in ("true", "false"):
+        _zero_res_counts()
+        t0 = time.perf_counter()
+        valid_hourglass.main(argv + ["--fused-blocks", fused])
+        secs = time.perf_counter() - t0
+        count = _res_counts()
+        with open(os.path.join(run_dir, "pckh_epoch2.json")) as f:
+            results[fused] = json.load(f)
+        log(f"  cli.valid_hourglass --fused-blocks {fused}: {secs:.1f} s; "
+            f"hits {results[fused]['hits']} of {results[fused]['totals']}, "
+            f"avg {results[fused]['avg']!r}; launches {count}")
+        want = {"resmodule_fwd_train": RES_PER_FORWARD * RECAL_BATCHES,
+                "resmodule_fwd_eval": RES_PER_FORWARD * PCKH_FORWARDS,
+                "resmodule_bwd": 0} if fused == "true" else \
+            dict.fromkeys(count, 0)
+        if count != want:
+            raise AssertionError(f"launches {count}, expected {want}")
+        if fused == "true":
+            launches = count
+    a, b = results["true"], results["false"]
+    if a["totals"] != b["totals"] or any(
+            abs(x - y) > 1 for x, y in zip(a["hits"], b["hits"])):
+        raise AssertionError("fused and standard PCKh hits differ by more "
+                             "than one per joint")
+
+    parameter_dir = os.path.join(run_dir, "parameter")
+    n_rects = len(MPIITestAnnotations(data_dir))
+    for invocation in (1, 2):
+        _zero_res_counts()
+        eval_hourglass.main(argv + ["--fused-blocks", "true"])
+        count = _res_counts()
+        export_forwards = -(-n_rects // DETECTOR_BATCH)
+        want = {"resmodule_fwd_train":
+                RES_PER_FORWARD * RECAL_BATCHES if invocation == 1 else 0,
+                "resmodule_fwd_eval": RES_PER_FORWARD * export_forwards,
+                "resmodule_bwd": 0}
+        log(f"  cli.eval_hourglass invocation {invocation}: launches {count}")
+        if count != want:
+            raise AssertionError(f"launches {count}, expected {want}")
+        if not os.path.exists(os.path.join(parameter_dir, "-1.save")):
+            raise AssertionError("-1.save was not written")
+    with open(os.path.join(run_dir, "debug.log")) as f:
+        text = f.read()
+    if text.count("Finalizing BN statistics") != 1 or \
+            text.count("Using finalized BN statistics (-1.save)") != 1:
+        raise AssertionError("-1.save was not written once and reused once")
+    files = os.listdir(os.path.join(run_dir, "prediction"))
+    injected = [ln.split(" > ", 1)[-1] for ln in text.splitlines()
+                if "Converter injected" in ln]
+    log(f"  -1.save written once and reused; {len(files)} prediction files "
+        f"for {n_rects} test rects; {injected[-1]}")
+    if len(files) != n_rects or \
+            f"Converter injected {n_rects} rects" not in injected[-1] or \
+            not os.path.exists(os.path.join(run_dir,
+                                            "pred_keypoints_mpii.mat")):
+        raise AssertionError("the export or the converter is incomplete")
+    return launches
+
+
+def detector_eval_parity(data_dir, work):
+    """The recalibrated statistics and the batch-16 flip-TTA heatmaps of the
+    fused model against the standard one, f32, from phase 6's 2.save: the
+    two compute the same function in another order (statistics within
+    1e-3 relative, heatmaps' mean |d| within 1e-4 of mean |ref|)."""
+    import torch
+    from bilinear_tpu_torch.data.h36m import Task
+    from bilinear_tpu_torch.data.mpii import MPIIAnnotations
+    from bilinear_tpu_torch.data.pipeline import MPIIHostPipeline
+    from bilinear_tpu_torch.eval.recalibrate import recalibrate
+    from bilinear_tpu_torch.ops.affine import hflip
+    from bilinear_tpu_torch.train.hourglass import batch_tensors, \
+        preprocess_batch
+
+    dev = torch.device("cuda")
+    run_dir = os.path.join(work, "save", "smoke")
+    valid = next(iter(MPIIHostPipeline(
+        MPIIAnnotations(data_dir, Task.Valid), DETECTOR_BATCH, pad=True)
+        .epoch(0, prefetch=0)))
+    b = batch_tensors(valid, dev)
+    crops = preprocess_batch(b["images"], b["centers"], b["scales"],
+                             b["keypoints"], b["valid"], None)[0]
+    both = torch.cat([crops, hflip(crops)])
+    buffers, heat = {}, {}
+    for fused in (True, False):
+        model = _detector_model(run_dir, torch.float32, fused, dev)
+        recalibrate(model, MPIIHostPipeline(
+            MPIIAnnotations(data_dir, Task.Train), DETECTOR_BATCH, pad=True))
+        buffers[fused] = {k: v.clone() for k, v in model.named_buffers()}
+        with torch.no_grad():
+            heat[fused] = model.eval()(both)[-1]
+        del model
+        torch.cuda.empty_cache()
+    worst = 0.0
+    for k, ref in buffers[False].items():
+        got = buffers[True][k]
+        if k.endswith("num_batches_tracked"):
+            if int(got) != int(ref) or int(ref) != RECAL_BATCHES:
+                raise AssertionError(f"{k}: {int(got)} fused, {int(ref)} "
+                                     f"standard")
+        else:
+            worst = max(worst, float(((got - ref).abs()
+                                      / ref.abs().clamp_min(1e-2)).max()))
+    log(f"  f32 recalibration, fused vs standard: max rel diff {worst:.2e} "
+        f"over {len(buffers[False])} buffers")
+    if worst > 1e-3:
+        raise AssertionError("the recalibrated statistics disagree")
+    gate_close("f32 flip-TTA heatmaps at batch 16, fused vs standard",
+               heat[True], heat[False], 1e-4)
+    return worst
+
+
+def time_detector_eval(data_dir, work):
+    """bf16, fused and standard, on device-resident batches (the host
+    pipeline not timed): img/s of the recalibration forward (train mode,
+    no_grad, cumulative BN) at batch 8 and of the flip-TTA PCKh step at
+    batch 8 (one forward of 16); device-busy ms and device kernels per call
+    from a trace. Measurements only."""
+    import torch
+    from bilinear_tpu_torch.core.norm import cumulative_momentum
+    from bilinear_tpu_torch.data.h36m import Task
+    from bilinear_tpu_torch.data.mpii import MPIIAnnotations
+    from bilinear_tpu_torch.data.pipeline import MPIIHostPipeline
+    from bilinear_tpu_torch.eval.pckh import pckh_counts
+    from bilinear_tpu_torch.train.hourglass import batch_tensors, \
+        preprocess_batch
+
+    dev = torch.device("cuda")
+    run_dir = os.path.join(work, "save", "smoke")
+    batch = next(iter(MPIIHostPipeline(
+        MPIIAnnotations(data_dir, Task.Valid), DETECTOR_BATCH, pad=True)
+        .epoch(0, prefetch=0)))
+    b = batch_tensors(batch, dev)
+    crops = preprocess_batch(b["images"], b["centers"], b["scales"],
+                             b["keypoints"], b["valid"], None)[0]
+    heads = torch.from_numpy(batch.heads).to(dev)
+    real = torch.from_numpy(batch.index >= 0).to(dev)
+    out = {}
+    for fused in (True, False):
+        model = _detector_model(run_dir, torch.bfloat16, fused, dev)
+
+        @torch.no_grad()
+        def recal():
+            model(crops)
+
+        def pckh():
+            pckh_counts(model, b, heads, real)
+
+        row = {}
+        with cumulative_momentum(model):
+            for name, fn, train in (("recalibration", recal, True),
+                                    ("pckh", pckh, False)):
+                model.train(train)
+                for _ in range(2):
+                    fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(EVAL_TIME_CALLS):
+                    fn()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3 / EVAL_TIME_CALLS
+                busy, kernels, top = _device_time(fn, 2)
+                row[name] = {"ms_per_batch": ms,
+                             "img_per_s": DETECTOR_BATCH * 1e3 / ms,
+                             "device_ms_per_call": busy,
+                             "device_kernels_per_call": kernels,
+                             "device_top": top}
+                log(f"  {'fused' if fused else 'standard'} {name}, bf16, "
+                    f"batch {DETECTOR_BATCH}"
+                    f"{' (one forward of 16)' if name == 'pckh' else ''}: "
+                    f"{ms:.2f} ms, {DETECTOR_BATCH * 1e3 / ms:.1f} img/s; "
+                    f"device busy {busy:.2f} ms in {kernels:.0f} device "
+                    f"kernels per call; top ms: "
+                    + ", ".join(f"{k} {v:.2f}" for k, v in top))
+        out["fused" if fused else "standard"] = row
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 SOURCES = {
@@ -1684,6 +2115,18 @@ def run() -> dict:
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
+        # phase 9: training lifting
+        log("phase 9: training the full-width lifting MLP through "
+            "cli.train_bilinear, validating and serving it")
+        lift_launches, lift_mpjpe, lift_served, lift_losses = \
+            drive_lifting_training(work)
+        log(f"phase 9: lifting training times on {card}")
+        lift_times = time_lifting_training()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
         # phase 6: the detector slice
         log("phase 6: training the full-width detector through "
             "cli.train_hourglass --fused-blocks true")
@@ -1696,9 +2139,24 @@ def run() -> dict:
         log(f"phase 8: detector times on {card}")
         res_table = time_resmodule()
         steps = time_train_step(data_dir)
+        # phase 10: detector evaluation
+        log("phase 10: evaluating the full-width detector through "
+            "cli.valid_hourglass and cli.eval_hourglass")
+        eval_launches = drive_detector_eval(data_dir, work)
+        eval_parity = detector_eval_parity(data_dir, work)
+        log(f"phase 10: detector evaluation times on {card}")
+        eval_times = time_detector_eval(data_dir, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    by_path = {name: {"phase4_serving": launches[name]}
+               for name in SOURCES if not name.startswith("resmodule")}
+    for name, n in lift_launches.items():
+        by_path[name]["phase9_serving_the_trained_model"] = n
+    for name in SOURCES:
+        if name.startswith("resmodule"):
+            by_path[name] = {"phase6_training": launches[name],
+                             "phase10_evaluation": eval_launches[name]}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         if name.startswith("resmodule"):
@@ -1706,7 +2164,9 @@ def run() -> dict:
             main, big = at[RES_TIME_SHAPES[0]], at[RES_TIME_SHAPES[1]]
             kernels.append({
                 "name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
+                "replaces": replaces,
+                "launches": sum(by_path[name].values()),
+                "launches_by_path": by_path[name],
                 "max_abs_err": errs[name],
                 "shape_bhwio": list(RES_TIME_SHAPES[0]),
                 "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -1725,7 +2185,8 @@ def run() -> dict:
         main, big = at[TIME_NS[0]], at[TIME_NS[1]]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name],
             "max_abs_err": errs[name], "n": TIME_NS[0],
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -1738,6 +2199,12 @@ def run() -> dict:
     log(json.dumps({"lifting_end_to_end": end_to_end}))
     log(json.dumps({"detector": {"losses": losses, "step_parity": parity,
                                  "train_step": steps}}))
+    log(json.dumps({"lifting_training": {
+        "losses": lift_losses, "cli_mpjpe": lift_mpjpe,
+        "served_mpjpe": lift_served, "train_step": lift_times}}))
+    log(json.dumps({"detector_evaluation": {
+        "recalibrated_stats_max_rel_diff": eval_parity,
+        "times": eval_times}}))
     return {"kernels": kernels, "card": card}
 
 

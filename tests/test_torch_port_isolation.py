@@ -53,7 +53,16 @@ def test_port_modules_are_listed():
                      "bilinear_tpu_torch.ops.resmodule",
                      "bilinear_tpu_torch.models.hourglass_torch7",
                      "bilinear_tpu_torch.train.hourglass",
-                     "bilinear_tpu_torch.cli.train_hourglass"):
+                     "bilinear_tpu_torch.cli.train_hourglass",
+                     "bilinear_tpu_torch.train.bilinear",
+                     "bilinear_tpu_torch.eval.pckh",
+                     "bilinear_tpu_torch.eval.recalibrate",
+                     "bilinear_tpu_torch.eval.mpii_test_export",
+                     "bilinear_tpu_torch.ops.decode",
+                     "bilinear_tpu_torch.cli.train_bilinear",
+                     "bilinear_tpu_torch.cli.valid_bilinear",
+                     "bilinear_tpu_torch.cli.valid_hourglass",
+                     "bilinear_tpu_torch.cli.eval_hourglass"):
         assert expected in names
 
 
