@@ -25,7 +25,7 @@ from bilinear_tpu_torch.cli.valid_hourglass import eval_pipeline, \
 from bilinear_tpu_torch.config import HourglassConfig, parse_config
 from bilinear_tpu_torch.data.h36m import Task
 from bilinear_tpu_torch.data.mpii import MPIITestAnnotations
-from bilinear_tpu_torch.device import resolve_device
+from bilinear_tpu_torch.device import disable_tf32, resolve_device
 from bilinear_tpu_torch.eval.mpii_test_export import convert_predictions, \
     export_predictions
 from bilinear_tpu_torch.eval.recalibrate import recalibrate
@@ -35,6 +35,7 @@ from bilinear_tpu_torch.io.logger import get_logger
 
 
 def main(argv=None) -> None:
+    disable_tf32()
     cfg = parse_config(HourglassConfig(), argv)
     extra = argparse.ArgumentParser()
     # eval_hourglass.py:131 exposes eval_on_training_and_valid_subset.

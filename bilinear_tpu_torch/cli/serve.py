@@ -22,6 +22,7 @@ import time
 import torch
 
 from bilinear_tpu_torch.data.h36m import Protocol, Task, load_h36m
+from bilinear_tpu_torch.device import disable_tf32
 from bilinear_tpu_torch.serving import LiftingServer
 from bilinear_tpu_torch.serving_http import PoseHTTPServer
 
@@ -87,6 +88,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> None:
+    disable_tf32()
     args = build_parser().parse_args(argv)
     logging.basicConfig(
         level=logging.INFO, format="[%(levelname)s|serve] %(message)s"

@@ -24,7 +24,7 @@ import torch
 
 from bilinear_tpu_torch.config import BilinearConfig, parse_config
 from bilinear_tpu_torch.data.h36m import Task, load_h36m
-from bilinear_tpu_torch.device import resolve_device
+from bilinear_tpu_torch.device import disable_tf32, resolve_device
 from bilinear_tpu_torch.io.checkpoint import prune_checkpoints, \
     resume_or_init, save_checkpoint
 from bilinear_tpu_torch.io.logger import get_logger
@@ -35,6 +35,7 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def main(argv=None) -> None:
+    disable_tf32()
     cfg = parse_config(BilinearConfig(), argv)
     if cfg.coordinator or cfg.num_processes > 1:
         raise NotImplementedError("multi-process training is not ported "

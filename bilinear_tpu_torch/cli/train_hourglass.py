@@ -24,7 +24,7 @@ from bilinear_tpu_torch.config import HourglassConfig, parse_config
 from bilinear_tpu_torch.data.h36m import Task
 from bilinear_tpu_torch.data.mpii import MPIIAnnotations
 from bilinear_tpu_torch.data.pipeline import MPIIHostPipeline
-from bilinear_tpu_torch.device import resolve_device
+from bilinear_tpu_torch.device import disable_tf32, resolve_device
 from bilinear_tpu_torch.io.checkpoint import prune_checkpoints, \
     resume_or_init, save_checkpoint
 from bilinear_tpu_torch.io.logger import get_logger
@@ -36,6 +36,7 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def main(argv=None) -> None:
+    disable_tf32()
     cfg = parse_config(HourglassConfig(), argv)
     if cfg.coordinator or cfg.num_processes > 1:
         raise NotImplementedError("multi-process training is not ported "

@@ -18,7 +18,7 @@ import os
 
 from bilinear_tpu_torch.config import BilinearConfig, parse_config
 from bilinear_tpu_torch.data.h36m import Task, load_h36m
-from bilinear_tpu_torch.device import resolve_device
+from bilinear_tpu_torch.device import disable_tf32, resolve_device
 from bilinear_tpu_torch.eval.mpjpe import evaluate_mpjpe, make_mpjpe_fn
 from bilinear_tpu_torch.io.checkpoint import resume_or_init
 from bilinear_tpu_torch.io.logger import get_logger
@@ -26,6 +26,7 @@ from bilinear_tpu_torch.train.bilinear import BilinearTrainer
 
 
 def main(argv=None) -> None:
+    disable_tf32()
     cfg = parse_config(BilinearConfig(), argv)
     device = resolve_device(cfg.device or None)
     logger, log_dir, _ = get_logger(cfg.comment, cfg.save_root)

@@ -24,7 +24,7 @@ from bilinear_tpu_torch.config import HourglassConfig, parse_config
 from bilinear_tpu_torch.data.h36m import Task
 from bilinear_tpu_torch.data.mpii import MPIIAnnotations
 from bilinear_tpu_torch.data.pipeline import MPIIHostPipeline
-from bilinear_tpu_torch.device import resolve_device
+from bilinear_tpu_torch.device import disable_tf32, resolve_device
 from bilinear_tpu_torch.eval.pckh import pckh_scores, pckh_totals
 from bilinear_tpu_torch.eval.recalibrate import recalibrate
 from bilinear_tpu_torch.io.checkpoint import resume_or_init
@@ -51,6 +51,7 @@ def eval_pipeline(cfg: HourglassConfig, task: str) -> MPIIHostPipeline:
 
 
 def main(argv=None) -> None:
+    disable_tf32()
     cfg = parse_config(HourglassConfig(), argv)
     device = resolve_device(cfg.device or None)
     logger, log_dir, _ = get_logger(cfg.comment, cfg.save_root)

@@ -1,5 +1,6 @@
 """Configuration of the trainers (counterpart of ``LRDecayConfig``,
-``BilinearConfig``, ``HourglassConfig`` and ``parse_config`` in
+``BilinearConfig``, ``HourglassConfig``, ``HourglassFTConfig`` and
+``parse_config`` in
 ``bilinear_tpu/config.py``): the reference's static configs as dataclasses,
 with every field a CLI flag (``--batch-size 8``, booleans as
 ``--fused-blocks true``) except a nested config, which is no flag in the
@@ -62,7 +63,7 @@ class HourglassConfig:
     save_root: str = "save"
     learning_rate: float = 2.5e-4
     epochs_per_run: int = 10
-    variant: str = "torch7"  # 'preact' is not ported yet
+    variant: str = "torch7"  # or 'preact' (the fine-tuned variant)
     seed: int = 0
     dtype: str = "float32"
     steps_per_dispatch: int = 4  # steps per group (run in order)
@@ -73,13 +74,24 @@ class HourglassConfig:
     features: int = 256
     depth: int = 4
     n_modules: int = 1
-    fused_blocks: bool = False  # ResModules through kernels K3/K4
+    fused_blocks: bool = False  # ResModules through kernels K3/K4 (torch7)
     keep_checkpoints: int = 0
     keep_every: int = 0
     debug_nans: bool = False  # not ported yet
     coordinator: str = ""  # multi-process DP: not ported yet
     num_processes: int = 1
     device: str = ""  # '' = the GPU; 'cpu' = the plain path (tests)
+
+
+@dataclass
+class HourglassFTConfig(HourglassConfig):
+    """The H36M fine-tuning of the pre-activation hourglass
+    (train_hourglass_FT.py)."""
+
+    comment: str = "Hourglass FT"
+    data_dir: str = "data/Human3.6M"
+    epochs_per_run: int = 100  # train_hourglass_FT.py:67
+    variant: str = "preact"  # train_hourglass_FT.py:47
 
 
 def _flag_fields(cfg):

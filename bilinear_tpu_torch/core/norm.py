@@ -12,6 +12,13 @@ num_batches_tracked``). The JAX tree's ``{mean, var, count}`` are
 elsewhere (by the fused ResModule kernel), as ``_BNState`` does in
 ``bilinear_tpu/models/hourglass_torch7.py``.
 
+``BatchNorm2d`` is the pre-activation hourglass's BN: cumulative from the
+first step (``momentum=None``). torch's own reads ``num_batches_tracked``
+on the host at every train-mode call in that mode, a wait for the card at
+each of the full-width model's 377 BNs; this one takes the batch
+statistics itself and updates the running ones through
+``update_running_stats``, whose factor stays on the device.
+
 The reference's eval-time recalibration (``reset_statistics()``) resets
 every BN's statistics and then re-estimates them with the cumulative
 average: ``reset_batch_stats`` and ``cumulative_momentum``. The JAX package
@@ -42,8 +49,31 @@ def update_running_stats(bn: nn.BatchNorm2d, batch_mean: torch.Tensor,
         factor = 1.0 / bn.num_batches_tracked.to(bn.running_mean.dtype)
     else:
         factor = bn.momentum
-    bn.running_mean.copy_((1 - factor) * bn.running_mean + factor * batch_mean)
-    bn.running_var.copy_((1 - factor) * bn.running_var + factor * unbiased)
+    bn.running_mean.mul_(1 - factor).add_(factor * batch_mean)
+    bn.running_var.mul_(1 - factor).add_(factor * unbiased)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (the same parameters, buffers and state_dict
+    keys) whose train-mode forward never reads the card on the host: the
+    batch mean and biased variance in one pass, the input normalised with
+    them, the running statistics updated by ``update_running_stats`` (the
+    unbiased variance, the cumulative factor ``1 / count`` in f32 on the
+    device for ``momentum=None``). Eval mode is torch's."""
+
+    def __init__(self, num_features: int, momentum=None, eps: float = 1e-5):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        n = x.numel() // x.shape[1]
+        update_running_stats(self, mean.detach(), var.detach(), n)
+        shape = (1, -1, 1, 1)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(shape)) * inv.view(shape) \
+            + self.bias.view(shape)
 
 
 def _batch_norms(model: nn.Module) -> Iterator[_BatchNorm]:

@@ -76,15 +76,29 @@ def write_h36m_dataset(
     n_valid: int = 64,
     protocol: str = "GT",
     seed: int = 0,
+    with_images: bool = False,
     img_size: int = 256,
 ) -> str:
-    """Write ``{train,valid}_{protocol}.bin`` into ``data_dir`` (annotation
-    bins only; the image trees of the detector paths come with that slice)."""
+    """Write ``{train,valid}_{protocol}.bin`` into ``data_dir`` and, with
+    ``with_images``, a JPEG per frame at ``{data_dir}/{subject}/{image_name}``
+    for the detector paths (fine-tuning, the SH conversion)."""
     os.makedirs(data_dir, exist_ok=True)
     for task, n, s in [("train", n_train, seed), ("valid", n_valid, seed + 1)]:
         data = make_h36m_bin(n, seed=s, img_size=img_size)
         with open(os.path.join(data_dir, f"{task}_{protocol}.bin"), "wb") as f:
             pickle.dump(data, f)
+        if with_images:
+            from PIL import Image
+
+            rng = np.random.RandomState(seed + 7)
+            for name in data["image"]:
+                subject = name.split("_")[0]
+                os.makedirs(os.path.join(data_dir, subject), exist_ok=True)
+                small = (rng.rand(img_size // 8, img_size // 8, 3)
+                         * 255).astype(np.uint8)
+                img = Image.fromarray(small).resize((img_size, img_size),
+                                                    Image.BILINEAR)
+                img.save(os.path.join(data_dir, subject, name), quality=90)
     return data_dir
 
 

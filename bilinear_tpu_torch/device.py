@@ -23,3 +23,15 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
     return dev
+
+
+def disable_tf32() -> None:
+    """f32 matmuls and cuDNN convolutions in full f32, not TF32 (torch
+    leaves cuDNN's on TF32 by default, a 10-bit mantissa). Every CLI calls
+    this at the start: the configs' float32 is the JAX package's float32,
+    and in a bf16 run the f32 parts (BN, the loss, the stem) stay f32.
+    Library modules never set it. This is torch's legacy pair of switches;
+    setting the newer ``fp32_precision`` attributes instead makes a later
+    read of these raise."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

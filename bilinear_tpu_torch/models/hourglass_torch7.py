@@ -58,8 +58,9 @@ def conv_in(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def bn_in(bn: nn.BatchNorm2d, x: torch.Tensor, dtype) -> torch.Tensor:
-    """BN in f32 on the ``dtype`` activation, rounded back to ``dtype``."""
-    return bn(x.float()).to(dtype)
+    """BN in f32 (f64 for a model in f64) on the ``dtype`` activation,
+    rounded back to ``dtype``."""
+    return bn(x.to(torch.promote_types(torch.float32, dtype))).to(dtype)
 
 
 class ResModule(nn.Module):
@@ -185,6 +186,8 @@ class Hourglass(nn.Module):
 class MainModel(nn.Module):
     """The full detector (reference model/hourglass_torch7.py:78-129)."""
 
+    variant = "torch7"
+
     def __init__(self, n_stacks: int = N_STACKS, features: int = N_FEATURES,
                  n_joints: int = N_JOINTS, depth: int = N_DEPTH,
                  momentum: Optional[float] = 0.1, dtype=torch.float32,
@@ -230,7 +233,8 @@ class MainModel(nn.Module):
             lin = self.linArray[i]
             ll = torch.relu(bn_in(lin[1], conv_in(lin[0], ll, dt), dt))
             htmap = conv_in(self.htmapArray[i], ll, dt)
-            heatmaps.append(htmap.float().permute(0, 2, 3, 1))
+            heatmaps.append(htmap.to(torch.promote_types(torch.float32, dt))
+                            .permute(0, 2, 3, 1))
             if i < self.n_stacks - 1:
                 inter = (inter + conv_in(self.llBarArray[i], ll, dt)
                          + conv_in(self.htmapBarArray[i], htmap, dt))

@@ -5,8 +5,11 @@
     per-stack mean MSE -> clip(1.0) -> RMSprop(2.5e-4)
 
 Everything after the host pipeline runs on the model's device. With
-``fused_blocks=True`` the 107 ResModules of the full-width model run
-through kernels K3 (forward) and K4 (backward) on the card.
+``fused_blocks=True`` the 107 ResModules of the full-width torch7 model
+run through kernels K3 (forward) and K4 (backward) on the card. The
+pre-activation variant (``variant="preact"``, the H36M fine-tuning's) has
+no fused path. Fine-tuning gathers the target channels through
+``joint_remap`` (``FROM_H36M_TO_MPII``) and never flips (``flip_prob=0``).
 
 Augmentation (the reference's MPII/data.py:83-138): scale *= 2^rand(0.25);
 rotation rand(30) w.p. 0.4; flip w.p. 0.4 with the L/R joint swap, the
@@ -29,6 +32,7 @@ from torch.profiler import record_function
 from bilinear_tpu_torch.core.optim import HourglassOptimizer, \
     hourglass_optimizer
 from bilinear_tpu_torch.device import resolve_device
+from bilinear_tpu_torch.models.hourglass import StackedHourglass
 from bilinear_tpu_torch.models.hourglass_torch7 import MainModel
 from bilinear_tpu_torch.ops import augment as aug
 from bilinear_tpu_torch.ops.affine import crop_batch, hflip
@@ -45,17 +49,23 @@ STEP_RANGES = ("train_step/preprocess", "train_step/forward",
 
 def make_model(variant: str = "torch7", dtype=torch.float32, n_stacks=None,
                features=None, depth=None, fused=False, n_modules=None,
-               generator: Optional[torch.Generator] = None) -> MainModel:
-    """The torch7 MainModel; size overrides of None keep the reference's
-    8 stacks, 256 features, depth 4. The 'preact' variant is not ported."""
-    if variant != "torch7":
-        raise NotImplementedError(
-            f"hourglass variant {variant!r} is not ported yet; see "
-            "ROADMAP.md")
+               generator: Optional[torch.Generator] = None):
+    """'torch7' = the MainModel the MPII training trains, 'preact' = the
+    StackedHourglass the H36M fine-tuning trains. Size overrides of None
+    keep the reference's 8 stacks, 256 features, depth 4. ``fused`` (the
+    ResModule kernels) exists for torch7 only: the preact variant raises
+    rather than ignore it."""
     kw = {k: v for k, v in dict(n_stacks=n_stacks, features=features,
                                 depth=depth, n_modules=n_modules).items()
           if v is not None}
-    return MainModel(dtype=dtype, fused=fused, generator=generator, **kw)
+    if variant == "torch7":
+        return MainModel(dtype=dtype, fused=fused, generator=generator, **kw)
+    if variant == "preact":
+        if fused:
+            raise ValueError("fused blocks exist for the torch7 variant "
+                             "only; the preact variant has no kernel path")
+        return StackedHourglass(dtype=dtype, generator=generator, **kw)
+    raise ValueError(f"unknown hourglass variant {variant!r}")
 
 
 class Augment(NamedTuple):
@@ -63,9 +73,10 @@ class Augment(NamedTuple):
     jitter: aug.JitterParams
 
 
-def sample_augment(gen: torch.Generator, batch: int) -> Augment:
+def sample_augment(gen: torch.Generator, batch: int,
+                   flip_prob: float = 0.4) -> Augment:
     """One step's augmentation draws (CPU tensors)."""
-    return Augment(aug.sample_geometry(gen, batch),
+    return Augment(aug.sample_geometry(gen, batch, flip_prob=flip_prob),
                    aug.sample_color_jitter(gen, batch))
 
 
@@ -133,25 +144,27 @@ class TrainState:
     """The model (parameters + BN statistics), the optimizer and the step
     counter (the reference counts from 1)."""
 
-    model: MainModel
+    model: torch.nn.Module  # MainModel or StackedHourglass
     optimizer: HourglassOptimizer
     step: int = 1
 
     def trees(self):
         """(params, batch_stats, optimizer state) in the JAX package's
         checkpoint layout: ``(EmptyState, TorchRMSpropState(count,
-        square_avg))`` as ``{'0': {}, '1': {'count', 'square_avg'}}``."""
+        square_avg))`` as ``{'0': {}, '1': {'count', 'square_avg'}}``, for
+        the model's own variant."""
+        conv = wt.HOURGLASS[self.model.variant]
         sd = self.model.state_dict()
-        params, stats = wt.hourglass_torch7_to_jax(sd)
+        params, stats = conv.to_jax(sd)
         named = dict(self.model.named_parameters())
         square = {}
-        for key, path, kind in wt.torch7_param_paths(
-                wt.torch7_config_of_state_dict(sd)):
+        for key, path, kind in conv.param_paths(
+                conv.config_of_state_dict(sd)):
             p = named[key]
             v = self.optimizer.square_avg(p)
             v = torch.zeros_like(p) if v is None else v
             wt.put_leaf(square, path, wt.conv_to_jax(v) if kind == "conv_w"
-                    else v.detach().cpu().numpy().copy())
+                        else v.detach().cpu().numpy().copy())
         opt = {"0": {}, "1": {
             "count": np.asarray(self.optimizer.count, np.int32),
             "square_avg": square}}
@@ -159,15 +172,14 @@ class TrainState:
 
     def restore(self, payload) -> None:
         """Load a ``{epoch}.save`` payload (either package's) in place."""
+        conv = wt.HOURGLASS[self.model.variant]
         params = payload["state"]["params"]
         stats = payload["state"]["batch_stats"]
-        self.model.load_state_dict(wt.hourglass_torch7_from_jax(params,
-                                                                stats))
+        self.model.load_state_dict(conv.from_jax(params, stats))
         rms = payload["optimizer"]["1"]
         count = int(np.asarray(rms["count"]))
         named = dict(self.model.named_parameters())
-        for key, path, kind in wt.torch7_param_paths(
-                wt.torch7_config_of_jax(params)):
+        for key, path, kind in conv.param_paths(conv.config_of_jax(params)):
             leaf = wt.get_leaf(rms["square_avg"], path)
             v = wt.conv_from_jax(leaf) if kind == "conv_w" else \
                 torch.from_numpy(np.array(leaf, np.float32))
@@ -181,7 +193,8 @@ class HourglassTrainer:
                  learning_rate: float = 2.5e-4, mesh=None,
                  dtype=torch.float32, remat: bool = False, n_stacks=None,
                  features=None, depth=None, fused_blocks: bool = False,
-                 n_modules=None, device=None):
+                 n_modules=None, device=None, joint_remap=None,
+                 flip_prob: float = 0.4):
         if mesh is not None:
             raise NotImplementedError("data parallelism (mesh=) is not "
                                       "ported yet; see ROADMAP.md")
@@ -195,6 +208,11 @@ class HourglassTrainer:
                              depth=depth, fused=fused_blocks,
                              n_modules=n_modules)
         self.device = resolve_device(device)
+        # Target channels gathered through this map (FROM_H36M_TO_MPII for
+        # the fine-tuning); flips w.p. flip_prob (MPII 0.4, H36M never).
+        self.remap = None if joint_remap is None else torch.as_tensor(
+            np.asarray(joint_remap), dtype=torch.long, device=self.device)
+        self.flip_prob = flip_prob
 
     def init_state(self, seed: int = 0) -> TrainState:
         gen = torch.Generator().manual_seed(seed)
@@ -218,6 +236,8 @@ class HourglassTrainer:
             crops, targets, _ = preprocess_batch(
                 batch["images"], batch["centers"], batch["scales"],
                 batch["keypoints"], batch["valid"], augment)
+            if self.remap is not None:
+                targets = targets[:, self.remap]
         with record_function(forward):
             state.model.train()
             loss = heatmap_loss(state.model(crops), targets)
@@ -258,8 +278,8 @@ class HourglassTrainer:
             for batch in pending:
                 b = batch["images"].shape[0]
                 gen = step_generator(seed, epoch, state.step)
-                last_loss = self.train_step(state, batch,
-                                            sample_augment(gen, b))
+                last_loss = self.train_step(
+                    state, batch, sample_augment(gen, b, self.flip_prob))
                 step_count += 1
             if pending and log_every and logger and \
                     step_count - last_logged >= log_every:

@@ -1,6 +1,8 @@
-"""Carry ``BilinearUnit`` weights between the JAX package's parameter tree
-and the port's ``state_dict`` (the port's own copy of the bilinear half of
-``bilinear_tpu/utils/torch_compat.py``).
+"""Carry weights between the JAX package's parameter trees and the port's
+``state_dict``s: ``BilinearUnit``, the torch7 detector and the
+pre-activation detector (the port's own copy of those halves of
+``bilinear_tpu/utils/torch_compat.py``; ``HOURGLASS`` names each detector
+variant's converters).
 
 JAX tree -> state_dict:
 - Dense ``kernel`` (in, out)            -> Linear ``weight`` (out, in)
@@ -12,7 +14,8 @@ JAX tree -> state_dict:
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import (Any, Callable, Dict, Iterator, Mapping, NamedTuple,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -328,3 +331,192 @@ def hourglass_torch7_to_jax(state_dict: Mapping[str, Any]):
         put_leaf(params, path, {"kernel": conv_to_jax(sd[prefix + ".weight"]),
                             "bias": _numpy(sd[prefix + ".bias"])})
     return params, stats
+
+
+# ---------------------------------------------------------------------------
+# The pre-activation hourglass (the port's copy of hourglass_from_torch /
+# hourglass_to_torch_state of bilinear_tpu/utils/torch_compat.py, between
+# the JAX StackedHourglass tree and the port's state_dict). Convs are
+# bias-less but for the heatmap heads and the 1x1 ``skip`` of a ResUnit
+# that changes the channel count (present on both sides only there); the
+# stem conv has no BN after it. Module k > 0 of an hourglass slot is the
+# JAX tree's ``{slot}_m{k}`` and the state_dict's ``{list}_m{k}``.
+# ---------------------------------------------------------------------------
+
+CONV_B = "conv_b"  # a conv with a bias
+
+
+def _preact_leaves(n_stacks: int, depth: int, n_modules: int,
+                   features: int):
+    """(JAX module path, state_dict prefix, kind) of every conv and BN of
+    StackedHourglass, in the reference's registration order."""
+    def light(ours, theirs, bias=False):
+        yield ours + ("bn",), theirs + ".0", BN
+        yield ours + ("conv",), theirs + ".2", CONV_B if bias else CONV
+
+    def res_unit(ours, theirs, ci, co):
+        for k in range(3):
+            yield from light(ours + (f"light{k + 1}",), f"{theirs}.conv.{k}")
+        if ci != co:
+            yield ours + ("skip",), theirs + ".skip", CONV_B
+
+    def unit(ours, theirs):
+        yield from res_unit(ours, theirs, features, features)
+
+    def hourglass(ours, theirs):
+        for t in range(depth):
+            yield from unit(ours + (f"skip_{t}",),
+                            f"{theirs}.skip_connection.{t}")
+        for t in range(depth):
+            yield from unit(ours + (f"down_{t}",), f"{theirs}.downscale.{t}.1")
+        yield from unit(ours + ("waist",), f"{theirs}.res")
+        for t in range(depth):
+            yield from unit(ours + (f"up_{t}",), f"{theirs}.upscale.{t}.0")
+        for k in range(1, n_modules):
+            for t in range(depth):
+                yield from unit(ours + (f"skip_{t}_m{k}",),
+                                f"{theirs}.skip_connection_m{k}.{t}")
+            for t in range(depth):
+                yield from unit(ours + (f"down_{t}_m{k}",),
+                                f"{theirs}.downscale_m{k}.{t}")
+            yield from unit(ours + (f"waist_m{k}",), f"{theirs}.res_m{k}")
+            for t in range(depth):
+                yield from unit(ours + (f"up_{t}_m{k}",),
+                                f"{theirs}.upscale_m{k}.{t}")
+
+    yield ("stem_conv",), "feature_extraction.0", CONV
+    yield from res_unit(("stem_res1",), "feature_extraction.1", 64, 128)
+    yield from res_unit(("stem_res2",), "feature_extraction.3", 128, 128)
+    yield from res_unit(("stem_res3",), "feature_extraction.4", 128, features)
+    for i in range(n_stacks):
+        yield from hourglass((f"hg_{i}",), f"hourglass.{i}")
+    for i in range(n_stacks):
+        yield from unit((f"prev_{i}", "res"), f"prev_heatmap.{i}.0")
+        yield from light((f"prev_{i}", "light"), f"prev_heatmap.{i}.1")
+    for i in range(n_stacks):
+        yield from light((f"heatmap_{i}",), f"heatmap_intermediate.{i}",
+                         bias=True)
+    for i in range(n_stacks):
+        yield from light((f"after_{i}",), f"after_heatmap.{i}")
+    for i in range(n_stacks):
+        yield from light((f"skip_{i}",), f"skip_intermediate.{i}")
+
+
+def preact_config_of_jax(params: Mapping[str, Any]) -> Dict[str, int]:
+    """n_stacks, depth, n_modules, features and n_joints of a JAX
+    StackedHourglass tree."""
+    n_stacks = sum(1 for k in params if k.startswith("heatmap_"))
+    depth = 0
+    while f"skip_{depth}" in params["hg_0"]:
+        depth += 1
+    n_modules = 1
+    while f"skip_0_m{n_modules}" in params["hg_0"]:
+        n_modules += 1
+    shape = np.shape(params["heatmap_0"]["conv"]["kernel"])
+    return dict(n_stacks=n_stacks, depth=depth, n_modules=n_modules,
+                features=int(shape[2]), n_joints=int(shape[3]))
+
+
+def preact_config_of_state_dict(sd: Mapping[str, Any]) -> Dict[str, int]:
+    """The same, of a StackedHourglass state_dict."""
+    n_stacks = sum(1 for k in sd if k.startswith("heatmap_intermediate.")
+                   and k.endswith(".2.weight"))
+    depth = 0
+    while f"hourglass.0.skip_connection.{depth}.conv.0.0.weight" in sd:
+        depth += 1
+    n_modules = 1
+    while f"hourglass.0.skip_connection_m{n_modules}.0.conv.0.0.weight" \
+            in sd:
+        n_modules += 1
+    shape = tuple(sd["heatmap_intermediate.0.2.weight"].shape)
+    return dict(n_stacks=n_stacks, depth=depth, n_modules=n_modules,
+                features=int(shape[1]), n_joints=int(shape[0]))
+
+
+def _preact_leaves_of(cfg: Mapping[str, int]):
+    return _preact_leaves(cfg["n_stacks"], cfg["depth"], cfg["n_modules"],
+                          cfg["features"])
+
+
+def preact_param_paths(cfg: Mapping[str, int]):
+    """(state_dict key, JAX path, kind) of every trained parameter of
+    StackedHourglass, as ``torch7_param_paths``."""
+    for path, prefix, kind in _preact_leaves_of(cfg):
+        if kind == BN:
+            yield prefix + ".weight", path + ("scale",), "plain"
+            yield prefix + ".bias", path + ("bias",), "plain"
+            continue
+        yield prefix + ".weight", path + ("kernel",), "conv_w"
+        if kind == CONV_B:
+            yield prefix + ".bias", path + ("bias",), "plain"
+
+
+def hourglass_preact_from_jax(params: Mapping[str, Any],
+                              batch_stats: Mapping[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """JAX StackedHourglass ``{params, batch_stats}`` (numpy leaves) -> the
+    port's StackedHourglass ``state_dict``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, prefix, kind in _preact_leaves_of(preact_config_of_jax(params)):
+        node = get_leaf(params, path)
+        if kind == BN:
+            st = get_leaf(batch_stats, path)
+            sd[prefix + ".weight"] = _tensor(node["scale"])
+            sd[prefix + ".bias"] = _tensor(node["bias"])
+            sd[prefix + ".running_mean"] = _tensor(st["mean"])
+            sd[prefix + ".running_var"] = _tensor(st["var"])
+            sd[prefix + ".num_batches_tracked"] = torch.tensor(
+                int(np.asarray(st["count"])), dtype=torch.int64)
+            continue
+        sd[prefix + ".weight"] = conv_from_jax(node["kernel"])
+        if kind == CONV_B:
+            sd[prefix + ".bias"] = _tensor(node["bias"])
+    return sd
+
+
+def hourglass_preact_to_jax(state_dict: Mapping[str, Any]):
+    """Port StackedHourglass ``state_dict`` -> JAX ``(params,
+    batch_stats)`` numpy trees; exact inverse of
+    ``hourglass_preact_from_jax`` (``count`` comes back int32)."""
+    sd = state_dict
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for path, prefix, kind in _preact_leaves_of(
+            preact_config_of_state_dict(sd)):
+        if kind == BN:
+            put_leaf(params, path, {"scale": _numpy(sd[prefix + ".weight"]),
+                                    "bias": _numpy(sd[prefix + ".bias"])})
+            put_leaf(stats, path, {
+                "mean": _numpy(sd[prefix + ".running_mean"]),
+                "var": _numpy(sd[prefix + ".running_var"]),
+                "count": _numpy(sd[prefix + ".num_batches_tracked"])
+                .astype(np.int32),
+            })
+            continue
+        node = {"kernel": conv_to_jax(sd[prefix + ".weight"])}
+        if kind == CONV_B:
+            node["bias"] = _numpy(sd[prefix + ".bias"])
+        put_leaf(params, path, node)
+    return params, stats
+
+
+class HourglassConverters(NamedTuple):
+    """One detector variant's converters between the two packages."""
+
+    from_jax: Callable
+    to_jax: Callable
+    config_of_jax: Callable
+    config_of_state_dict: Callable
+    param_paths: Callable
+
+
+HOURGLASS = {
+    "torch7": HourglassConverters(
+        hourglass_torch7_from_jax, hourglass_torch7_to_jax,
+        torch7_config_of_jax, torch7_config_of_state_dict,
+        torch7_param_paths),
+    "preact": HourglassConverters(
+        hourglass_preact_from_jax, hourglass_preact_to_jax,
+        preact_config_of_jax, preact_config_of_state_dict,
+        preact_param_paths),
+}

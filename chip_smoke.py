@@ -48,7 +48,9 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    the loss must be finite.
 7. Full-width step parity: loss and per-tensor gradients of
    MainModel(fused=True) against MainModel(fused=False) (cuDNN + torch BN)
-   from one state on one batch, f32 and bf16.
+   from one state on one batch, f32 and bf16; and each f32 path's
+   gradients against the standard model's in float64 (reported: which
+   path owns the f32 gap).
 8. Detector times: K3 train, K3 eval and K4 in bf16 at the eight
    full-width shapes of a training step, by CUDA events and as the sum of
    kernel durations in a torch.profiler trace, with the device kernels per
@@ -75,9 +77,24 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    model's recalibrated statistics and batch-16 heatmaps against the
    standard model's (f32), and img/s of the recalibration forward and the
    PCKh step in bf16, fused and standard, with device-busy ms and kernels
-   per call.
+   per call. Each CLI of phases 10 and 11 starts from torch's default
+   precision switches (cuDNN in TF32) and must turn TF32 off itself.
+11. The fine-tuning and SH slice, on a synthetic H36M tree with images (24
+   train, 8 valid frames): cli.train_hourglass_ft at full width in f32 for
+   one epoch and once more (resume, 2.save, finite losses, the step
+   counters those of 2 x 3 steps), cli.valid_hourglass_ft
+   (pckh_ft_epoch2.json, finite), cli.sh_preprocess --variant preact
+   --protocol-out SH+FT (both bins, every key but part the GT bins'),
+   cli.sh_preprocess --variant torch7 on phase 6's 2.save with
+   --fused-blocks true (exactly 107 K3-eval launches per export forward)
+   and false (none; the detections of the two agree), cli.train_bilinear
+   --protocol SH+FT and cli.valid_bilinear (a finite MPJPE); the preact
+   model's f32 heatmaps and gradients against float64 on the card (median
+   gated); that an FT step's forward reads nothing from the card on the
+   host; and times of the FT step, the recalibration forward and the SH
+   export forwards.
 
-The line before the last is the kernels' JSON record; the last line is
+Phases run in the order 1-5, 9, 6-8, 10, 11. The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or bilinear_tpu.
 """
 import json
@@ -1368,7 +1385,8 @@ def step_parity(data_dir):
     if any(g.keys() != keys for g in grads.values()):
         raise AssertionError("the two paths train different tensors")
     gated = [k for k in keys if k not in shift_only]
-    result, failed = {}, []
+    exact = f64_gaps(sd, crops, targets, grads, gated)
+    result, failed = {"float64": exact}, []
     for dtype in ("float32", "bfloat16"):
         dloss = abs(losses[dtype, True] - losses[dtype, False]) / \
             abs(losses[dtype, False])
@@ -1413,6 +1431,45 @@ def step_parity(data_dir):
     return result
 
 
+def f64_gaps(sd, crops, targets, grads, gated):
+    """Who owns phase 7's f32 gap: the standard model in float64 (cuDNN's
+    f64 convolutions, torch's BN) on the same state and batch, and each f32
+    path's |g - g64| / |g64| against it, median and p99 over the gated
+    tensors. Reported, not gated; a fused median more than three times the
+    standard one is a fault of K3/K4's f32 path."""
+    import torch
+    from bilinear_tpu_torch.models.hourglass_torch7 import MainModel
+    from bilinear_tpu_torch.train.hourglass import heatmap_loss
+
+    model = MainModel(dtype=torch.float64).to(torch.float64)
+    model.load_state_dict(sd)
+    model.to(crops.device).train()
+    loss = heatmap_loss(model(crops), targets.double())
+    loss.backward()
+    ref = {k: p.grad.detach() for k, p in model.named_parameters()
+           if p.grad is not None}
+    del model, loss
+    torch.cuda.empty_cache()
+    out = {}
+    for fused in (True, False):
+        rel = sorted(
+            (float((grads["float32", fused][k].double() - ref[k]).norm()
+                   / ref[k].norm().clamp_min(1e-300)), k) for k in gated)
+        label = "fused" if fused else "standard"
+        out[label] = {"median": rel[len(rel) // 2][0],
+                      "p99": rel[int(0.99 * (len(rel) - 1))][0]}
+        log(f"  float32 {label} vs the standard model in float64: "
+            f"|g - g64|/|g64| over {len(rel)} tensors: median "
+            f"{out[label]['median']:.2e}, p99 {out[label]['p99']:.2e}, max "
+            f"{rel[-1][0]:.2e} ({rel[-1][1]})")
+    ratio = out["fused"]["median"] / max(out["standard"]["median"], 1e-300)
+    out["fused_over_standard_median"] = ratio
+    log(f"  fused / standard median distance from float64: {ratio:.2f}"
+        + (" -- the fused f32 path owns the gap (a fault of K3/K4's f32 "
+           "path)" if ratio > 3 else ""))
+    return out
+
+
 # ------------------------------------------------------------ phase 8
 
 RES_TIME_SHAPES = ((8, 64, 64, 256, 256), (8, 128, 128, 64, 128))
@@ -1444,7 +1501,7 @@ def res_bound(shape, kind: str, itemsize: int = 2):
                                        else "bytes")
 
 
-def _trace(fn, calls: int):
+def _trace(fn, calls: int, pad: float = 0.02):
     """{kernel name: (ms per call, launches per call)} from a
     torch.profiler trace of ``calls`` calls of ``fn``: every device kernel
     and copy, whoever launched it. Annotation ranges, which span kernels
@@ -1453,7 +1510,13 @@ def _trace(fn, calls: int):
     holds a '#' further in (a lambda of an elementwise kernel) is counted.
     One more call runs first, in the profiler's warm-up window: on a busy
     host the tracer comes up late and loses the first launches after its
-    start, and records of the warm-up window are discarded anyway."""
+    start, and records of the warm-up window are discarded anyway. The
+    recorded calls start ``pad`` seconds after the window opens, and the
+    window closes ``pad`` seconds after the card has finished them: the
+    profiler keeps a device record only if it falls inside the window on
+    the host's clock, and the card's timestamps, carried over to that
+    clock, can be off by some milliseconds either way (the first kernel of
+    the first call, or every kernel after it, were lost on torch 2.11)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1464,9 +1527,11 @@ def _trace(fn, calls: int):
         fn()
         torch.cuda.synchronize()
         prof.step()
+        time.sleep(pad)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        time.sleep(pad)
         prof.step()
     per = {}
     for evt in prof.key_averages():
@@ -1487,10 +1552,12 @@ def _trace_whole(fn, calls: int):
     """``_trace``, repeated (at most ten times) while the profiler has
     dropped records, as it does now and then on a busy host, sometimes a
     whole trace's: every kernel must show a whole number of launches per
-    call, and there must be some. (On a busy host one call of three can
-    lose some of its kernels' records in five traces running.)"""
+    call, and there must be some. Each attempt doubles the time the window
+    is held open around the recorded calls (20 ms, then up to 2.56 s), so
+    that a larger offset between the card's clock and the host's still
+    falls inside it."""
     for attempt in range(10):
-        per = _trace(fn, calls)
+        per = _trace(fn, calls, pad=0.02 * 2 ** min(attempt, 7))
         if per and all(abs(cnt - round(cnt)) < 1e-6 for _, cnt in per.values()):
             return per
         log(f"  trace {attempt + 1} discarded, launches per call not whole: "
@@ -1659,7 +1726,7 @@ def time_train_step(data_dir):
 def _device_time(step, steps: int = 2):
     """Device time and device kernels per step (from a trace of ``steps``
     steps) and the five kernels with the most time, ms per step."""
-    per = _trace(step, steps) or _trace(step, steps)  # again if all was lost
+    per = _trace(step, steps) or _trace(step, steps, pad=0.5)  # all lost
     by_name = {}
     for key, (ms, _) in per.items():
         by_name[key[:60]] = by_name.get(key[:60], 0.0) + ms
@@ -1870,7 +1937,7 @@ def drive_detector_eval(data_dir, work):
     for fused in ("true", "false"):
         _zero_res_counts()
         t0 = time.perf_counter()
-        valid_hourglass.main(argv + ["--fused-blocks", fused])
+        run_cli(valid_hourglass.main, argv + ["--fused-blocks", fused])
         secs = time.perf_counter() - t0
         count = _res_counts()
         with open(os.path.join(run_dir, "pckh_epoch2.json")) as f:
@@ -1896,7 +1963,7 @@ def drive_detector_eval(data_dir, work):
     n_rects = len(MPIITestAnnotations(data_dir))
     for invocation in (1, 2):
         _zero_res_counts()
-        eval_hourglass.main(argv + ["--fused-blocks", "true"])
+        run_cli(eval_hourglass.main, argv + ["--fused-blocks", "true"])
         count = _res_counts()
         export_forwards = -(-n_rects // DETECTOR_BATCH)
         want = {"resmodule_fwd_train":
@@ -2046,6 +2113,446 @@ def time_detector_eval(data_dir, work):
     return out
 
 
+# ------------------------------------------------------------ phase 11
+
+# Phase 11's H36M tree: 24 train frames (3 FT steps of 8 per epoch) and 8
+# valid frames; an export forward is one batch of 8, so one conversion runs
+# 3 + 1 forwards.
+FT_TRAIN, FT_VALID = 24, 8
+FT_STEPS = -(-FT_TRAIN // DETECTOR_BATCH)
+SH_FORWARDS = FT_STEPS + -(-FT_VALID // DETECTOR_BATCH)
+# The full-width preact model's f32 gradients against its float64 ones on
+# the card: the median over gated tensors of |g32 - g64| / |g64| may be at
+# most this many times that of the same model with cuDNN's batch norm.
+FT_PARITY_RATIO = 1.5
+FT_TIME_STEPS = 5
+
+
+def run_cli(main, argv):
+    """``main(argv)`` started from torch's default precision switches
+    (cuDNN convolutions in TF32, matmuls in f32); the CLI must leave TF32
+    off for both."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    main(argv)
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise AssertionError(f"{main.__module__} left TF32 on")
+
+
+def _bins(data_dir, protocol):
+    import pickle
+
+    out = {}
+    for task in ("train", "valid"):
+        with open(os.path.join(data_dir, f"{task}_{protocol}.bin"),
+                  "rb") as f:
+            out[task] = pickle.load(f)
+    return out
+
+
+def _check_sh_bins(data_dir, protocol):
+    """Both bins of ``protocol``: the GT bins' keys, every key but ``part``
+    the GT bins' values, ``part`` finite (N, 17, 2) detections."""
+    import numpy as np
+
+    got, gt = _bins(data_dir, protocol), _bins(data_dir, "GT")
+    for task in ("train", "valid"):
+        if got[task].keys() != gt[task].keys():
+            raise AssertionError(f"{task}_{protocol}.bin: keys differ")
+        for key, ref in gt[task].items():
+            if key == "part":
+                continue
+            if len(got[task][key]) != len(ref) or not all(
+                    np.array_equal(np.asarray(a), np.asarray(b))
+                    for a, b in zip(got[task][key], ref)):
+                raise AssertionError(f"{task}_{protocol}.bin: {key} is not "
+                                     f"the GT bin's")
+        part = np.stack(got[task]["part"])
+        if part.shape != (len(ref), 17, 2) or not np.isfinite(part).all():
+            raise AssertionError(f"{task}_{protocol}.bin: part {part.shape}")
+    return got
+
+
+def drive_ft(work):
+    """The slice of phase 11 through its CLIs, each from torch's default
+    precision switches: cli.train_hourglass_ft at full width in f32 for one
+    epoch and once more (resumes, writes 2.save), cli.valid_hourglass_ft,
+    cli.sh_preprocess --variant preact --protocol-out SH+FT, cli.sh_preprocess
+    --variant torch7 on phase 6's 2.save with --fused-blocks true (exactly
+    107 K3-eval launches per export forward) and false (none), the two
+    conversions' detections against each other, then cli.train_bilinear
+    --protocol SH+FT for one epoch and cli.valid_bilinear. Returns a record
+    and the fused conversion's launches."""
+    import math
+
+    import numpy as np
+    from bilinear_tpu_torch.cli import (sh_preprocess, train_bilinear,
+                                        train_hourglass_ft, valid_bilinear,
+                                        valid_hourglass_ft)
+    from bilinear_tpu_torch.data.synthetic import write_h36m_dataset
+    from bilinear_tpu_torch.io.checkpoint import load_checkpoint
+
+    data_dir = os.path.join(work, "Human3.6M")
+    save_root = os.path.join(work, "save")
+    write_h36m_dataset(data_dir, n_train=FT_TRAIN, n_valid=FT_VALID,
+                       with_images=True, seed=SEED)
+    run_dir = os.path.join(save_root, "Hourglass FT")
+    ft = ["--data-dir", data_dir, "--save-root", save_root, "--batch-size",
+          str(DETECTOR_BATCH), "--seed", str(SEED)]
+    for invocation in (1, 2):
+        t0 = time.perf_counter()
+        run_cli(train_hourglass_ft.main, ft + ["--epochs-per-run", "1"])
+        log(f"  cli.train_hourglass_ft invocation {invocation}: "
+            f"{FT_TRAIN} frames, {FT_STEPS} steps of {DETECTOR_BATCH}, f32, "
+            f"full width: {time.perf_counter() - t0:.1f} s")
+    with open(os.path.join(run_dir, "debug.log")) as f:
+        text = f.read()
+    losses = _log_value(text, "saved (loss:", "loss: ")
+    log("  " + "; ".join(ln.split(" > ", 1)[-1] for ln in text.splitlines()
+                         if "saved (loss:" in ln))
+    if len(losses) != 2 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"FT losses {losses}")
+    if f"Resumed from epoch 1 (step {FT_STEPS + 1})" not in text:
+        raise AssertionError("the second FT invocation did not resume")
+    payload = load_checkpoint(os.path.join(run_dir, "parameter"), 2)
+    count = int(payload["optimizer"]["1"]["count"])
+    log(f"  2.save: step {payload['step']}, RMSprop count {count}")
+    if payload["step"] != 2 * FT_STEPS + 1 or count != 2 * FT_STEPS:
+        raise AssertionError(f"2.save's counters are not those of 2 epochs "
+                             f"of {FT_STEPS} steps")
+
+    t0 = time.perf_counter()
+    run_cli(valid_hourglass_ft.main, ft)
+    with open(os.path.join(run_dir, "pckh_ft_epoch2.json")) as f:
+        pckh = json.load(f)
+    log(f"  cli.valid_hourglass_ft: {time.perf_counter() - t0:.1f} s; "
+        f"PCKh avg {pckh['avg']!r}, hits {pckh['hits']} of "
+        f"{pckh['totals']}")
+    if pckh["epoch"] != 2 or not math.isfinite(pckh["avg"]):
+        raise AssertionError("pckh_ft_epoch2.json")
+
+    sh = ["--h36m-dir", data_dir, "--save-root", save_root, "--batch-size",
+          str(DETECTOR_BATCH), "--seed", str(SEED)]
+    t0 = time.perf_counter()
+    _zero_res_counts()
+    run_cli(sh_preprocess.main, sh + ["--comment", "Hourglass FT",
+                                      "--variant", "preact",
+                                      "--protocol-out", "SH+FT"])
+    if any(_res_counts().values()):
+        raise AssertionError("the preact conversion launched K3/K4")
+    _check_sh_bins(data_dir, "SH+FT")
+    log(f"  cli.sh_preprocess --variant preact --protocol-out SH+FT: "
+        f"{time.perf_counter() - t0:.1f} s; both bins equal the GT bins but "
+        f"for part")
+
+    counts = {}
+    for fused, proto in (("true", "SH"), ("false", "SH-standard")):
+        _zero_res_counts()
+        t0 = time.perf_counter()
+        run_cli(sh_preprocess.main, sh + ["--comment", "smoke", "--variant",
+                                          "torch7", "--fused-blocks", fused,
+                                          "--protocol-out", proto])
+        counts[fused] = _res_counts()
+        want = {"resmodule_fwd_train": 0, "resmodule_bwd": 0,
+                "resmodule_fwd_eval": RES_PER_FORWARD * SH_FORWARDS
+                if fused == "true" else 0}
+        log(f"  cli.sh_preprocess --variant torch7 --fused-blocks {fused} "
+            f"(phase 6's 2.save): {time.perf_counter() - t0:.1f} s; "
+            f"{SH_FORWARDS} export forwards; launches {counts[fused]}")
+        if counts[fused] != want:
+            raise AssertionError(f"launches {counts[fused]}, expected {want}")
+    fused_bins = _check_sh_bins(data_dir, "SH")
+    std_bins = _check_sh_bins(data_dir, "SH-standard")
+    agree = []
+    for task in ("train", "valid"):
+        a = np.stack(fused_bins[task]["part"])
+        b = np.stack(std_bins[task]["part"])
+        cell = 200 * np.asarray(std_bins[task]["scale"], np.float64)[:, None] \
+            / 64
+        dist = np.linalg.norm(a - b, axis=-1)
+        agree.append(float((dist <= 1e-3 * cell).mean()))
+        if agree[-1] < 0.95 or not (dist <= cell * (1 + 1e-6)).all():
+            raise AssertionError(f"{task}: fused and standard SH detections "
+                                 f"disagree ({agree[-1]:.3f} equal, max "
+                                 f"{float((dist / cell).max()):.2f} cells)")
+    log(f"  SH detections, fused vs standard: share of joints equal "
+        f"(train, valid) {agree}, none more than one heatmap cell apart")
+
+    bl = ["--data-dir", data_dir, "--protocol", "SH+FT", "--comment",
+          "Bilinear SH+FT", "--save-root", save_root, "--seed", str(SEED)]
+    run_cli(train_bilinear.main, bl + ["--epochs-per-run", "1"])
+    run_cli(valid_bilinear.main, bl)
+    with open(os.path.join(save_root, "Bilinear SH+FT",
+                           "mpjpe_epoch1.json")) as f:
+        mpjpe = json.load(f)["overall"]
+    log(f"  cli.train_bilinear --protocol SH+FT (1 epoch) then "
+        f"cli.valid_bilinear: MPJPE {mpjpe!r} mm")
+    if not math.isfinite(mpjpe):
+        raise AssertionError("the SH+FT lifter's MPJPE is not finite")
+    return {"losses": losses, "pckh_ft_avg": pckh["avg"],
+            "sh_fused_vs_standard_equal_share": agree,
+            "sh_ft_mpjpe_mm": mpjpe}, counts["true"]
+
+
+def _ft_batch(data_dir, dev, task="train"):
+    """One H36M batch of 8 as device tensors, the step's draws (no flip)."""
+    from bilinear_tpu_torch.data.h36m import load_h36m
+    from bilinear_tpu_torch.data.h36m_images import H36MImageRecords
+    from bilinear_tpu_torch.data.pipeline import MPIIHostPipeline
+    from bilinear_tpu_torch.train import hourglass as th
+
+    records = H36MImageRecords(load_h36m(data_dir)[task], data_dir)
+    pipe = MPIIHostPipeline(records, DETECTOR_BATCH, shuffle=True, seed=SEED,
+                            transport="u8")
+    b = th.batch_tensors(next(iter(pipe.epoch(1, prefetch=0))), dev)
+    aug = th.sample_augment(th.step_generator(SEED, 1, 1),
+                            b["images"].shape[0], flip_prob=0.0)
+    return b, aug
+
+
+def _cudnn_bn(model):
+    """``model`` with every BN's train-mode normalisation done by
+    ``F.batch_norm`` (cuDNN's fused batch norm and its backward) instead of
+    core.norm.BatchNorm2d's own: a second f32 implementation of the same
+    function (its running statistics are left alone)."""
+    import types
+
+    import torch.nn.functional as F
+    from bilinear_tpu_torch.core.norm import BatchNorm2d
+
+    def forward(bn, x):
+        return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0,
+                            bn.eps)
+
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.forward = types.MethodType(forward, m)
+    return model
+
+
+def ft_parity(data_dir):
+    """The full-width preact model's train-mode heatmaps and FT-loss
+    gradients in f32 against the same model in float64 on the card, from
+    one state on one batch, beside the same f32 model with cuDNN's batch
+    norm (``_cudnn_bn``) as a yardstick. Per tensor |g32 - g64| / |g64|:
+    the port's median must be at most FT_PARITY_RATIO times the
+    yardstick's. A ResUnit's skip-conv bias only shifts channels that the
+    heads' train-mode BNs remove (zero gradient in exact arithmetic) and the
+    last stack's after/skip heads feed no output: those are left out."""
+    import torch
+    from bilinear_tpu_torch.models.hourglass import StackedHourglass
+    from bilinear_tpu_torch.ops.joints import FROM_H36M_TO_MPII
+    from bilinear_tpu_torch.train import hourglass as th
+
+    dev = torch.device("cuda")
+    b, aug = _ft_batch(data_dir, dev)
+    crops, targets, _ = th.preprocess_batch(
+        b["images"], b["centers"], b["scales"], b["keypoints"], b["valid"],
+        aug)
+    targets = targets[:, torch.as_tensor(FROM_H36M_TO_MPII, dtype=torch.long,
+                                         device=dev)]
+    sd = StackedHourglass(generator=torch.Generator().manual_seed(SEED)) \
+        .state_dict()
+    heat, grads, losses = {}, {}, {}
+    for label, dtype in (("float64", torch.float64),
+                         ("float32", torch.float32),
+                         ("float32_cudnn_bn", torch.float32)):
+        model = StackedHourglass(dtype=dtype).to(dtype)
+        model.load_state_dict(sd)
+        if label.endswith("cudnn_bn"):
+            _cudnn_bn(model)
+        model.to(dev).train()
+        out = model(crops.to(dtype))
+        loss = th.heatmap_loss(out, targets.to(dtype))
+        loss.backward()
+        heat[label] = out.detach().double()
+        losses[label] = float(loss.detach())
+        grads[label] = {k: p.grad.detach().double()
+                        for k, p in model.named_parameters()
+                        if p.grad is not None}
+        del model, out, loss
+        torch.cuda.empty_cache()
+    ref = grads["float64"]
+    gated = [k for k in ref if not k.endswith(".skip.bias")
+             and float(ref[k].norm()) > 0]
+    result = {}
+    for label in ("float32", "float32_cudnn_bn"):
+        rel = sorted((float((grads[label][k] - ref[k]).norm()
+                            / ref[k].norm()), k) for k in gated)
+        row = {"loss_rel": abs(losses[label] - losses["float64"])
+               / abs(losses["float64"]),
+               "heatmap_max_rel": float((heat[label] - heat["float64"]).abs()
+                                        .max() / heat["float64"].abs().max()),
+               "grad_rel_median": rel[len(rel) // 2][0],
+               "grad_rel_p99": rel[int(0.99 * (len(rel) - 1))][0],
+               "grad_rel_max": rel[-1][0]}
+        result[label] = row
+        log(f"  preact {label} vs float64, full width, batch "
+            f"{DETECTOR_BATCH}: loss rel {row['loss_rel']:.2e}; heatmaps "
+            f"max|d| / max|ref| {row['heatmap_max_rel']:.2e}; |g32 - g64| / "
+            f"|g64| over {len(rel)} tensors: median "
+            f"{row['grad_rel_median']:.2e}, p99 {row['grad_rel_p99']:.2e}, "
+            f"max {rel[-1][0]:.2e} ({rel[-1][1]})")
+    ratio = result["float32"]["grad_rel_median"] / \
+        result["float32_cudnn_bn"]["grad_rel_median"]
+    result["median_over_yardstick"] = ratio
+    log(f"  the port's median over the cuDNN-BN yardstick's: {ratio:.2f}")
+    if not ratio <= FT_PARITY_RATIO:
+        raise AssertionError(f"preact f32 gradients {ratio:.2f} times as far "
+                             f"from float64 as the yardstick's")
+    return result
+
+
+# What makes the host wait for the card: a scalar fetched, a synchronous
+# copy, a sync (a copy from the card into pageable memory synchronises the
+# stream). An asynchronous copy alone (a device-to-device copy_) does not.
+HOST_READS = ("aten::_local_scalar_dense", "cudaStreamSynchronize",
+              "cudaDeviceSynchronize", "cudaMemcpy")
+
+
+def _host_reads(fn, inside: str):
+    """Names of host reads of the card (a scalar fetched, a copy, a sync)
+    that ``fn`` issues inside its profiler range ``inside``, from a trace
+    with CPU and CUDA activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = [e.time_range for e in events if e.name == inside]
+    if not spans:
+        raise AssertionError(f"no {inside!r} range in the trace")
+    return sorted({e.name for e in events if e.name in HOST_READS
+                   and any(s.start <= e.time_range.start <= s.end
+                           for s in spans)})
+
+
+def _in_range(fn, *args):
+    from torch.profiler import record_function
+
+    with record_function("control"):
+        fn(*args)
+
+
+def time_ft(data_dir, work):
+    """Measurements of phase 11, no gate but the host-read check: the FT
+    step (batch 8, full width, f32 and bf16: ms/step, img/s, device-busy ms
+    and kernels per step); that the f32 step's forward reads nothing from
+    the card on the host (checked against torch's own cumulative BN, which
+    must show a read); the recalibration forward of cli.valid_hourglass_ft
+    (f32, train mode under no_grad, cumulative BN) and the SH export forward
+    (f32): torch7 fused and standard from phase 6's 2.save, and preact from
+    the FT 2.save, each on one device-resident batch of 8."""
+    import torch
+    from bilinear_tpu_torch.core.norm import cumulative_momentum
+    from bilinear_tpu_torch.eval.mpii_test_export import export_heatmap_poses
+    from bilinear_tpu_torch.io.checkpoint import load_checkpoint
+    from bilinear_tpu_torch.ops.joints import FROM_H36M_TO_MPII
+    from bilinear_tpu_torch.train import hourglass as th
+
+    dev = torch.device("cuda")
+    b, aug = _ft_batch(data_dir, dev)
+    out = {"train_step": {}}
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        trainer = th.HourglassTrainer(
+            variant="preact", dtype=dtype, device=dev, flip_prob=0.0,
+            joint_remap=FROM_H36M_TO_MPII)
+        state = trainer.init_state(SEED)
+
+        def step():
+            trainer.train_step(state, b, aug)
+
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FT_TIME_STEPS):
+            step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / FT_TIME_STEPS
+        busy, kernels, top = _device_time(step)
+        out["train_step"][name] = {
+            "ms_per_step": ms, "img_per_s": DETECTOR_BATCH * 1e3 / ms,
+            "device_ms_per_step": busy, "device_kernels_per_step": kernels,
+            "device_idle_share": max(0.0, 1 - busy / ms), "device_top": top}
+        log(f"  FT step (preact) {name}: {ms:.2f} ms/step, "
+            f"{DETECTOR_BATCH * 1e3 / ms:.1f} img/s (batch {DETECTOR_BATCH}, "
+            f"full width); device busy {busy:.2f} ms/step in {kernels:.0f} "
+            f"device kernels (idle {100 * max(0.0, 1 - busy / ms):.0f}%), "
+            f"top kernels ms/step: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in top))
+        if name == "float32":
+            reads = _host_reads(step, th.STEP_RANGES[1])
+            bn = torch.nn.BatchNorm2d(256, momentum=None).to(dev).train()
+            x = torch.randn(8, 256, 64, 64, device=dev)
+            control = _host_reads(lambda: _in_range(bn, x), "control")
+            log(f"  host reads inside {th.STEP_RANGES[1]} of an f32 FT step: "
+                f"{reads or 'none'}; torch's BatchNorm2d(momentum=None) "
+                f"shows {control}")
+            if reads:
+                raise AssertionError(f"the FT forward reads the card on the "
+                                     f"host: {reads}")
+            if "aten::_local_scalar_dense" not in control:
+                raise AssertionError("the host-read check does not see "
+                                     "torch's cumulative BN read")
+            out["host_reads_in_forward"] = reads
+        del trainer, state
+        torch.cuda.empty_cache()
+
+    crops = th.preprocess_batch(b["images"], b["centers"], b["scales"],
+                                b["keypoints"], b["valid"], None)[0]
+    models = {}
+    for label, variant, fused, run in (
+            ("torch7_fused", "torch7", True, "smoke"),
+            ("torch7_standard", "torch7", False, "smoke"),
+            ("preact", "preact", False, "Hourglass FT")):
+        state = th.HourglassTrainer(variant=variant, fused_blocks=fused,
+                                    device=dev).init_state(SEED)
+        state.restore(load_checkpoint(os.path.join(work, "save", run,
+                                                   "parameter"), 2))
+        models[label] = state.model
+    passes = [("recalibration_preact", models["preact"], True)] + [
+        (f"sh_export_{k}", m, False) for k, m in models.items()]
+    out["passes"] = {}
+    for name, model, train in passes:
+        model.train(train)
+
+        @torch.no_grad()
+        def fn():
+            if train:
+                model(crops)
+            else:
+                export_heatmap_poses(model, b)
+
+        with cumulative_momentum(model):
+            for _ in range(2):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(EVAL_TIME_CALLS):
+                fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / EVAL_TIME_CALLS
+            busy, kernels, top = _device_time(fn, 2)
+        out["passes"][name] = {
+            "ms_per_batch": ms, "img_per_s": DETECTOR_BATCH * 1e3 / ms,
+            "device_ms_per_call": busy, "device_kernels_per_call": kernels,
+            "device_top": top}
+        log(f"  {name}, f32, batch {DETECTOR_BATCH}: {ms:.2f} ms, "
+            f"{DETECTOR_BATCH * 1e3 / ms:.1f} img/s; device busy {busy:.2f} "
+            f"ms in {kernels:.0f} device kernels per call; top ms: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in top))
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 SOURCES = {
@@ -2146,6 +2653,16 @@ def run() -> dict:
         eval_parity = detector_eval_parity(data_dir, work)
         log(f"phase 10: detector evaluation times on {card}")
         eval_times = time_detector_eval(data_dir, work)
+        # phase 11: fine-tuning, the SH conversions, lifting from SH+FT
+        log("phase 11: fine-tuning the full-width preact detector on H36M "
+            "through cli.train_hourglass_ft, evaluating it, converting "
+            "GT->SH+FT and GT->SH, lifting from SH+FT")
+        ft_result, sh_launches = drive_ft(work)
+        h36m_dir = os.path.join(work, "Human3.6M")
+        log("phase 11: the full-width preact model, f32 against float64")
+        ft_result["parity_vs_float64"] = ft_parity(h36m_dir)
+        log(f"phase 11: fine-tuning and SH conversion times on {card}")
+        ft_result["times"] = time_ft(h36m_dir, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2156,7 +2673,8 @@ def run() -> dict:
     for name in SOURCES:
         if name.startswith("resmodule"):
             by_path[name] = {"phase6_training": launches[name],
-                             "phase10_evaluation": eval_launches[name]}
+                             "phase10_evaluation": eval_launches[name],
+                             "phase11_sh_export": sh_launches[name]}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         if name.startswith("resmodule"):
@@ -2205,6 +2723,7 @@ def run() -> dict:
     log(json.dumps({"detector_evaluation": {
         "recalibrated_stats_max_rel_diff": eval_parity,
         "times": eval_times}}))
+    log(json.dumps({"fine_tuning_and_sh": ft_result}))
     return {"kernels": kernels, "card": card}
 
 

@@ -62,7 +62,13 @@ def test_port_modules_are_listed():
                      "bilinear_tpu_torch.cli.train_bilinear",
                      "bilinear_tpu_torch.cli.valid_bilinear",
                      "bilinear_tpu_torch.cli.valid_hourglass",
-                     "bilinear_tpu_torch.cli.eval_hourglass"):
+                     "bilinear_tpu_torch.cli.eval_hourglass",
+                     "bilinear_tpu_torch.models.hourglass",
+                     "bilinear_tpu_torch.data.h36m_images",
+                     "bilinear_tpu_torch.data.sh_convert",
+                     "bilinear_tpu_torch.cli.train_hourglass_ft",
+                     "bilinear_tpu_torch.cli.valid_hourglass_ft",
+                     "bilinear_tpu_torch.cli.sh_preprocess"):
         assert expected in names
 
 
