@@ -1,17 +1,28 @@
-"""Lifting daemon: HTTP front-end with dynamic batching and checkpoint
-hot-reload over the CUDA lifting kernels (counterpart of
-``bilinear_tpu/cli/serve.py``, ``--kind lifting``).
+"""Pose daemon: HTTP front-end with dynamic batching and checkpoint
+hot-reload over the CUDA kernels (counterpart of
+``bilinear_tpu/cli/serve.py``).
 
 Usage (on a machine with an NVIDIA GPU):
+  # 2D -> 3D lifting (kernel K1; --quantize int8 | int8-static for K2,
+  # --dtype float32 for the f32 kernel):
   python -m bilinear_tpu_torch.cli.serve --kind lifting \\
       --run-dir "save/Bilinear GT" --data-dir data/Human3.6M --port 8900
-  # --quantize int8 | int8-static for the int8 kernel, --dtype float32 for
-  # the f32 kernel, --warm to build the kernels before the first request.
+
+  # frame -> 2D + 3D through End2End, and lifting beside it:
+  python -m bilinear_tpu_torch.cli.serve --kind both --run-dir \\
+      save/End2End --lifting-run-dir "save/Bilinear GT" \\
+      --data-dir data/Human3.6M --variant torch7
 
 Endpoints: GET /healthz, GET /metrics, POST /v1/lift (JSON
-{"keypoints": (N,16,2)} or application/x-npy), POST /admin/reload.
-The server runs on the card; ``--device cpu`` runs the plain PyTorch path
-and is meant for tests only.
+{"keypoints": (N,16,2)} or application/x-npy), POST /v1/pose (npz: frames
+(N,256,256,3) u8 or f32 [+ centers, scales]), POST /admin/reload. --warm
+runs every lifting row count and each End2End batch size on u8 frames
+before the first request. The torch7 detector's ResModules run through
+kernel K3; the preact detector has no fused blocks. ``--quantize int8``
+(or int8-static, which maps to int8 for End2End as in JAX) with --kind
+end2end|both raises: the detectors' int8 convolutions are not ported yet;
+neither is --aot. The server runs on the card; ``--device cpu`` runs the plain PyTorch path and
+is meant for tests only.
 """
 from __future__ import annotations
 
@@ -23,7 +34,7 @@ import torch
 
 from bilinear_tpu_torch.data.h36m import Protocol, Task, load_h36m
 from bilinear_tpu_torch.device import disable_tf32
-from bilinear_tpu_torch.serving import LiftingServer
+from bilinear_tpu_torch.serving import End2EndServer, LiftingServer
 from bilinear_tpu_torch.serving_http import PoseHTTPServer
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -32,19 +43,36 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 def build_server(args, logger=None) -> PoseHTTPServer:
     if args.aot:
         raise NotImplementedError("--aot is not ported yet; see ROADMAP.md")
-    if args.kind != "lifting":
-        raise NotImplementedError(
-            f"--kind {args.kind} is not ported yet; see ROADMAP.md"
-        )
     train = load_h36m(args.data_dir, args.protocol)[Task.Train]
-    lifting, epoch = LiftingServer.from_run_dir(
-        args.run_dir, train, dtype=DTYPES[args.dtype],
-        quantize=args.quantize or None, device=args.device,
-    )
-    if logger:
-        logger.info("lifting model: epoch %d on %s", epoch, lifting.device)
+    quantize = args.quantize or None
+    lifting = end2end = None
+    if args.kind in ("lifting", "both"):
+        lifting, epoch = LiftingServer.from_run_dir(
+            args.lifting_run_dir or args.run_dir, train,
+            dtype=DTYPES[args.dtype], quantize=quantize, device=args.device,
+        )
+        if logger:
+            logger.info("lifting model: epoch %d on %s", epoch,
+                        lifting.device)
+    if args.kind in ("end2end", "both"):
+        model_kw = {"fused": args.variant == "torch7"}
+        if args.n_stacks:
+            model_kw.update(n_stacks=args.n_stacks, features=args.features,
+                            depth=args.depth)
+        end2end = End2EndServer.from_run_dir(
+            args.run_dir, train, variant=args.variant, model_kw=model_kw,
+            dtype=DTYPES[args.dtype], batch_sizes=tuple(args.batch_sizes),
+            # static scales are the lifting MLP's; End2End's detector
+            # takes the dynamic int8 convolutions (not ported yet: raises)
+            quantize="int8" if quantize == "int8-static" else quantize,
+            device=args.device,
+        )
+        if logger:
+            logger.info("end2end model: epoch %d on %s", end2end.epoch,
+                        end2end.device)
     return PoseHTTPServer(
         lifting=lifting,
+        end2end=end2end,
         host=args.host,
         port=args.port,
         max_delay_ms=args.max_delay_ms,
@@ -60,20 +88,29 @@ def build_parser() -> argparse.ArgumentParser:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--kind", choices=["lifting", "end2end", "both"],
                    default="lifting",
-                   help="only lifting is ported; the others raise")
+                   help="lifting (/v1/lift), end2end (/v1/pose) or both")
     p.add_argument("--aot", nargs="+", default=[], metavar="ARTIFACT",
                    help="not ported yet (raises)")
     p.add_argument("--run-dir", required=True,
-                   help="run dir holding parameter/{epoch}.save")
+                   help="run dir holding parameter/{epoch}.save (the "
+                        "End2End one for --kind end2end|both)")
+    p.add_argument("--lifting-run-dir", default="",
+                   help="separate run dir for the lifting model "
+                        "(--kind both)")
     p.add_argument("--data-dir", required=True,
                    help="H36M dir (normalization stats come from its train "
                         "split)")
     p.add_argument("--protocol", default=Protocol.GT)
+    p.add_argument("--variant", default="torch7",
+                   help="End2End's detector: torch7 or preact")
     p.add_argument("--dtype", default="bfloat16", choices=list(DTYPES))
     p.add_argument("--quantize", default="",
                    choices=["", "int8", "int8-static"])
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8900)
+    p.add_argument("--batch-sizes", type=int, nargs="+", default=[1, 8, 16],
+                   help="End2End batch sizes; a request runs as greedy "
+                        "largest-first chunks of them")
     p.add_argument("--max-delay-ms", type=float, default=2.0)
     p.add_argument("--max-rows", type=int, default=256)
     p.add_argument("--max-pending-rows", type=int, default=8192,
@@ -81,7 +118,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--reload-every", type=float, default=30.0)
     p.add_argument("--warm", action="store_true",
                    help="build the kernels and run every dispatchable row "
-                        "count before accepting requests")
+                        "count and End2End batch size (u8 frames) before "
+                        "accepting requests")
+    p.add_argument("--n-stacks", type=int, default=0,
+                   help="End2End detector size override (0 = the "
+                        "reference's 8/256/4)")
+    p.add_argument("--features", type=int, default=256)
+    p.add_argument("--depth", type=int, default=4)
     p.add_argument("--device", default=None,
                    help="torch device; default the GPU (no CPU fallback)")
     return p

@@ -1,9 +1,10 @@
-"""Python client for the lifting daemon (``cli/serve.py``), counterpart
-of ``bilinear_tpu/client.py`` (stdlib + numpy). Talks the daemon's
-application/x-npy wire format.
+"""Python client for the pose daemon (``cli/serve.py``), counterpart of
+``bilinear_tpu/client.py`` (stdlib + numpy). Talks the daemon's
+application/x-npy and application/x-npz wire formats.
 
     client = PoseClient("http://gpu-host:8900")
     poses_mm = client.lift(keypoints_2d)          # (N, 16, 2) -> (N, 16, 3)
+    pose2d, pose3d = client.pose(frames)          # (N, 256, 256, 3)
     client.health()                               # dict
     client.reload()                               # hot-swap newest ckpt
 """
@@ -110,3 +111,32 @@ class PoseClient:
         )
         mm = np.load(io.BytesIO(out), allow_pickle=False)
         return mm.reshape(kp.shape[0], 16, 3)
+
+    def pose(
+        self,
+        frames: np.ndarray,
+        centers: Optional[np.ndarray] = None,
+        scales: Optional[np.ndarray] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """frame->2D+3D through the End2End model. frames (N, 256, 256, 3)
+        uint8 or float in [0, 1]; optional crop centres (N, 2) and scales
+        (N,) in the reference's centre/scale convention (the server's
+        default is the full frame, webcam.py:13-25). Returns (pose2d (N,
+        16, 2) px, pose3d (N, 16, 3) mm)."""
+        f = np.ascontiguousarray(frames)
+        if f.ndim != 4 or f.shape[1:] != (256, 256, 3):
+            raise ValueError(
+                f"frames must be (N, 256, 256, 3), got {f.shape}"
+            )
+        arrays = {"frames": f}
+        if centers is not None:
+            arrays["centers"] = np.ascontiguousarray(centers, np.float32)
+        if scales is not None:
+            arrays["scales"] = np.ascontiguousarray(scales, np.float32)
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        out, _ = self._request(
+            "/v1/pose", buf.getvalue(), "application/x-npz", method="POST"
+        )
+        with np.load(io.BytesIO(out), allow_pickle=False) as z:
+            return z["pose2d"], z["pose3d_mm"]

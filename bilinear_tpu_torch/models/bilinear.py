@@ -15,7 +15,8 @@ The JAX package's ``TorchBatchNorm`` re-implements torch's own
 Precision as in JAX: parameters are f32; each Linear runs in ``dtype``
 (input and weight cast, the product rounded to ``dtype``, the bias rounded
 to ``dtype`` and added in ``dtype``), BN runs in f32 and is rounded back to
-``dtype``, and the output is f32. The casts are explicit, no autocast.
+``dtype``, and the output is f32 (f64 throughout for a model in f64, the
+tests' exact reference). The casts are explicit, no autocast.
 
 Train-mode dropout draws its keep mask from the ``generator`` passed to
 ``forward`` (on the activations' device), never from torch's global RNG:
@@ -34,6 +35,11 @@ from bilinear_tpu_torch.core.initializers import init_linear
 NUM_JOINTS = 17 - 1
 IN_FEATURES = 2 * NUM_JOINTS  # 32
 OUT_FEATURES = 3 * NUM_JOINTS  # 48
+
+
+def _wide(dtype) -> torch.dtype:
+    """BN's and the output's type: f32, or f64 for a model in f64."""
+    return torch.promote_types(torch.float32, dtype)
 
 
 def linear_in(linear: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
@@ -77,7 +83,7 @@ class HeavyLinear(nn.Sequential):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         lin, bn, _, drop = self
         h = linear_in(lin, x, self.dtype)
-        h = torch.relu(bn(h.float()).to(self.dtype))
+        h = torch.relu(bn(h.to(_wide(self.dtype))).to(self.dtype))
         return dropout(h, drop.p, self.training, generator)
 
 
@@ -116,4 +122,4 @@ class BilinearUnit(nn.Module):
             for layer in block:
                 x = layer(x, generator)
             x = x + skip
-        return linear_in(self.decode, x, self.dtype).float()
+        return linear_in(self.decode, x, self.dtype).to(_wide(self.dtype))

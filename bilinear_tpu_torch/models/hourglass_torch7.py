@@ -16,7 +16,14 @@ matrix in memory, which the fused ResModule kernels read without a copy.
 Precision as in JAX: parameters are f32; convs run in ``dtype`` (inputs and
 weights cast, the bias rounded to ``dtype`` and added in ``dtype``), BN runs
 in f32 on the conv output and is rounded back to ``dtype``; heatmaps are
-returned in f32.
+returned in f32. Every BN module is ``core.norm.BatchNorm2d`` (torch's
+parameters, buffers and running update). ``bn_in`` applies it through
+torch's own BN on a CUDA tensor (cuDNN) and through the module's own
+formulation on a CPU tensor (the statistics by ``torch.var_mean``, the
+normalisation in autograd's own ops): torch's CPU BN backward loses the
+per-channel sums when the upstream gradient has a large mean, as End2End's
+soft-argmax gives it, where cuDNN's keeps them. In the fused ResModules the
+BNs hold parameters and buffers only.
 
 ``fused=True`` runs every ResModule through kernels K3/K4
 (``ops/resmodule.py``) on a CUDA tensor, and through their plain versions
@@ -34,7 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bilinear_tpu_torch.core.norm import update_running_stats
+from bilinear_tpu_torch.core.norm import BatchNorm2d, update_running_stats
 from bilinear_tpu_torch.ops import resmodule as rk
 
 N_STACKS = 8
@@ -57,10 +64,12 @@ def conv_in(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
     return y + conv.bias.to(dtype).view(1, -1, 1, 1)
 
 
-def bn_in(bn: nn.BatchNorm2d, x: torch.Tensor, dtype) -> torch.Tensor:
+def bn_in(bn: BatchNorm2d, x: torch.Tensor, dtype) -> torch.Tensor:
     """BN in f32 (f64 for a model in f64) on the ``dtype`` activation,
-    rounded back to ``dtype``."""
-    return bn(x.to(torch.promote_types(torch.float32, dtype))).to(dtype)
+    rounded back to ``dtype``: torch's own on the card, ``bn``'s own
+    formulation on the CPU."""
+    x = x.to(torch.promote_types(torch.float32, dtype))
+    return (nn.BatchNorm2d.forward(bn, x) if x.is_cuda else bn(x)).to(dtype)
 
 
 class ResModule(nn.Module):
@@ -80,11 +89,11 @@ class ResModule(nn.Module):
         self.fused = fused
         self.conv_skip = _conv(in_channels, out_channels, 1)
         self.resSeq = nn.Sequential(
-            nn.BatchNorm2d(in_channels, momentum=momentum), nn.ReLU(),
+            BatchNorm2d(in_channels, momentum=momentum), nn.ReLU(),
             _conv(in_channels, half, 1),
-            nn.BatchNorm2d(half, momentum=momentum), nn.ReLU(),
+            BatchNorm2d(half, momentum=momentum), nn.ReLU(),
             _conv(half, half, 3),
-            nn.BatchNorm2d(half, momentum=momentum), nn.ReLU(),
+            BatchNorm2d(half, momentum=momentum), nn.ReLU(),
             _conv(half, out_channels, 1),
         )
 
@@ -200,7 +209,7 @@ class MainModel(nn.Module):
                   quantize=quantize)
         self.beforeHourglass = nn.Sequential(
             _conv(3, 64, 7, stride=2),
-            nn.BatchNorm2d(64, momentum=momentum),
+            BatchNorm2d(64, momentum=momentum),
             nn.ReLU(), ResModule(64, 128, **kw), nn.MaxPool2d(2, 2),
             ResModule(128, 128, **kw), ResModule(128, features, **kw))
         self.hgArray = nn.ModuleList(
@@ -208,7 +217,7 @@ class MainModel(nn.Module):
             for _ in range(n_stacks))
         self.linArray = nn.ModuleList(
             nn.Sequential(_conv(features, features, 1),
-                          nn.BatchNorm2d(features, momentum=momentum),
+                          BatchNorm2d(features, momentum=momentum),
                           nn.ReLU())
             for _ in range(n_stacks))
         self.htmapArray = nn.ModuleList(

@@ -1,5 +1,6 @@
-"""Serving: batched 2D->3D lifting around the lifting kernels (counterpart of
-``LiftingServer`` in ``bilinear_tpu/serving.py``).
+"""Serving (counterpart of ``bilinear_tpu/serving.py``): batched 2D->3D
+lifting around the lifting kernels (``LiftingServer``) and batched
+frame->3D over the End2End model (``End2EndServer``).
 
   image-space (N, 16, 2) -> z-score with the TRAIN-split part stats
   -> kernel K1 (bf16 or f32) or K2 (int8 / int8-static), BN folded once
@@ -9,12 +10,15 @@
 Weights are folded (and quantized, and calibrated) once per checkpoint.
 ``from_run_dir`` serves the newest ``{run_dir}/parameter/{epoch}.save``,
 written by the JAX trainer or by the port, and ``reload`` swaps in a newer
-one. The server runs on the card unless ``device="cpu"`` is passed.
+one. ``End2EndServer`` runs frames through hourglass -> soft-argmax ->
+lifting at fixed batch sizes; with ``model_kw={"fused": True}`` and the
+torch7 detector its ResModules run through kernel K3 (eval). Both servers
+run on the card unless ``device="cpu"`` is passed.
 """
 from __future__ import annotations
 
 import os
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -193,4 +197,182 @@ class LiftingServer:
             warmed.append(n)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        return warmed
+
+
+FRAME_DTYPES = {"uint8": np.uint8, "u8": np.uint8, "float32": np.float32}
+
+
+class End2EndServer:
+    """Batched frame->3D serving over the End2End model.
+
+    - ``predict(frames)`` takes any number of frames and runs them as
+      greedy largest-first chunks of ``batch_sizes``, the remainder
+      zero-padded up to the smallest size that fits, so the card only ever
+      sees those batch sizes.
+    - ``reload()`` loads a newer epoch of ``parameter_dir`` into a NEW
+      model built off to the side and publishes it with one assignment;
+      ``predict`` reads the model once per call, so one response never
+      mixes two epochs and no request runs on a module being loaded.
+    """
+
+    def __init__(self, variables, mean_part, std_part, mean_s, std_s,
+                 variant: str = "torch7", dtype=torch.bfloat16,
+                 batch_sizes: Sequence[int] = (1, 8, 16),
+                 model_kw: Optional[dict] = None,
+                 parameter_dir: Optional[str] = None, epoch: int = 0,
+                 quantize: Optional[str] = None, device=None, mesh=None):
+        """``variables``: ``{"params", "batch_stats"}``, the JAX package's
+        End2End trees (numpy leaves, as a ``.save`` holds them).
+        ``model_kw`` goes to ``End2End`` (``{"fused": True}`` serves the
+        torch7 detector through K3). ``quantize="int8"`` is not ported yet
+        and raises. ``device``: None is the card, and raises when there is
+        none. ``mesh``: multi-device serving is not ported yet."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh-sharded End2End serving is not ported yet; see "
+                "ROADMAP.md")
+        if dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"unsupported dtype {dtype!r}")
+        self.device = resolve_device(device)
+        self.variant = variant
+        self.dtype = dtype
+        self.quantize = quantize
+        self.model_kw = dict(model_kw or {})
+        self.batch_sizes = tuple(sorted(set(int(b) for b in batch_sizes)))
+        self.parameter_dir = parameter_dir
+        self.epoch = epoch
+        self._model = self._build(variables)
+
+        def stat(a):
+            return torch.as_tensor(np.asarray(a, np.float32).reshape(-1),
+                                   device=self.device)
+
+        self._mean_part, self._std_part = stat(mean_part), stat(std_part)
+        self._mean_s = np.asarray(mean_s, np.float32).reshape(-1)
+        self._std_s = np.asarray(std_s, np.float32).reshape(-1)
+        self._255 = torch.tensor(255.0, device=self.device)
+
+    def _build(self, variables):
+        """A new eval-mode End2End holding ``variables``, on the device."""
+        from bilinear_tpu_torch.models.end2end import End2End
+
+        model = End2End(variant=self.variant, dtype=self.dtype,
+                        quantize=self.quantize, **self.model_kw)
+        return model.load_jax(variables).to(self.device).eval()
+
+    @classmethod
+    def from_run_dir(cls, run_dir: str, split: H36MSplit,
+                     variant: str = "torch7",
+                     model_kw: Optional[dict] = None, **kw):
+        """Serve the newest ``{run_dir}/parameter/{epoch}.save`` (either
+        package's) with the statistics of the train split ``split``, with
+        hot reload. Raises FileNotFoundError when the dir holds no
+        checkpoint: a serving process never serves random weights."""
+        parameter_dir = os.path.join(run_dir, "parameter")
+        epoch = latest_epoch(parameter_dir)
+        if epoch <= 0:
+            raise FileNotFoundError(
+                f"no checkpoint under {parameter_dir!r} — refusing to serve "
+                "uninitialized weights")
+        state = load_checkpoint(parameter_dir, epoch)["state"]
+        return cls(state, split.mean_part, split.std_part, split.mean_s,
+                   split.std_s, variant=variant, model_kw=model_kw,
+                   parameter_dir=parameter_dir, epoch=epoch, **kw)
+
+    def reload(self) -> bool:
+        """Swap in the newest checkpoint if one landed since construction.
+        Returns True when the weights changed."""
+        if self.parameter_dir is None:
+            return False
+        newest = latest_epoch(self.parameter_dir)
+        if newest <= self.epoch:
+            return False
+        try:
+            payload = load_checkpoint(self.parameter_dir, newest)
+        except FileNotFoundError:
+            # Scan/load race with a trainer pruning old checkpoints.
+            return False
+        self._model = self._build(payload["state"])  # ONE assignment
+        self.epoch = newest
+        return True
+
+    def _chunks(self, n: int):
+        """Greedy largest-first split of n into (take, batch) pairs; the
+        remainder is padded up to the smallest size that fits."""
+        sizes = self.batch_sizes
+        out = []
+        remaining = n
+        while remaining > 0:
+            fit = [b for b in sizes if b <= remaining]
+            if fit:
+                out.append((fit[-1], fit[-1]))
+                remaining -= fit[-1]
+            else:
+                padded = next(b for b in sizes if b >= remaining)
+                out.append((remaining, padded))
+                remaining = 0
+        return out
+
+    def predict(self, frames, centers=None, scales=None
+                ) -> Tuple[np.ndarray, np.ndarray]:
+        """frames (N, 256, 256, 3), u8 or f32 in [0, 1] -> (pose2d (N, 16, 2)
+        in frame pixels, pose3d (N, 16, 3) mm, root-centred). Defaults: the
+        full-frame box (centre 128, scale 256/200, webcam.py:13-25).
+
+        u8 frames stay u8 until they reach the device and are divided by
+        255 there (a quarter of the f32 bytes over the bus)."""
+        frames = np.asarray(frames)
+        if frames.dtype != np.uint8:
+            frames = np.asarray(frames, np.float32)
+        n = frames.shape[0]
+        if centers is None:
+            centers = np.full((n, 2), 128.0, np.float32)
+        if scales is None:
+            scales = np.full((n,), 256.0 / 200.0, np.float32)
+        centers = np.asarray(centers, np.float32)
+        scales = np.asarray(scales, np.float32)
+        model = self._model  # ONE read: every chunk on the same weights
+        dev = self.device
+        outs = []
+        done = 0
+        with torch.no_grad():
+            for take, batch in self._chunks(n):
+                f = torch.from_numpy(np.ascontiguousarray(
+                    frames[done:done + take])).to(dev)
+                c = torch.from_numpy(np.ascontiguousarray(
+                    centers[done:done + take])).to(dev)
+                s = torch.from_numpy(np.ascontiguousarray(
+                    scales[done:done + take])).to(dev)
+                if take < batch:
+                    pad = batch - take
+                    f = torch.cat([f, f.new_zeros((pad,) + f.shape[1:])])
+                    c = torch.cat([c, c.new_full((pad, 2), 128.0)])
+                    s = torch.cat([s, s.new_ones(pad)])
+                if f.dtype == torch.uint8:
+                    f = f.float() / self._255
+                _, p2, p3 = model(f, c, s, self._mean_part, self._std_part)
+                outs.append((take, p2[:take], p3[:take]))
+                done += take
+            # Every chunk is queued before the first copy back waits.
+            pose2d = torch.cat([p for _, p, _ in outs]).float().cpu().numpy()
+            pose3d = torch.cat([p for _, _, p in outs]).float().cpu().numpy()
+        mm = pose3d * self._std_s + self._mean_s
+        return pose2d, mm.reshape(n, 16, 3)
+
+    def warm(self, dtypes=("uint8",)) -> list:
+        """Run every batch size once per frame dtype, so the kernels are
+        built and loaded before the first request. ``dtypes``: "uint8"
+        (or "u8") and "float32"; any other string raises. Returns the
+        (batch, dtype) pairs run."""
+        bad = [d for d in dtypes if d not in FRAME_DTYPES]
+        if bad:
+            raise ValueError(f"unknown frame dtype(s) {bad}; use one of "
+                             f"{sorted(FRAME_DTYPES)}")
+        warmed = []
+        for dt in dtypes:
+            np_dt = FRAME_DTYPES[dt]
+            for b in self.batch_sizes:
+                self.predict(np.zeros((b, 256, 256, 3), np_dt))
+                warmed.append((b, np.dtype(np_dt).name))
         return warmed

@@ -1,18 +1,21 @@
-"""Network serving: a dynamic-batching HTTP front-end over the lifting
-server (counterpart of ``bilinear_tpu/serving_http.py``, lifting half).
+"""Network serving: a dynamic-batching HTTP front-end over the lifting and
+End2End servers (counterpart of ``bilinear_tpu/serving_http.py``).
 
 - ``DynamicBatcher`` coalesces concurrent requests into one backend call:
   the first arrival opens a batching window of ``max_delay_ms`` (or until
   ``max_rows`` are waiting); everything queued in the window rides the same
-  kernel launch.
+  kernel launch. Padding to the End2End batch sizes is the End2End
+  server's job (``End2EndServer._chunks``), so the batcher only
+  concatenates and scatters.
 - ``PoseHTTPServer`` exposes the service over HTTP (stdlib only):
     GET  /healthz         -> JSON status (kind, epoch, counters)
     GET  /metrics         -> Prometheus text
     POST /v1/lift         -> 2D->3D lifting (JSON or .npy body)
-    POST /v1/pose         -> 404: the End2End model is not ported yet
-    POST /admin/reload    -> hot-swap to the newest checkpoint
-  and polls the run dir for new checkpoints every ``reload_every`` s
-  (in-flight batches finish on the old weights).
+    POST /v1/pose         -> frames->2D+3D, End2End (.npz body)
+    POST /admin/reload    -> hot-swap to the newest checkpoint(s)
+  and polls the run dir(s) for new checkpoints every ``reload_every`` s
+  (in-flight batches finish on the old weights). A route whose model is
+  not loaded answers 404.
 """
 from __future__ import annotations
 
@@ -96,12 +99,19 @@ class DynamicBatcher:
         max_delay_ms: float = 2.0,
         max_rows: int = 256,
         max_pending_rows: int = 8192,
+        coerce: Optional[dict] = None,
     ):
         """``max_pending_rows`` bounds the queue (admission control): a
         request that would push the total queued rows past it is rejected
-        with ServerBusy instead of growing the backlog without bound."""
+        with ServerBusy instead of growing the backlog without bound.
+
+        ``coerce``: optional ``{input_index: fn(list_of_arrays) -> list}``
+        applied before that input is concatenated across riders: the hook
+        that gives a mixed u8/f32 frame batch one dtype without converting
+        every request."""
         self._fn = fn
         self._n_inputs = n_inputs
+        self._coerce = coerce or {}
         self._max_delay = max_delay_ms / 1000.0
         self._max_rows = max_rows
         self._max_pending = max_pending_rows
@@ -207,6 +217,8 @@ class DynamicBatcher:
                 for i in range(self._n_inputs):
                     arrs = [r.arrays[i][start:start + n]
                             for r, start, n in batch]
+                    if i in self._coerce:
+                        arrs = self._coerce[i](arrs)
                     joined.append(np.concatenate(arrs, axis=0))
                 joined = tuple(joined)
                 outs = self._fn(*joined)
@@ -264,6 +276,33 @@ def _load_npy(body: bytes) -> np.ndarray:
         return np.load(io.BytesIO(body), allow_pickle=False)
     except Exception as e:
         raise ValueError(f"undecodable npy body: {e}") from None
+
+
+def _load_npz(body: bytes):
+    try:
+        z = np.load(io.BytesIO(body), allow_pickle=False)
+        z.files  # forces the zip directory read
+        return z
+    except Exception as e:
+        raise ValueError(f"undecodable npz body: {e}") from None
+
+
+def _npz_bytes(**arrays) -> bytes:
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def coerce_frames(arrs: List[np.ndarray]) -> List[np.ndarray]:
+    """One dtype for a coalesced frame batch. A batch of one dtype keeps it
+    (u8 ships a quarter of the bytes to the device); in a mixed u8/f32
+    batch every u8 rider becomes f32 / 255, the value the device computes
+    for it, and is not left to np.concatenate, which would feed 0-255
+    values to the [0, 1] model."""
+    if len({a.dtype for a in arrs}) == 1:
+        return arrs
+    return [a.astype(np.float32) / np.float32(255.0) if a.dtype == np.uint8
+            else a.astype(np.float32) for a in arrs]
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -362,21 +401,46 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_json(200, {"poses_mm": mm.tolist()})
 
     def _pose(self, body: bytes) -> None:
-        raise ModelNotLoaded("no end2end model is loaded")
+        if self.service.end2end is None:
+            raise ModelNotLoaded("no end2end model is loaded")
+        with _load_npz(body) as z:
+            frames = z["frames"]
+            n = frames.shape[0] if frames.ndim else 0
+            centers = (z["centers"].astype(np.float32) if "centers" in z
+                       else np.full((n, 2), 128.0, np.float32))
+            scales = (z["scales"].astype(np.float32) if "scales" in z
+                      else np.full((n,), 256.0 / 200.0, np.float32))
+        if frames.ndim != 4 or frames.shape[1:] != (256, 256, 3):
+            raise ValueError(
+                f"frames must be (N, 256, 256, 3), got {frames.shape}")
+        # Validate every array BEFORE submit(): a malformed request inside
+        # the batcher would fail the whole coalesced batch.
+        if centers.shape != (n, 2):
+            raise ValueError(f"centers must be ({n}, 2), got {centers.shape}")
+        if scales.shape != (n,):
+            raise ValueError(f"scales must be ({n},), got {scales.shape}")
+        if frames.dtype != np.uint8:
+            frames = frames.astype(np.float32)
+        pose2d, pose3d = _submit(self.service.pose_batcher, frames, centers,
+                                 scales)
+        self._send(200, _npz_bytes(pose2d=pose2d, pose3d_mm=pose3d),
+                   "application/x-npz")
 
 
 class PoseHTTPServer:
-    """Serve a LiftingServer over HTTP with dynamic batching and periodic
-    checkpoint hot-reload.
+    """Serve a LiftingServer and/or an End2EndServer over HTTP with dynamic
+    batching and periodic checkpoint hot-reload.
 
-    ``lifting``: the serving.py server. ``reload_every``: seconds between
-    run-dir polls (0 disables the poll thread; POST /admin/reload still
-    works).
+    ``lifting`` / ``end2end``: the serving.py servers; either may be None
+    (its route then answers 404), not both. ``reload_every``: seconds
+    between run-dir polls (0 disables the poll thread; POST /admin/reload
+    still works).
     """
 
     def __init__(
         self,
-        lifting,
+        lifting=None,
+        end2end=None,
         host: str = "127.0.0.1",
         port: int = 0,
         max_delay_ms: float = 2.0,
@@ -386,10 +450,10 @@ class PoseHTTPServer:
         max_body_bytes: int = 256 * 1024 * 1024,
         logger=None,
     ):
-        if lifting is None:
-            raise ValueError("need a lifting server")
+        if lifting is None and end2end is None:
+            raise ValueError("need at least one of lifting/end2end")
         self.lifting = lifting
-        self.end2end = None  # the End2End model is not ported yet
+        self.end2end = end2end
         self.logger = logger
         self.max_body_bytes = max_body_bytes
         self.started = time.time()
@@ -398,12 +462,25 @@ class PoseHTTPServer:
         self._stop_poll = threading.Event()
 
         def lift_fn(kp):
+            if self.lifting is None:
+                raise ModelNotLoaded("no lifting model is loaded")
             mm = self.lifting.lift(kp)
             return (mm.detach().cpu().numpy().astype(np.float32, copy=False),)
+
+        def pose_fn(frames, centers, scales):
+            if self.end2end is None:
+                raise ModelNotLoaded("no end2end model is loaded")
+            p2, p3 = self.end2end.predict(frames, centers, scales)
+            return np.asarray(p2, np.float32), np.asarray(p3, np.float32)
 
         self.lift_batcher = DynamicBatcher(
             lift_fn, n_inputs=1, max_delay_ms=max_delay_ms,
             max_rows=max_rows, max_pending_rows=max_pending_rows,
+        )
+        self.pose_batcher = DynamicBatcher(
+            pose_fn, n_inputs=3, max_delay_ms=max_delay_ms,
+            max_rows=max_rows, max_pending_rows=max_pending_rows,
+            coerce={0: coerce_frames},
         )
 
         handler = type("BoundHandler", (_Handler,), {"service": self})
@@ -415,16 +492,22 @@ class PoseHTTPServer:
         )
         self._poll_thread = None
 
-    def warm(self) -> dict:
-        """Run the lifting forward at every row count on the dispatch grid
-        (multiples of the int8 path's scale group up to this server's
-        max_rows, which a capped dispatch never exceeds), so the kernels are
-        built and loaded before the first request."""
-        top = self.lift_batcher._max_rows
-        grid = list(range(GROUP, top + 1, GROUP))
-        if not grid or grid[-1] != top:
-            grid.append(top)
-        return {"lift_rows": self.lifting.warm(grid)}
+    def warm(self, pose_dtypes=("uint8",)) -> dict:
+        """Build and load the kernels before the first request. Lifting:
+        the forward at every row count on the dispatch grid (multiples of
+        the int8 path's scale group up to this server's max_rows, which a
+        capped dispatch never exceeds). Pose: each End2End batch size per
+        frame dtype of ``pose_dtypes`` ("uint8"/"u8", "float32")."""
+        out = {}
+        if self.lifting is not None:
+            top = self.lift_batcher._max_rows
+            grid = list(range(GROUP, top + 1, GROUP))
+            if not grid or grid[-1] != top:
+                grid.append(top)
+            out["lift_rows"] = self.lifting.warm(grid)
+        if self.end2end is not None:
+            out["pose"] = self.end2end.warm(pose_dtypes)
+        return out
 
     # ------------------------------------------------------------ control
     def start(self) -> None:
@@ -435,14 +518,17 @@ class PoseHTTPServer:
             )
             self._poll_thread.start()
         if self.logger is not None:
-            self.logger.info("serving on http://%s:%d (lift)", self.host,
-                             self.port)
+            self.logger.info(
+                "serving on http://%s:%d (lift=%s, pose=%s)", self.host,
+                self.port, self.lifting is not None,
+                self.end2end is not None)
 
     def stop(self) -> None:
         self._stop_poll.set()
         self._httpd.shutdown()
         self._httpd.server_close()
         self.lift_batcher.stop()
+        self.pose_batcher.stop()
         if self._poll_thread is not None:
             self._poll_thread.join(timeout=5)
 
@@ -475,22 +561,31 @@ class PoseHTTPServer:
                 signal.signal(s, h)
 
     # ------------------------------------------------------------- status
+    def _routes(self):
+        """(route, batcher, served model) of each loaded route."""
+        out = []
+        if self.lifting is not None:
+            out.append(("lift", self.lift_batcher, self.lifting))
+        if self.end2end is not None:
+            out.append(("pose", self.pose_batcher, self.end2end))
+        return out
+
     def health(self) -> dict:
-        return {
+        out = {
             "status": "ok",
             "uptime_s": round(time.time() - self.started, 3),
-            "lift": {
-                "epoch": self.lifting.epoch,
-                "batches": self.lift_batcher.batches_dispatched,
-                "rows": self.lift_batcher.rows_served,
-            },
+            "lift": None,
             "pose": None,
         }
+        for name, b, server in self._routes():
+            out[name] = {"epoch": server.epoch,
+                         "batches": b.batches_dispatched,
+                         "rows": b.rows_served}
+        return out
 
     def metrics_text(self) -> str:
         """Prometheus text exposition (0.0.4) of the daemon's counters."""
-        b, tag = self.lift_batcher, '{route="lift"}'
-        return "\n".join([
+        lines = [
             "# HELP bilinear_uptime_seconds Daemon uptime.",
             "# TYPE bilinear_uptime_seconds gauge",
             f"bilinear_uptime_seconds {time.time() - self.started:.3f}",
@@ -504,30 +599,44 @@ class PoseHTTPServer:
             "# TYPE bilinear_dispatch_seconds_total counter",
             "# HELP bilinear_model_epoch Checkpoint epoch being served.",
             "# TYPE bilinear_model_epoch gauge",
-            f"bilinear_rows_served_total{tag} {b.rows_served}",
-            f"bilinear_batches_total{tag} {b.batches_dispatched}",
-            f"bilinear_rows_rejected_total{tag} {b.rows_rejected}",
-            f"bilinear_dispatch_seconds_total{tag} {b.dispatch_seconds:.6f}",
-            f"bilinear_model_epoch{tag} {self.lifting.epoch}",
-        ]) + "\n"
+        ]
+        for name, b, server in self._routes():
+            tag = f'{{route="{name}"}}'
+            lines += [
+                f"bilinear_rows_served_total{tag} {b.rows_served}",
+                f"bilinear_batches_total{tag} {b.batches_dispatched}",
+                f"bilinear_rows_rejected_total{tag} {b.rows_rejected}",
+                f"bilinear_dispatch_seconds_total{tag} "
+                f"{b.dispatch_seconds:.6f}",
+                f"bilinear_model_epoch{tag} {server.epoch}",
+            ]
+        return "\n".join(lines) + "\n"
 
     # ---------------------------------------------------------- hot reload
     def reload_now(self) -> dict:
-        """Check the run dir for a newer checkpoint; swap if found. The
-        swap is one reference assignment, so in-flight batches finish on
-        the old weights."""
+        """Check the run dir(s) for newer checkpoints; swap where found.
+        Each swap is one reference assignment, so in-flight batches finish
+        on the old weights."""
         with self._reload_lock:
-            reloaded = bool(self.lifting.reload())
-            return {"reloaded": reloaded, "epoch": None,
-                    "lift_epoch": self.lifting.epoch}
+            reloaded = False
+            if self.end2end is not None:
+                reloaded = bool(self.end2end.reload()) or reloaded
+            if self.lifting is not None:
+                reloaded = bool(self.lifting.reload()) or reloaded
+            return {
+                "reloaded": reloaded,
+                "epoch": self.end2end.epoch if self.end2end else None,
+                "lift_epoch": self.lifting.epoch if self.lifting else None,
+            }
 
     def _poll_reload(self) -> None:
         while not self._stop_poll.wait(self._reload_every):
             try:
                 result = self.reload_now()
                 if result["reloaded"] and self.logger is not None:
-                    self.logger.info("hot-reloaded checkpoint lift_epoch=%d",
-                                     result["lift_epoch"])
+                    self.logger.info("hot-reloaded checkpoint %s", " ".join(
+                        f"{k}={result[k]}" for k in ("epoch", "lift_epoch")
+                        if result[k] is not None))
             except Exception as e:  # keep polling through transient errors
                 if self.logger is not None:
                     self.logger.warning("reload poll failed: %s", e)

@@ -133,9 +133,14 @@ def heatmap_loss(out: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return (out - tgt[None]).square().mean(dim=(1, 2, 3, 4)).sum()
 
 
-def step_generator(seed: int, epoch: int, step: int) -> torch.Generator:
-    digest = hashlib.sha256(f"{seed}:{epoch}:{step}".encode()).digest()
-    return torch.Generator().manual_seed(
+def step_generator(seed: int, epoch: int, step: int, stream: str = "",
+                   device=None) -> torch.Generator:
+    """A generator seeded from (seed, epoch, step) and, for a step that
+    draws several independent streams, the stream's name; on the CPU
+    unless ``device`` says otherwise."""
+    key = f"{seed}:{epoch}:{step}" + (f":{stream}" if stream else "")
+    digest = hashlib.sha256(key.encode()).digest()
+    return torch.Generator(device=device or "cpu").manual_seed(
         int.from_bytes(digest[:8], "little") & ((1 << 63) - 1))
 
 
@@ -144,7 +149,7 @@ class TrainState:
     """The model (parameters + BN statistics), the optimizer and the step
     counter (the reference counts from 1)."""
 
-    model: torch.nn.Module  # MainModel or StackedHourglass
+    model: torch.nn.Module  # MainModel, StackedHourglass or End2End
     optimizer: HourglassOptimizer
     step: int = 1
 
@@ -152,8 +157,8 @@ class TrainState:
         """(params, batch_stats, optimizer state) in the JAX package's
         checkpoint layout: ``(EmptyState, TorchRMSpropState(count,
         square_avg))`` as ``{'0': {}, '1': {'count', 'square_avg'}}``, for
-        the model's own variant."""
-        conv = wt.HOURGLASS[self.model.variant]
+        the model's own tree (a detector variant's, or End2End's)."""
+        conv = wt.converters_of(self.model)
         sd = self.model.state_dict()
         params, stats = conv.to_jax(sd)
         named = dict(self.model.named_parameters())
@@ -163,8 +168,7 @@ class TrainState:
             p = named[key]
             v = self.optimizer.square_avg(p)
             v = torch.zeros_like(p) if v is None else v
-            wt.put_leaf(square, path, wt.conv_to_jax(v) if kind == "conv_w"
-                        else v.detach().cpu().numpy().copy())
+            wt.put_leaf(square, path, wt.leaf_to_jax(v, kind))
         opt = {"0": {}, "1": {
             "count": np.asarray(self.optimizer.count, np.int32),
             "square_avg": square}}
@@ -172,7 +176,7 @@ class TrainState:
 
     def restore(self, payload) -> None:
         """Load a ``{epoch}.save`` payload (either package's) in place."""
-        conv = wt.HOURGLASS[self.model.variant]
+        conv = wt.converters_of(self.model)
         params = payload["state"]["params"]
         stats = payload["state"]["batch_stats"]
         self.model.load_state_dict(conv.from_jax(params, stats))
@@ -180,9 +184,7 @@ class TrainState:
         count = int(np.asarray(rms["count"]))
         named = dict(self.model.named_parameters())
         for key, path, kind in conv.param_paths(conv.config_of_jax(params)):
-            leaf = wt.get_leaf(rms["square_avg"], path)
-            v = wt.conv_from_jax(leaf) if kind == "conv_w" else \
-                torch.from_numpy(np.array(leaf, np.float32))
+            v = wt.leaf_from_jax(wt.get_leaf(rms["square_avg"], path), kind)
             self.optimizer.set_square_avg(named[key], v, count)
         self.optimizer.count = count
         self.step = int(payload["step"])

@@ -32,6 +32,22 @@ def _layers() -> Iterator[Tuple[str, str]]:
             yield f"bilinear_{b}_{s}", f"bilinear.{b}.{s}"
 
 
+DENSE_W = "dense_w"  # a Linear weight (out, in), a flax kernel (in, out)
+
+
+def bilinear_param_paths():
+    """(state_dict key, JAX path, kind) of every trained parameter of
+    BilinearUnit, as ``torch7_param_paths``; kind ``dense_w`` is a Linear
+    weight (transposed between the two layouts)."""
+    for ours, theirs in _layers():
+        yield f"{theirs}.0.weight", (ours, "linear", "kernel"), DENSE_W
+        yield f"{theirs}.0.bias", (ours, "linear", "bias"), "plain"
+        yield f"{theirs}.1.weight", (ours, "bn", "scale"), "plain"
+        yield f"{theirs}.1.bias", (ours, "bn", "bias"), "plain"
+    yield "decode.weight", ("decode", "kernel"), DENSE_W
+    yield "decode.bias", ("decode", "bias"), "plain"
+
+
 def _tensor(a) -> torch.Tensor:
     # Copy: the tree may hold read-only or shared numpy buffers.
     return torch.from_numpy(np.array(np.asarray(a)))
@@ -66,39 +82,17 @@ def bilinear_params_to_jax(tensors: Mapping[str, Any]) -> Dict[str, Any]:
     """The trained parameters of a ``state_dict``-keyed mapping (a
     ``state_dict``, or one tensor per parameter such as Adam's moments) ->
     the JAX ``params`` tree (Dense kernels transposed to (in, out))."""
-    sd = tensors
     params: Dict[str, Any] = {}
-    for ours, theirs in _layers():
-        params[ours] = {
-            "linear": {
-                "kernel": _numpy(sd[f"{theirs}.0.weight"]).T.copy(),
-                "bias": _numpy(sd[f"{theirs}.0.bias"]),
-            },
-            "bn": {
-                "scale": _numpy(sd[f"{theirs}.1.weight"]),
-                "bias": _numpy(sd[f"{theirs}.1.bias"]),
-            },
-        }
-    params["decode"] = {
-        "kernel": _numpy(sd["decode.weight"]).T.copy(),
-        "bias": _numpy(sd["decode.bias"]),
-    }
+    for key, path, kind in bilinear_param_paths():
+        put_leaf(params, path, leaf_to_jax(tensors[key], kind))
     return params
 
 
 def bilinear_params_from_jax(params: Mapping[str, Any]
                              ) -> Dict[str, torch.Tensor]:
     """Inverse of ``bilinear_params_to_jax``: {parameter name: tensor}."""
-    out: Dict[str, torch.Tensor] = {}
-    for ours, theirs in _layers():
-        lin, bn = params[ours]["linear"], params[ours]["bn"]
-        out[f"{theirs}.0.weight"] = _tensor(np.asarray(lin["kernel"]).T)
-        out[f"{theirs}.0.bias"] = _tensor(lin["bias"])
-        out[f"{theirs}.1.weight"] = _tensor(bn["scale"])
-        out[f"{theirs}.1.bias"] = _tensor(bn["bias"])
-    out["decode.weight"] = _tensor(np.asarray(params["decode"]["kernel"]).T)
-    out["decode.bias"] = _tensor(params["decode"]["bias"])
-    return out
+    return {key: leaf_from_jax(get_leaf(params, path), kind)
+            for key, path, kind in bilinear_param_paths()}
 
 
 def bilinear_to_jax(state_dict: Mapping[str, Any]):
@@ -501,7 +495,8 @@ def hourglass_preact_to_jax(state_dict: Mapping[str, Any]):
 
 
 class HourglassConverters(NamedTuple):
-    """One detector variant's converters between the two packages."""
+    """One model's converters between the two packages (a detector
+    variant's, or End2End's: ``end2end_converters``)."""
 
     from_jax: Callable
     to_jax: Callable
@@ -520,3 +515,98 @@ HOURGLASS = {
         preact_config_of_jax, preact_config_of_state_dict,
         preact_param_paths),
 }
+
+
+def detector_variant_of_jax(params: Mapping[str, Any]) -> str:
+    """'torch7' or 'preact': which detector a JAX parameter tree holds."""
+    if "htmap_0" in params:
+        return "torch7"
+    if "heatmap_0" in params:
+        return "preact"
+    raise ValueError("the tree is neither detector's (no htmap_0 or "
+                     "heatmap_0)")
+
+
+# ---------------------------------------------------------------------------
+# End2End: the detector's tree under ``hourglass`` and BilinearUnit's under
+# ``bilinear``, on both sides (the JAX module's submodule names and the
+# port's state_dict prefixes). The optimizer holds one RMSprop square_avg
+# per trained parameter of the whole tree.
+# ---------------------------------------------------------------------------
+
+def leaf_to_jax(t, kind: str) -> np.ndarray:
+    """A parameter-shaped tensor (the parameter, or an optimizer moment of
+    it) in the JAX layout of its ``kind``."""
+    if kind == "conv_w":
+        return conv_to_jax(t)
+    if kind == DENSE_W:
+        return _numpy(t).T.copy()
+    return _numpy(t)
+
+
+def leaf_from_jax(leaf, kind: str) -> torch.Tensor:
+    """Inverse of ``leaf_to_jax``, as an f32 tensor (f64 for an f64 leaf,
+    as ``conv_from_jax`` keeps its leaf's type)."""
+    if kind == "conv_w":
+        return conv_from_jax(leaf)
+    a = np.asarray(leaf)
+    a = a if a.dtype == np.float64 else a.astype(np.float32)
+    return _tensor(a.T if kind == DENSE_W else a)
+
+
+def _sub(sd: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
+    return {k[len(prefix):]: v for k, v in sd.items()
+            if k.startswith(prefix)}
+
+
+def end2end_from_jax(params: Mapping[str, Any],
+                     batch_stats: Mapping[str, Any],
+                     variant: str) -> Dict[str, torch.Tensor]:
+    """JAX End2End ``{params, batch_stats}`` (numpy leaves) -> the port's
+    End2End ``state_dict`` (``hourglass.*`` and ``bilinear.*``)."""
+    found = detector_variant_of_jax(params["hourglass"])
+    if found != variant:
+        raise ValueError(f"the tree's detector is {found!r}, not "
+                         f"{variant!r}")
+    sd = {f"hourglass.{k}": v for k, v in HOURGLASS[variant].from_jax(
+        params["hourglass"], batch_stats["hourglass"]).items()}
+    sd.update({f"bilinear.{k}": v for k, v in bilinear_from_jax(
+        params["bilinear"], batch_stats["bilinear"]).items()})
+    return sd
+
+
+def end2end_to_jax(state_dict: Mapping[str, Any], variant: str):
+    """The port's End2End ``state_dict`` -> JAX ``(params, batch_stats)``
+    numpy trees; exact inverse of ``end2end_from_jax``."""
+    hp, hs = HOURGLASS[variant].to_jax(_sub(state_dict, "hourglass."))
+    bp, bs = bilinear_to_jax(_sub(state_dict, "bilinear."))
+    return {"hourglass": hp, "bilinear": bp}, {"hourglass": hs,
+                                               "bilinear": bs}
+
+
+def end2end_converters(variant: str) -> HourglassConverters:
+    """End2End's converters with the ``variant`` detector: the detector's
+    and BilinearUnit's, each under its subtree; ``param_paths`` lists the
+    whole tree's trained parameters (the RMSprop state of both halves)."""
+    det = HOURGLASS[variant]
+
+    def param_paths(cfg):
+        for key, path, kind in det.param_paths(cfg):
+            yield "hourglass." + key, ("hourglass",) + tuple(path), kind
+        for key, path, kind in bilinear_param_paths():
+            yield "bilinear." + key, ("bilinear",) + path, kind
+
+    return HourglassConverters(
+        lambda p, s: end2end_from_jax(p, s, variant),
+        lambda sd: end2end_to_jax(sd, variant),
+        lambda p: det.config_of_jax(p["hourglass"]),
+        lambda sd: det.config_of_state_dict(_sub(sd, "hourglass.")),
+        param_paths)
+
+
+def converters_of(model) -> HourglassConverters:
+    """A port model's converters: End2End's (its ``end2end`` flag) or its
+    detector variant's."""
+    if getattr(model, "end2end", False):
+        return end2end_converters(model.variant)
+    return HOURGLASS[model.variant]

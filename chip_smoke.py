@@ -20,7 +20,9 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    3b. K3 train (output, the six batch statistics and the running
    statistics it updates in place), K3 eval and K4 (g_x and every parameter
    gradient) against res_block_ref / res_block_bwd_ref at every ResModule
-   shape of the full-width detector and a tail batch, in bf16 and f32; and
+   shape of the full-width detector, tail batches and a served End2End
+   batch of one frame (N = 16 at 4x4, and its 64x64 modules), in bf16 and
+   f32; and
    K3 eval and K3 train with running=None under no_grad at three batch-16
    shapes of the evaluation slice (the BN buffers bit-unchanged).
 4. The lifting slice: a synthetic H36M dataset and an epoch-1 checkpoint
@@ -48,9 +50,9 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    the loss must be finite.
 7. Full-width step parity: loss and per-tensor gradients of
    MainModel(fused=True) against MainModel(fused=False) (cuDNN + torch BN)
-   from one state on one batch, f32 and bf16; and each f32 path's
-   gradients against the standard model's in float64 (reported: which
-   path owns the f32 gap).
+   from one state on one batch, f32 and bf16; and each
+   f32 path's gradients against the standard model's in float64
+   (reported: which path owns the f32 gap).
 8. Detector times: K3 train, K3 eval and K4 in bf16 at the eight
    full-width shapes of a training step, by CUDA events and as the sum of
    kernel durations in a torch.profiler trace, with the device kernels per
@@ -93,8 +95,23 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    gated); that an FT step's forward reads nothing from the card on the
    host; and times of the FT step, the recalibration forward and the SH
    export forwards.
+12. The End2End slice, on phase 11's H36M tree: cli.train_end2end
+   --variant torch7 --fused-blocks true at full width in f32,
+   warm-started from phase 6's torch7 2.save and phase 9's lifting
+   checkpoint, then resumed (finite losses; exactly 107 K3-train and 107 K4
+   launches per step, none of K3-eval, K1 or K2); cli.valid_end2end fused
+   (107 K3-eval launches per batch) and standard (none), MPJPE within
+   0.1%, and its error on a run with no checkpoint; cli.webcam --synthetic
+   (4 PNGs, 107 launches per frame); a daemon of End2EndServer (fused,
+   bf16) beside a LiftingServer: hot reload of epoch 2 and /v1/lift
+   through K1, then /v1/pose requests of 1-21 u8, f32 and mixed person
+   frames of the H36M tree through 2.save (against predict, the plain f32
+   path and u8 = f32 / 255; 107 K3-eval launches per chunk; a planted K3
+   fault must fail the same gate); fused vs standard f32 step parity, with
+   float64 beside both and beside the standard model on core/norm.py's BN;
+   and times of the train step, predict and /v1/pose.
 
-Phases run in the order 1-5, 9, 6-8, 10, 11. The line before the last is the kernels' JSON record; the last line is
+Phases run in the order 1-5, 9, 6-8, 10, 11, 12. The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or bilinear_tpu.
 """
 import json
@@ -427,7 +444,8 @@ def check_quantize():
 # Every ResModule shape of the full-width detector at batch 8 (B, H, W, Ci,
 # Co), then tail batches whose row count N = B*H*W is no multiple of the
 # kernels' 128-row tile: a training epoch's last batch runs the hourglass's
-# 4x4 modules at N = 96, one partial tile.
+# 4x4 modules at N = 96, one partial tile; and a served End2End batch of
+# one frame (N = 16 at 4x4).
 RES_SHAPES = (
     (8, 128, 128, 64, 128),   # stem_res1, 1x1 skip
     (8, 64, 64, 128, 128),    # stem_res2
@@ -443,6 +461,8 @@ RES_SHAPES = (
     (5, 8, 8, 256, 256),      # N = 320: two whole tiles and half a tile
     (3, 8, 8, 128, 256),      # N = 192, 1x1 skip
     (1, 10, 20, 64, 128),     # N = 200, 1x1 skip, H != W, Ch = 64
+    (1, 4, 4, 256, 256),      # N = 16: a served End2End batch of 1
+    (1, 64, 64, 256, 256),    # the same batch's largest 256-wide modules
 )
 # Gates of K3/K4 against their plain versions: (mean |d|, max |d|), both
 # relative to mean |ref|. The two sum in another order. f32 forward: ~1e-7
@@ -2553,6 +2573,684 @@ def time_ft(data_dir, work):
     return out
 
 
+# ------------------------------------------------------------ phase 12
+
+# Phase 12 runs on phase 11's H36M tree (24 train frames: 3 steps of 8 per
+# epoch, drop_last; 8 valid frames: one evaluation batch).
+E2E_STEPS = FT_TRAIN // DETECTOR_BATCH
+E2E_VALID_BATCHES = -(-FT_VALID // DETECTOR_BATCH)
+E2E_WEBCAM_FRAMES = 4
+E2E_LR = "2.5e-5"  # a warm start needs it (RMSprop's first ~10 lr sign(g))
+# /v1/pose requests: (frames, frame dtype); the two of MIXED go together.
+POSE_REQUESTS = ((1, "uint8"), (5, "float32"), (8, "uint8"), (16, "float32"),
+                 (21, "uint8"), (21, "float32"), (8, "float32"))
+POSE_MIXED = ((3, "uint8"), (6, "float32"))
+# Served (fused, K3 eval, bf16) against the plain End2End forward (cuDNN)
+# on the same weights and frames. In bf16 the two round at other points
+# through 8 stacks, and the x10 soft-argmax of the heatmaps of a barely
+# trained detector turns that into pixels. So, as phase 7 holds bf16
+# gradients, both bf16 paths are held against the plain path in f32, and
+# the served answers may be at most POSE_BF16_RATIO times as far from it as
+# the plain bf16 ones (median and p90 of the per-joint distance over every
+# frame served): pose2d in pixels, pose3d in mm. A planted K3 fault must
+# fail this gate on the same frames.
+POSE_BF16_RATIO = 1.5
+# Served against End2EndServer.predict called directly (the same kernels,
+# without HTTP and the batcher): rounding of row position only.
+POSE_SELF_GATE = 1e-3
+E2E_VALID_AGREE = 1e-3  # fused vs standard valid MPJPE, relative
+# BN buffers after one f32 step, fused vs standard: the detector's at phase
+# 7's gate; the lifter's BNs average inputs decoded by the x10 soft-argmax
+# from heatmaps that agree to ~1e-6, which moves them more (1.9e-4 at
+# worst over both halves on an NVIDIA H100 80GB HBM3 at 700 W, from halves at
+# random initialisation).
+E2E_BN_GATES = {"hourglass": 1e-4, "bilinear": 1e-3}
+E2E_TIME_STEPS = 5
+POSE_TIME_SIZES = (1, 8, 16)
+POSE_TIME_CALLS = 20
+
+
+def _lift_counts():
+    from bilinear_tpu_torch.ops import lifting as pl
+    from bilinear_tpu_torch.ops import lifting_int8 as pq
+
+    return pl.LAUNCHES, pq.LAUNCHES
+
+
+def drive_e2e_training(work, lift_parameter_dir):
+    """cli.train_end2end --variant torch7 --fused-blocks true at full width
+    in f32 on phase 11's H36M tree, warm-started from phase 6's torch7
+    2.save (under save/Hourglass) and phase 9's lifting 3.save (under
+    save/Bilinear GT), then once more (resume, 2.save): finite losses,
+    exactly 107 K3-train and 107 K4 launches per step, no K3-eval, K1 or
+    K2 launch. Returns (launches, losses)."""
+    import math
+
+    from bilinear_tpu_torch.cli import train_end2end
+    from bilinear_tpu_torch.io.checkpoint import load_checkpoint
+
+    data_dir = os.path.join(work, "Human3.6M")
+    save_root = os.path.join(work, "save")
+    shutil.copytree(os.path.join(save_root, "smoke", "parameter"),
+                    os.path.join(save_root, "Hourglass", "parameter"))
+    shutil.copytree(lift_parameter_dir,
+                    os.path.join(save_root, "Bilinear GT", "parameter"))
+    argv = ["--data-dir", data_dir, "--save-root", save_root, "--variant",
+            "torch7", "--fused-blocks", "true", "--learning-rate", E2E_LR,
+            "--batch-size", str(DETECTOR_BATCH), "--seed", str(SEED),
+            "--epochs-per-run", "1"]
+    run_dir = os.path.join(save_root, "End2End")
+    launches = {k: 0 for k in _res_counts()}
+    for invocation in (1, 2):
+        _zero_res_counts()
+        lift_before = _lift_counts()
+        t0 = time.perf_counter()
+        run_cli(train_end2end.main, argv)
+        count = _res_counts()
+        log(f"  cli.train_end2end invocation {invocation}: {E2E_STEPS} "
+            f"steps of {DETECTOR_BATCH}, f32, fused, full width: "
+            f"{time.perf_counter() - t0:.1f} s; launches {count}")
+        want = {"resmodule_fwd_train": RES_PER_FORWARD * E2E_STEPS,
+                "resmodule_bwd": RES_PER_FORWARD * E2E_STEPS,
+                "resmodule_fwd_eval": 0}
+        if count != want:
+            raise AssertionError(f"launches {count}, expected {want}")
+        if _lift_counts() != lift_before:
+            raise AssertionError("End2End training launched K1/K2")
+        for k, v in count.items():
+            launches[k] += v
+    with open(os.path.join(run_dir, "debug.log")) as f:
+        text = f.read()
+    for half, run in (("hourglass", "Hourglass"),
+                      ("bilinear", "Bilinear GT")):
+        if f"Warm-started {half} from {os.path.join(save_root, run)}" \
+                not in text:
+            raise AssertionError(f"the {half} half was not warm-started")
+    if f"Resumed from epoch 1 (step {E2E_STEPS + 1})" not in text:
+        raise AssertionError("the second invocation did not resume")
+    lines = [ln.split(" > ", 1)[-1] for ln in text.splitlines()
+             if " saved (loss " in ln]
+    losses = [float(ln.split("(loss ")[1].split(" ")[0]) for ln in lines]
+    log("  " + "; ".join(lines))
+    if len(losses) != 2 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"End2End losses {losses}")
+    payload = load_checkpoint(os.path.join(run_dir, "parameter"), 2)
+    count = int(payload["optimizer"]["1"]["count"])
+    log(f"  both halves warm-started, resumed; 2.save: step "
+        f"{payload['step']}, RMSprop count {count}")
+    if payload["step"] != 2 * E2E_STEPS + 1 or count != 2 * E2E_STEPS:
+        raise AssertionError("2.save's counters are not 2 epochs of "
+                             f"{E2E_STEPS} steps")
+    return launches, losses
+
+
+def drive_e2e_eval(work):
+    """cli.valid_end2end on the End2End 2.save with --fused-blocks true
+    (exactly 107 K3-eval launches per batch) and false (none), MPJPE within
+    E2E_VALID_AGREE of each other; the CLI on a run with no checkpoint must
+    stop with its error; cli.webcam --synthetic --frames 4 writes 4 PNGs
+    (107 K3-eval launches per frame). Returns (launches, record)."""
+    import math
+
+    from bilinear_tpu_torch.cli import valid_end2end, webcam
+
+    data_dir = os.path.join(work, "Human3.6M")
+    save_root = os.path.join(work, "save")
+    argv = ["--data-dir", data_dir, "--save-root", save_root, "--variant",
+            "torch7", "--batch-size", str(DETECTOR_BATCH), "--seed",
+            str(SEED)]
+    mpjpe, launches = {}, {k: 0 for k in _res_counts()}
+    for fused in ("true", "false"):
+        _zero_res_counts()
+        t0 = time.perf_counter()
+        run_cli(valid_end2end.main, argv + ["--fused-blocks", fused])
+        count = _res_counts()
+        with open(os.path.join(save_root, "End2End",
+                               "mpjpe_e2e_epoch2.json")) as f:
+            mpjpe[fused] = json.load(f)["overall"]
+        log(f"  cli.valid_end2end --fused-blocks {fused}: "
+            f"{time.perf_counter() - t0:.1f} s; MPJPE {mpjpe[fused]!r} mm; "
+            f"launches {count}")
+        want = {"resmodule_fwd_train": 0, "resmodule_bwd": 0,
+                "resmodule_fwd_eval": RES_PER_FORWARD * E2E_VALID_BATCHES
+                if fused == "true" else 0}
+        if count != want:
+            raise AssertionError(f"launches {count}, expected {want}")
+        if not math.isfinite(mpjpe[fused]):
+            raise AssertionError("the End2End MPJPE is not finite")
+        if fused == "true":
+            launches = count
+    rel = abs(mpjpe["true"] - mpjpe["false"]) / mpjpe["false"]
+    log(f"  valid MPJPE fused vs standard: rel {rel:.2e} (gate "
+        f"{E2E_VALID_AGREE})")
+    if rel > E2E_VALID_AGREE:
+        raise AssertionError("fused and standard End2End MPJPE disagree")
+
+    try:
+        run_cli(valid_end2end.main, argv + ["--comment", "no checkpoint"])
+    except SystemExit as e:
+        if "no checkpoint under" not in str(e):
+            raise
+        log(f"  cli.valid_end2end on a run with no checkpoint stopped: {e}")
+    else:
+        raise AssertionError("valid_end2end evaluated a run with no "
+                             "checkpoint")
+
+    out_dir = os.path.join(work, "webcam")
+    _zero_res_counts()
+    t0 = time.perf_counter()
+    run_cli(webcam.main, ["--synthetic", "--frames", str(E2E_WEBCAM_FRAMES),
+                          "--out-dir", out_dir, "--save-root", save_root,
+                          "--variant", "torch7"])
+    count = _res_counts()
+    pngs = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+    log(f"  cli.webcam --synthetic --frames {E2E_WEBCAM_FRAMES}: "
+        f"{time.perf_counter() - t0:.1f} s; {len(pngs)} PNGs; launches "
+        f"{count}")
+    if len(pngs) != E2E_WEBCAM_FRAMES:
+        raise AssertionError(f"webcam wrote {pngs}")
+    if count["resmodule_fwd_eval"] != RES_PER_FORWARD * E2E_WEBCAM_FRAMES:
+        raise AssertionError(f"webcam launches {count}")
+    launches["resmodule_fwd_eval"] += count["resmodule_fwd_eval"]
+    return launches, {"mpjpe_fused": mpjpe["true"],
+                      "mpjpe_standard": mpjpe["false"], "mpjpe_rel": rel}
+
+
+def _pose_frames(n, seed):
+    import numpy as np
+
+    return np.random.RandomState(seed).randint(0, 256, (n, 256, 256, 3),
+                                               dtype=np.uint8)
+
+
+def _pose_dist(got, ref):
+    """Per-joint distances between two (N, 16, d) arrays, flat."""
+    import numpy as np
+
+    return np.linalg.norm(np.asarray(got, np.float64)
+                          - np.asarray(ref, np.float64), axis=-1).ravel()
+
+
+def _pose_gap(got, ref):
+    """(median, max) of the per-joint distance between two (N, 16, d)
+    arrays."""
+    import numpy as np
+
+    d = _pose_dist(got, ref)
+    return float(np.median(d)), float(d.max())
+
+
+def _tree_frames(data_dir, dev):
+    """The H36M tree's images (both splits) cropped to their boxes by the
+    port's eval crop, as (N, 256, 256, 3) u8 person frames: what a client
+    of /v1/pose sends."""
+    import numpy as np
+    import torch
+    from bilinear_tpu_torch.data.h36m import Task, load_h36m
+    from bilinear_tpu_torch.data.h36m_images import H36MImageRecords
+    from bilinear_tpu_torch.data.pipeline import MPIIHostPipeline
+    from bilinear_tpu_torch.train import hourglass as th
+
+    splits = load_h36m(data_dir)
+    out = []
+    for task in (Task.Train, Task.Valid):
+        pipe = MPIIHostPipeline(H36MImageRecords(splits[task], data_dir),
+                                DETECTOR_BATCH, transport="u8")
+        for batch in pipe.epoch(1, prefetch=0):
+            b = th.batch_tensors(batch, dev)
+            crops = th.preprocess_batch(b["images"], b["centers"],
+                                        b["scales"], b["keypoints"],
+                                        b["valid"], None)[0]
+            u8 = (crops * 255.0).round().clamp(0, 255).to(torch.uint8)
+            out.append(u8.cpu().numpy()[np.asarray(batch.index) >= 0])
+    return np.concatenate(out)
+
+
+def _swapped_bn_stats(real):
+    """K3 eval's wrapper with a planted fault: the second and third BNs'
+    running statistics swapped (the same shapes in every ResModule)."""
+    def faulty(x4d, p, stats, **kw):
+        return real(x4d, p, stats._replace(m2=stats.m3, v2=stats.v3,
+                                           m3=stats.m2, v3=stats.v2), **kw)
+    return faulty
+
+
+def drive_e2e_serving(work):
+    """A daemon of End2EndServer.from_run_dir(..., model_kw={"fused":
+    True}) in bf16 with a LiftingServer beside it (--kind both), serving
+    the End2End 1.save. Epoch 2 hot-reloads through /admin/reload (the
+    answers change) and /v1/lift still answers through K1. Then /v1/pose
+    requests of 1-21 person frames of the H36M tree (its images cropped to
+    their boxes) in u8 and f32, two of them (u8 and f32) in one coalesced
+    batch, through the trained 2.save. Each answer against (a)
+    End2EndServer.predict on the same frames called directly
+    (POSE_SELF_GATE), (b) the plain End2End forward (fused=False) in f32 on
+    the same weights, no farther than the plain bf16 forward's answers
+    (POSE_BF16_RATIO), (c) a u8 request against the f32 request of the
+    same frames / 255 (equal bits). Exactly 107 K3-eval launches per
+    dispatched chunk. A control: the same frames through K3 eval with a
+    planted fault (_swapped_bn_stats) must fail gate (b). Returns
+    (launches, K1 launches, record)."""
+    import numpy as np
+    import torch
+    from bilinear_tpu_torch.client import PoseClient
+    from bilinear_tpu_torch.data.h36m import Task, load_h36m
+    from bilinear_tpu_torch.ops import resmodule as rk
+    from bilinear_tpu_torch.serving import End2EndServer, LiftingServer
+    from bilinear_tpu_torch.serving_http import PoseHTTPServer
+
+    save_root = os.path.join(work, "save")
+    data_dir = os.path.join(work, "Human3.6M")
+    train = load_h36m(data_dir)[Task.Train]
+    tree = _tree_frames(data_dir, torch.device("cuda"))
+
+    def frames_of(n, start, dt):
+        u8 = np.take(tree, np.arange(start, start + n) % len(tree), axis=0)
+        return u8 if dt == "uint8" else u8.astype(np.float32) / \
+            np.float32(255.0)
+
+    serve_dir = os.path.join(work, "serve_e2e")
+    src = os.path.join(save_root, "End2End", "parameter")
+    os.makedirs(os.path.join(serve_dir, "parameter"))
+    shutil.copy(os.path.join(src, "1.save"),
+                os.path.join(serve_dir, "parameter"))
+    e2e = End2EndServer.from_run_dir(serve_dir, train, variant="torch7",
+                                     model_kw={"fused": True},
+                                     dtype=torch.bfloat16)
+    lifting, _ = LiftingServer.from_run_dir(
+        os.path.join(save_root, "Bilinear GT"), train, dtype=torch.bfloat16)
+    sizes = []
+    real_predict = e2e.predict
+
+    def predict(frames, centers=None, scales=None):
+        sizes.append(len(frames))
+        return real_predict(frames, centers, scales)
+
+    e2e.predict = predict
+    http = PoseHTTPServer(lifting=lifting, end2end=e2e, max_delay_ms=300.0,
+                          max_rows=64)
+    warmed = http.warm(("uint8", "float32"))
+    log(f"  warmed {warmed}; {len(tree)} person frames of the H36M tree")
+    http.start()
+    record = {"requests": [], "self_max": 0.0}
+    dist = {k: [] for k in ("served_2d", "plain_2d", "fault_2d",
+                            "served_3d", "plain_3d", "fault_3d")}
+    try:
+        client = PoseClient(f"http://{http.host}:{http.port}")
+        probe = frames_of(5, 0, "uint8")
+        before = client.pose(probe)
+        k1 = _lift_counts()[0]
+        kp = 500.0 + 100.0 * np.random.RandomState(SEED + 71).randn(
+            4, 16, 2).astype(np.float32)
+        lift_before = client.lift(kp)
+        shutil.copy(os.path.join(src, "2.save"),
+                    os.path.join(serve_dir, "parameter"))
+        reloaded = client.reload()
+        after = client.pose(probe)
+        lift_after = client.lift(kp)
+        k1 = _lift_counts()[0] - k1
+        health = client.health()
+        log(f"  /admin/reload: {reloaded}; health {health}; {k1} K1 "
+            f"launches for /v1/lift")
+        if not reloaded["reloaded"] or reloaded["epoch"] != 2 or \
+                health["pose"]["epoch"] != 2:
+            raise AssertionError("epoch 2 was not hot-reloaded")
+        if np.array_equal(after[1], before[1]):
+            raise AssertionError("the answers did not change with epoch 2")
+        if k1 != 2 or not np.array_equal(lift_before, lift_after):
+            raise AssertionError("/v1/lift did not answer through K1")
+        record["reloaded"] = reloaded
+
+        plain = End2EndServer.from_run_dir(serve_dir, train,
+                                           variant="torch7",
+                                           dtype=torch.bfloat16)
+        plain32 = End2EndServer.from_run_dir(serve_dir, train,
+                                             variant="torch7",
+                                             dtype=torch.float32)
+        if not plain.epoch == plain32.epoch == 2:
+            raise AssertionError("the plain servers did not load 2.save")
+        sizes.clear()
+        _zero_res_counts()
+        answers = {}
+        for i, (n, dt) in enumerate(POSE_REQUESTS):
+            frames = frames_of(n, 3 * i, dt)
+            answers[i] = (frames, client.pose(frames))
+        mixed = {}
+
+        def ask(j, n, dt):
+            frames = frames_of(n, 5 + 7 * j, dt)
+            mixed[j] = (frames, client.pose(frames))
+
+        threads = [threading.Thread(target=ask, args=(j, n, dt))
+                   for j, (n, dt) in enumerate(POSE_MIXED)]
+        batches_before = http.pose_batcher.batches_dispatched
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        coalesced = http.pose_batcher.batches_dispatched - batches_before
+        count = _res_counts()
+        chunks = sum(len(e2e._chunks(n)) for n in sizes)
+        log(f"  {len(POSE_REQUESTS) + len(POSE_MIXED)} /v1/pose requests in "
+            f"{len(sizes)} dispatches of {sizes} frames ({chunks} chunks of "
+            f"{e2e.batch_sizes}); the mixed u8/f32 pair in {coalesced} "
+            f"dispatch; launches {count}")
+        if coalesced != 1:
+            raise AssertionError("the mixed u8/f32 pair was not coalesced")
+        want = {"resmodule_fwd_train": 0, "resmodule_bwd": 0,
+                "resmodule_fwd_eval": RES_PER_FORWARD * chunks}
+        if count != want:
+            raise AssertionError(f"launches {count}, expected {want}")
+        launches = count
+
+        failed = []
+        real_eval = rk.res_block_eval
+        for label, (frames, (p2, p3)) in list(
+                (f"request {i} {POSE_REQUESTS[i]}", a)
+                for i, a in answers.items()) + list(
+                (f"mixed {POSE_MIXED[j]}", a) for j, a in mixed.items()):
+            n = len(frames)
+            if p2.shape != (n, 16, 2) or p3.shape != (n, 16, 3) or not (
+                    np.isfinite(p2).all() and np.isfinite(p3).all()):
+                raise AssertionError(f"{label}: {p2.shape} {p3.shape}")
+            d2, d3 = real_predict(frames)
+            self_gap = max(float(np.abs(p2 - d2).max() /
+                                 max(np.abs(d2).max(), 1.0)),
+                           float(np.abs(p3 - d3).max() /
+                                 max(np.abs(d3).max(), 1.0)))
+            b2, b3 = plain.predict(frames)
+            r2, r3 = plain32.predict(frames)
+            rk.res_block_eval = _swapped_bn_stats(real_eval)
+            try:
+                f2, f3 = real_predict(frames)
+            finally:
+                rk.res_block_eval = real_eval
+            for key, got, ref in (("served_2d", p2, r2), ("plain_2d", b2, r2),
+                                  ("fault_2d", f2, r2),
+                                  ("served_3d", p3, r3), ("plain_3d", b3, r3),
+                                  ("fault_3d", f3, r3)):
+                dist[key].append(_pose_dist(got, ref))
+            g2, g3 = _pose_gap(p2, r2), _pose_gap(p3, r3)
+            record["requests"].append({"label": label, "self_rel": self_gap,
+                                       "pose2d_px_vs_f32": g2,
+                                       "pose3d_mm_vs_f32": g3})
+            record["self_max"] = max(record["self_max"], self_gap)
+            log(f"  {label}: vs predict {self_gap:.1e}; vs the plain f32 "
+                f"path pose2d px median {g2[0]:.3f} max {g2[1]:.3f}, pose3d "
+                f"mm median {g3[0]:.3f} max {g3[1]:.3f}")
+            if self_gap > POSE_SELF_GATE:
+                failed.append(f"{label}: {self_gap} from predict")
+        for what in ("2d", "3d"):
+            q = {k: np.percentile(np.concatenate(dist[f"{k}_{what}"]),
+                                  (50, 90)) for k in ("served", "plain",
+                                                      "fault")}
+            record[f"pose{what}_vs_f32"] = {k: list(map(float, v))
+                                            for k, v in q.items()}
+            log(f"  pose{what} against the plain f32 path over every frame: "
+                f"served (fused bf16) median {q['served'][0]:.3f} p90 "
+                f"{q['served'][1]:.3f}; plain bf16 median {q['plain'][0]:.3f}"
+                f" p90 {q['plain'][1]:.3f} (gate {POSE_BF16_RATIO}x); "
+                f"planted K3 fault median {q['fault'][0]:.3f} p90 "
+                f"{q['fault'][1]:.3f}")
+            if (q["served"] > POSE_BF16_RATIO * q["plain"]).any():
+                failed.append(f"pose{what}: the served answers are farther "
+                              f"from the f32 plain path than "
+                              f"{POSE_BF16_RATIO}x the plain bf16 ones")
+            record[f"fault_caught_{what}"] = bool(
+                (q["fault"] > POSE_BF16_RATIO * q["plain"]).any())
+        if not (record["fault_caught_2d"] or record["fault_caught_3d"]):
+            failed.append("the planted K3 fault passes the served gate")
+        u8 = frames_of(5, 11, "uint8")
+        a = client.pose(u8)
+        b = client.pose(u8.astype(np.float32) / np.float32(255.0))
+        same = all(np.array_equal(x, y) for x, y in zip(a, b))
+        log(f"  u8 frames vs the same frames as f32 / 255: equal bits "
+            f"{same}")
+        if not same:
+            failed.append("u8 and f32/255 frames answer differently")
+        if failed:
+            raise AssertionError("; ".join(failed))
+    finally:
+        http.stop()
+    return launches, k1, record
+
+
+def e2e_parity(work):
+    """End2End(fused=True) against End2End(fused=False) at full width in
+    f32, train mode, from one state (the End2End 2.save) on one batch with
+    the same dropout masks: the loss, per-tensor gradients (median and p99
+    of |g_f - g_s| / |g_s|) and the BN buffers after the step, with phase
+    7's gates (the median and p90 of PARITY_F32, the p99 reported). Both
+    are also held against the standard model in float64 on the same state
+    and batch (reported), and so is the standard model with core/norm.py's
+    BN formulation (the one the torch7 detector takes on the CPU) in place
+    of torch's own (cuDNN) on every detector BN: the measurement that keeps
+    torch's BN on the card."""
+    import torch
+    from bilinear_tpu_torch.data.h36m import Task, load_h36m
+    from bilinear_tpu_torch.io.checkpoint import load_checkpoint
+    from bilinear_tpu_torch.models import hourglass_torch7 as ht
+    from bilinear_tpu_torch.train import end2end as te
+    from bilinear_tpu_torch.train import hourglass as th
+
+    dev = torch.device("cuda")
+    data_dir = os.path.join(work, "Human3.6M")
+    train = load_h36m(data_dir)[Task.Train]
+    payload = load_checkpoint(os.path.join(work, "save", "End2End",
+                                           "parameter"), 2)
+    b, batch = _e2e_batch(data_dir, dev)
+    grads, losses, buffers = {}, {}, {}
+    shift_only = set()
+    for fused, dtype in ((True, torch.float32), (False, torch.float32),
+                         ("core_bn", torch.float32),
+                         ("f64", torch.float64)):
+        trainer = te.End2EndTrainer(variant="torch7", device=dev,
+                                    dtype=dtype,
+                                    model_kw={"fused": fused is True})
+        state = trainer.init_state(SEED)
+        state.model.to(dtype)
+        state.restore(payload)
+        model = state.model.train()
+        shift_only = {f"hourglass.{m}.bias" for m, mod in
+                      model.hourglass.named_modules()
+                      if isinstance(mod, torch.nn.Conv2d)
+                      and not m.startswith("htmapArray.")} | {
+            f"bilinear.{m}.0.bias" for m, mod in
+            model.bilinear.named_modules()
+            if isinstance(mod, torch.nn.Sequential)}
+        aug = te.sample_augment(SEED, 1, 1, DETECTOR_BATCH, dev)
+        stats = tuple(torch.as_tensor(a, device=dev) for a in
+                      (train.mean_part, train.std_part))
+        crops, targets, _ = th.preprocess_batch(
+            b["images"], b["centers"], b["scales"], b["keypoints"],
+            b["valid"], th.Augment(aug.geometry, aug.jitter))
+        bn_in = ht.bn_in
+        if fused == "core_bn":
+            ht.bn_in = lambda bn, x, dt: bn(x.float()).to(dt)
+        try:
+            heatmaps, _, pose3d = model(
+                crops, b["decode_centers"],
+                b["decode_scales"] * aug.geometry.scale_factor.to(dev),
+                *stats, aug.dropout)
+            loss = te.e2e_loss(heatmaps, pose3d, targets[:, trainer.remap],
+                               b["s_norm"], 1.0)[0]
+            loss.backward()
+        finally:
+            ht.bn_in = bn_in
+        losses[fused] = float(loss.detach())
+        grads[fused] = {k: p.grad.detach().clone()
+                        for k, p in model.named_parameters()
+                        if p.grad is not None}
+        buffers[fused] = {k: v.detach().clone()
+                          for k, v in model.named_buffers()}
+        del trainer, state, model, loss
+        torch.cuda.empty_cache()
+    worst = {"hourglass": (0.0, ""), "bilinear": (0.0, "")}
+    for k, ref in buffers[False].items():
+        got = buffers[True][k]
+        if k.endswith("num_batches_tracked"):
+            if int(got) != int(ref):
+                raise AssertionError(f"{k}: {int(got)} fused, {int(ref)} "
+                                     f"standard")
+        else:
+            half = k.split(".")[0]
+            worst[half] = max(worst[half], (float(
+                ((got - ref).abs() / ref.abs().clamp_min(1e-2)).max()), k))
+    gated = [k for k in grads[False] if k not in shift_only]
+    rel = _rel_errors(grads[True], grads[False], gated)
+    q = _quantiles(rel)
+    p99 = rel[int(0.99 * (len(rel) - 1))][0]
+    dloss = abs(losses[True] - losses[False]) / abs(losses[False])
+    exact = {path: _quantiles(_rel_errors(
+        {k: g.double() for k, g in grads[path].items()},
+        grads["f64"], gated)) for path in (True, False, "core_bn")}
+    log(f"  f32 train step from the End2End 2.save: loss fused "
+        f"{losses[True]!r} standard {losses[False]!r} float64 "
+        f"{losses['f64']!r} (fused vs standard rel {dloss:.2e}); "
+        f"|g_f - g_s|/|g_s| over {len(rel)} tensors: median {q[0.5]:.2e}, "
+        f"p90 {q[0.9]:.2e}, p99 {p99:.2e}, max {rel[-1][0]:.2e} "
+        f"({rel[-1][1]}); against float64: fused median "
+        f"{exact[True][0.5]:.2e} p90 {exact[True][0.9]:.2e}, standard "
+        f"median {exact[False][0.5]:.2e} p90 {exact[False][0.9]:.2e}, "
+        f"standard with core/norm.py's BN median "
+        f"{exact['core_bn'][0.5]:.2e} p90 {exact['core_bn'][0.9]:.2e}; "
+        f"{len(shift_only)} biases whose shift a BN removes not gated; BN "
+        f"buffers max rel diff: detector {worst['hourglass']}, lifter "
+        f"{worst['bilinear']} (gates {E2E_BN_GATES})")
+    g_loss, g_med, g_p90 = PARITY_F32
+    if not (dloss <= g_loss and q[0.5] <= g_med and q[0.9] <= g_p90):
+        raise AssertionError(f"End2End f32 parity out of {PARITY_F32}")
+    for half, gate in E2E_BN_GATES.items():
+        if worst[half][0] > gate:
+            raise AssertionError(f"the fused path's {half} running "
+                                 f"statistics disagree: {worst[half]}")
+    return {"loss_rel": dloss, "grad_rel_median": q[0.5],
+            "grad_rel_p90": q[0.9], "grad_rel_p99": p99,
+            "grad_rel_max": rel[-1][0],
+            "vs_float64": {"fused": exact[True], "standard": exact[False],
+                           "standard_core_bn": exact["core_bn"]},
+            "bn_buffers_max_rel": {k: v[0] for k, v in worst.items()}}
+
+
+def _e2e_batch(data_dir, dev):
+    """One H36M batch of 8 with its s_norm rows and original-space boxes,
+    as the End2End trainer takes it."""
+    from bilinear_tpu_torch.data.h36m import Task, load_h36m
+    from bilinear_tpu_torch.data.h36m_images import H36MImageRecords
+    from bilinear_tpu_torch.data.pipeline import MPIIHostPipeline
+    from bilinear_tpu_torch.train import end2end as te
+
+    train = load_h36m(data_dir)[Task.Train]
+    pipe = MPIIHostPipeline(H36MImageRecords(train, data_dir),
+                            DETECTOR_BATCH, shuffle=True, seed=SEED,
+                            drop_last=True, transport="u8")
+    batch = next(iter(pipe.epoch(1, prefetch=0)))
+    return te.End2EndTrainer(device=dev).batch_tensors(
+        batch, train.s, train.centers, train.scales), batch
+
+
+def time_e2e(work, http_sizes=POSE_TIME_SIZES):
+    """Measurements of phase 12, no gate: the End2End train step (batch 8,
+    full width, fused and standard, f32 and bf16: ms/step, img/s,
+    device-busy ms and device kernels per step from a trace);
+    End2EndServer.predict at 1, 8 and 16 u8 frames (bf16, fused and
+    standard: ms and frames/s); and the wall p50 of /v1/pose at 1, 8 and
+    16 frames (one request at a time, fused)."""
+    import numpy as np
+    import torch
+    from bilinear_tpu_torch.client import PoseClient
+    from bilinear_tpu_torch.data.h36m import Task, load_h36m
+    from bilinear_tpu_torch.serving import End2EndServer
+    from bilinear_tpu_torch.serving_http import PoseHTTPServer
+    from bilinear_tpu_torch.train import end2end as te
+
+    dev = torch.device("cuda")
+    data_dir = os.path.join(work, "Human3.6M")
+    train = load_h36m(data_dir)[Task.Train]
+    stats = tuple(torch.as_tensor(a, device=dev) for a in
+                  (train.mean_part, train.std_part))
+    b, _ = _e2e_batch(data_dir, dev)
+    out = {"train_step": {}, "predict": {}, "pose_http_p50_ms": {}}
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        for fused in (True, False):
+            trainer = te.End2EndTrainer(variant="torch7", dtype=dtype,
+                                        device=dev,
+                                        model_kw={"fused": fused})
+            state = trainer.init_state(SEED)
+            aug = te.sample_augment(SEED, 1, 1, DETECTOR_BATCH, dev)
+
+            def step():
+                trainer.train_step(state, b, stats, aug)
+
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(E2E_TIME_STEPS):
+                step()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / E2E_TIME_STEPS
+            busy, kernels, top = _device_time(step)
+            label = f"{'fused' if fused else 'standard'}_{dname}"
+            out["train_step"][label] = {
+                "ms_per_step": ms, "img_per_s": DETECTOR_BATCH * 1e3 / ms,
+                "device_ms_per_step": busy,
+                "device_kernels_per_step": kernels,
+                "device_idle_share": max(0.0, 1 - busy / ms),
+                "device_top": top}
+            log(f"  End2End train step {label}: {ms:.2f} ms/step, "
+                f"{DETECTOR_BATCH * 1e3 / ms:.1f} img/s (batch "
+                f"{DETECTOR_BATCH}, full width); device busy {busy:.2f} "
+                f"ms/step in {kernels:.0f} device kernels (idle "
+                f"{100 * max(0.0, 1 - busy / ms):.0f}%); top ms/step: "
+                + ", ".join(f"{k} {v:.2f}" for k, v in top))
+            del trainer, state
+            torch.cuda.empty_cache()
+
+    serve_dir = os.path.join(work, "serve_e2e")
+    servers = {}
+    for fused in (True, False):
+        label = "fused" if fused else "standard"
+        servers[label] = End2EndServer.from_run_dir(
+            serve_dir, train, variant="torch7", model_kw={"fused": fused},
+            dtype=torch.bfloat16)
+        row = {}
+        for n in POSE_TIME_SIZES:
+            frames = _pose_frames(n, SEED + 90)
+            for _ in range(3):
+                servers[label].predict(frames)
+            t0 = time.perf_counter()
+            for _ in range(POSE_TIME_CALLS):
+                servers[label].predict(frames)
+            ms = (time.perf_counter() - t0) * 1e3 / POSE_TIME_CALLS
+            row[n] = {"ms": ms, "frames_per_s": n * 1e3 / ms}
+        out["predict"][label] = row
+        log(f"  End2EndServer.predict {label}, bf16, u8 frames: " + ", ".join(
+            f"{n} frames {r['ms']:.2f} ms ({r['frames_per_s']:.1f} "
+            f"frames/s)" for n, r in row.items()))
+    http = PoseHTTPServer(end2end=servers["fused"], max_delay_ms=0)
+    http.start()
+    try:
+        client = PoseClient(f"http://{http.host}:{http.port}")
+        for n in http_sizes:
+            frames = _pose_frames(n, SEED + 91)
+            for _ in range(3):
+                client.pose(frames)
+            secs = []
+            for _ in range(POSE_TIME_CALLS):
+                t0 = time.perf_counter()
+                client.pose(frames)
+                secs.append(time.perf_counter() - t0)
+            out["pose_http_p50_ms"][n] = float(np.percentile(secs, 50)) * 1e3
+    finally:
+        http.stop()
+    log("  /v1/pose wall p50 (fused, bf16, u8, one request at a time): "
+        + ", ".join(f"{n} frames {v:.2f} ms"
+                    for n, v in out["pose_http_p50_ms"].items()))
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 SOURCES = {
@@ -2620,6 +3318,17 @@ def run() -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    keep = tempfile.mkdtemp(prefix="chip_smoke_keep_")
+    try:
+        return _run_after_phase5(card, keep, errs, launches, table,
+                                 end_to_end)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+
+
+def _run_after_phase5(card, keep, errs, launches, table, end_to_end):
+    """Phases 9, 6-8, 10, 11 and 12, and the kernels' record; ``keep``
+    holds phase 9's lifting checkpoint for phase 12."""
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         # phase 9: training lifting
@@ -2627,6 +3336,9 @@ def run() -> dict:
             "cli.train_bilinear, validating and serving it")
         lift_launches, lift_mpjpe, lift_served, lift_losses = \
             drive_lifting_training(work)
+        lift_parameter_dir = os.path.join(keep, "lift_parameter")
+        shutil.copytree(os.path.join(work, "save", "lift", "parameter"),
+                        lift_parameter_dir)
         log(f"phase 9: lifting training times on {card}")
         lift_times = time_lifting_training()
     finally:
@@ -2663,6 +3375,20 @@ def run() -> dict:
         ft_result["parity_vs_float64"] = ft_parity(h36m_dir)
         log(f"phase 11: fine-tuning and SH conversion times on {card}")
         ft_result["times"] = time_ft(h36m_dir, work)
+        # phase 12: End2End
+        log("phase 12: training End2End (torch7, fused) through "
+            "cli.train_end2end, evaluating it, the webcam demo, serving "
+            "/v1/pose")
+        e2e_train_launches, e2e_losses = drive_e2e_training(
+            work, lift_parameter_dir)
+        e2e_eval_launches, e2e_eval = drive_e2e_eval(work)
+        e2e_serve_launches, e2e_k1, e2e_serving = drive_e2e_serving(work)
+        log("phase 12: End2End step parity, fused vs standard, f32")
+        e2e_result = {"losses": e2e_losses, "evaluation": e2e_eval,
+                      "serving": e2e_serving,
+                      "step_parity_f32": e2e_parity(work)}
+        log(f"phase 12: End2End times on {card}")
+        e2e_result["times"] = time_e2e(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2670,11 +3396,18 @@ def run() -> dict:
                for name in SOURCES if not name.startswith("resmodule")}
     for name, n in lift_launches.items():
         by_path[name]["phase9_serving_the_trained_model"] = n
+    by_path["lifting_bf16"]["phase12_lift_beside_pose"] = e2e_k1
     for name in SOURCES:
         if name.startswith("resmodule"):
             by_path[name] = {"phase6_training": launches[name],
                              "phase10_evaluation": eval_launches[name],
-                             "phase11_sh_export": sh_launches[name]}
+                             "phase11_sh_export": sh_launches[name],
+                             "phase12_end2end_training":
+                                 e2e_train_launches[name],
+                             "phase12_end2end_evaluation":
+                                 e2e_eval_launches[name],
+                             "phase12_end2end_serving":
+                                 e2e_serve_launches[name]}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         if name.startswith("resmodule"):
@@ -2724,6 +3457,7 @@ def run() -> dict:
         "recalibrated_stats_max_rel_diff": eval_parity,
         "times": eval_times}}))
     log(json.dumps({"fine_tuning_and_sh": ft_result}))
+    log(json.dumps({"end2end": e2e_result}))
     return {"kernels": kernels, "card": card}
 
 

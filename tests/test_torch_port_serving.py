@@ -21,9 +21,11 @@ from bilinear_tpu_torch.cli import serve as pserve
 from bilinear_tpu_torch.client import PoseClient
 from bilinear_tpu_torch.data import h36m as ph36m
 from bilinear_tpu_torch.io.checkpoint import save_checkpoint
+from bilinear_tpu_torch.models.end2end import End2End
 from bilinear_tpu_torch.serving import LiftingServer
 from bilinear_tpu_torch.serving_http import PoseHTTPServer
-from bilinear_tpu_torch.utils.weights import bilinear_from_jax, bilinear_to_jax
+from bilinear_tpu_torch.utils.weights import bilinear_from_jax, \
+    bilinear_to_jax, end2end_to_jax
 from torch_port_fixtures import scrambled_variables
 
 
@@ -193,10 +195,59 @@ def test_cli_builds_lifting_daemon(setup):
         assert http.warm() == {"lift_rows": [64]}
     finally:
         http.stop()
-    for extra in (["--kind", "end2end"], ["--kind", "both"],
-                  ["--aot", "lifting.aot"]):
+    args = pserve.build_parser().parse_args(
+        ["--run-dir", run_dir, "--data-dir", d, "--device", "cpu",
+         "--aot", "lifting.aot"])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        pserve.build_server(args)
+
+
+def test_cli_builds_end2end_and_both_daemons(setup, tmp_path):
+    """--kind end2end serves /v1/pose alone and --kind both serves it beside
+    /v1/lift (its lifting model from --lifting-run-dir), at the small size
+    of --n-stacks/--features/--depth, on the CPU; the torch7 detector is
+    built fused (its ResModule kernels' plain versions on the CPU), the
+    preact one not; --kind end2end --quantize int8 (the detectors' int8
+    convolutions) raises "not ported yet"."""
+    d, run_dir, _ = setup
+    e2e_dir = str(tmp_path / "End2End")
+    common = ["--data-dir", d, "--device", "cpu",
+              "--port", "0", "--n-stacks", "2", "--features", "16",
+              "--depth", "2", "--batch-sizes", "1", "2"]
+    frames = np.zeros((3, 256, 256, 3), np.uint8)
+    for kind, lift_epoch, variant in (("end2end", None, "preact"),
+                                      ("both", 3, "torch7")):
+        model = End2End(variant=variant, n_stacks=2, features=16, depth=2,
+                        generator=torch.Generator().manual_seed(0))
+        save_checkpoint(f"{e2e_dir}/{variant}/parameter", 2,
+                        *end2end_to_jax(model.state_dict(), variant))
         args = pserve.build_parser().parse_args(
-            ["--run-dir", run_dir, "--data-dir", d, "--device", "cpu",
-             *extra])
-        with pytest.raises(NotImplementedError, match="not ported"):
+            common + ["--kind", kind, "--lifting-run-dir", run_dir,
+                      "--run-dir", f"{e2e_dir}/{variant}",
+                      "--variant", variant, "--dtype", "float32"])
+        http = pserve.build_server(args)
+        http.start()
+        try:
+            assert http.end2end.epoch == 2
+            assert http.end2end._model.fused == (variant == "torch7")
+            assert http.end2end.device.type == "cpu"
+            client = PoseClient(f"http://{http.host}:{http.port}")
+            p2, p3 = client.pose(frames)
+            assert p2.shape == (3, 16, 2) and p3.shape == (3, 16, 3)
+            assert np.isfinite(p3).all()
+            health = client.health()
+            assert health["pose"]["epoch"] == 2
+            if lift_epoch is None:
+                assert health["lift"] is None
+            else:
+                assert health["lift"]["epoch"] == lift_epoch
+                mm = client.lift(np.zeros((2, 16, 2), np.float32))
+                assert mm.shape == (2, 16, 3)
+        finally:
+            http.stop()
+    for quantize in ("int8", "int8-static"):
+        args = pserve.build_parser().parse_args(
+            common + ["--kind", "end2end", "--quantize", quantize,
+                      "--run-dir", f"{e2e_dir}/torch7"])
+        with pytest.raises(NotImplementedError, match="not ported yet"):
             pserve.build_server(args)

@@ -1,11 +1,15 @@
 """Shared inputs of the ``test_torch_port_*`` files: the JAX package's
 ``BilinearUnit`` at full width with non-trivial BN statistics, as numpy
-trees that both packages take."""
+trees that both packages take; a BN scrambler; and the JAX End2End without
+dropout."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from bilinear_tpu.models.bilinear import BilinearUnit
+from bilinear_tpu.models.end2end import End2End as _JaxEnd2End
+from bilinear_tpu.models.hourglass import StackedHourglass as _JaxPreact
+from bilinear_tpu.models.hourglass_torch7 import MainModel as _JaxTorch7
 
 
 def scrambled_variables(seed: int = 0):
@@ -38,3 +42,44 @@ def ulp_gap(a, b) -> int:
     a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
     b = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
     return int(np.abs(a - b).max())
+
+
+def scramble_bn(rng):
+    """A tree_map_with_path function giving every BN non-trivial gamma,
+    beta and running statistics from the numpy RandomState ``rng``."""
+    def scramble(path, leaf):
+        name = str(path[-1].key)
+        leaf = np.asarray(leaf)
+        if name == "mean":
+            return (0.1 * rng.randn(*leaf.shape)).astype(np.float32)
+        if name == "var":
+            return rng.uniform(0.5, 1.5, leaf.shape).astype(np.float32)
+        if name == "scale":
+            return (1 + 0.2 * rng.randn(*leaf.shape)).astype(np.float32)
+        if name == "bias" and str(path[-2].key).startswith("bn"):
+            return (0.1 * rng.randn(*leaf.shape)).astype(np.float32)
+        return leaf
+    return scramble
+
+
+class NoDropoutEnd2End(_JaxEnd2End):
+    """The JAX End2End with ``BilinearUnit(dropout=0.0)``: JAX's PRNG and
+    torch's draw different masks, so train-mode parity runs without
+    dropout (as tests/test_m4_composition.py subclasses End2End)."""
+
+    def setup(self):
+        size = {k: v for k, v in dict(n_stacks=self.n_stacks,
+                                      features=self.features,
+                                      depth=self.depth).items()
+                if v is not None}
+        if self.variant == "torch7":
+            self.hourglass = _JaxTorch7(dtype=self.dtype, fused=self.fused,
+                                        name="hourglass", **size)
+        else:
+            names = dict(n_stacks="stacks", features="out_channels",
+                         depth="compression_time")
+            self.hourglass = _JaxPreact(
+                dtype=self.dtype, name="hourglass",
+                **{names[k]: v for k, v in size.items()})
+        self.bilinear = BilinearUnit(dtype=self.dtype, dropout=0.0,
+                                     name="bilinear")
