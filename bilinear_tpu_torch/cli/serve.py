@@ -13,6 +13,11 @@ Usage (on a machine with an NVIDIA GPU):
       save/End2End --lifting-run-dir "save/Bilinear GT" \\
       --data-dir data/Human3.6M --variant torch7
 
+  # a deployment box: serve AOT artifacts (cli.export_aot), no checkpoint
+  # or normalisation data needed; hot-swap by replacing the file:
+  python -m bilinear_tpu_torch.cli.serve --aot lifting.aot end2end.aot \\
+      --port 8900 --reload-every 30
+
 Endpoints: GET /healthz, GET /metrics, POST /v1/lift (JSON
 {"keypoints": (N,16,2)} or application/x-npy), POST /v1/pose (npz: frames
 (N,256,256,3) u8 or f32 [+ centers, scales]), POST /admin/reload. --warm
@@ -20,9 +25,11 @@ runs every lifting row count and each End2End batch size on u8 frames
 before the first request. The torch7 detector's ResModules run through
 kernel K3; the preact detector has no fused blocks. ``--quantize int8``
 (or int8-static, which maps to int8 for End2End as in JAX) with --kind
-end2end|both raises: the detectors' int8 convolutions are not ported yet;
-neither is --aot. The server runs on the card; ``--device cpu`` runs the plain PyTorch path and
-is meant for tests only.
+end2end|both serves the detector's body convs as int8 convolutions
+(kernels K6/K7; no K3). ``--aot`` serves artifacts instead: each one's
+kind picks its route, and they run PyTorch's own operators on the device
+they were exported for. The server runs on the card; ``--device cpu`` runs
+the plain PyTorch path and is meant for tests only.
 """
 from __future__ import annotations
 
@@ -42,7 +49,7 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 def build_server(args, logger=None) -> PoseHTTPServer:
     if args.aot:
-        raise NotImplementedError("--aot is not ported yet; see ROADMAP.md")
+        return _build_aot_server(args, logger)
     train = load_h36m(args.data_dir, args.protocol)[Task.Train]
     quantize = args.quantize or None
     lifting = end2end = None
@@ -63,7 +70,7 @@ def build_server(args, logger=None) -> PoseHTTPServer:
             args.run_dir, train, variant=args.variant, model_kw=model_kw,
             dtype=DTYPES[args.dtype], batch_sizes=tuple(args.batch_sizes),
             # static scales are the lifting MLP's; End2End's detector
-            # takes the dynamic int8 convolutions (not ported yet: raises)
+            # takes the dynamic int8 convolutions
             quantize="int8" if quantize == "int8-static" else quantize,
             device=args.device,
         )
@@ -83,6 +90,37 @@ def build_server(args, logger=None) -> PoseHTTPServer:
     )
 
 
+def _build_aot_server(args, logger=None) -> PoseHTTPServer:
+    """Serve AOT artifacts: each artifact's manifest kind assigns it to the
+    /v1/lift or /v1/pose route; a second artifact of one kind is refused."""
+    from bilinear_tpu_torch.io.aot import AOTServer
+
+    servers = {}
+    for path in args.aot:
+        srv = AOTServer(path)
+        if srv.kind in servers:
+            raise ValueError(f"two {srv.kind!r} artifacts given: "
+                             f"{servers[srv.kind].path!r} and {path!r}")
+        servers[srv.kind] = srv
+        if logger:
+            logger.info("aot %s: %s (epoch %d, torch %s, device %s, "
+                        "programs %s)", srv.kind, path, srv.epoch,
+                        srv.manifest.get("torch_version"),
+                        srv.manifest.get("device"),
+                        ",".join(srv.manifest.get("programs", {})))
+    return PoseHTTPServer(
+        lifting=servers.get("lifting"),
+        end2end=servers.get("end2end"),
+        host=args.host,
+        port=args.port,
+        max_delay_ms=args.max_delay_ms,
+        max_rows=args.max_rows,
+        max_pending_rows=args.max_pending_rows,
+        reload_every=args.reload_every,
+        logger=logger,
+    )
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -90,16 +128,20 @@ def build_parser() -> argparse.ArgumentParser:
                    default="lifting",
                    help="lifting (/v1/lift), end2end (/v1/pose) or both")
     p.add_argument("--aot", nargs="+", default=[], metavar="ARTIFACT",
-                   help="not ported yet (raises)")
-    p.add_argument("--run-dir", required=True,
+                   help="serve AOT artifact(s) (cli.export_aot output) "
+                        "instead of checkpoints, routed by manifest kind; "
+                        "--run-dir/--data-dir are then not needed and "
+                        "--reload-every polls the artifact files")
+    p.add_argument("--run-dir", default="",
                    help="run dir holding parameter/{epoch}.save (the "
-                        "End2End one for --kind end2end|both)")
+                        "End2End one for --kind end2end|both; required "
+                        "unless --aot)")
     p.add_argument("--lifting-run-dir", default="",
                    help="separate run dir for the lifting model "
                         "(--kind both)")
-    p.add_argument("--data-dir", required=True,
+    p.add_argument("--data-dir", default="",
                    help="H36M dir (normalization stats come from its train "
-                        "split)")
+                        "split; required unless --aot)")
     p.add_argument("--protocol", default=Protocol.GT)
     p.add_argument("--variant", default="torch7",
                    help="End2End's detector: torch7 or preact")
@@ -132,7 +174,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     disable_tf32()
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if not args.aot and not (args.run_dir and args.data_dir):
+        parser.error("--run-dir and --data-dir are required unless --aot "
+                     "artifacts are given")
     logging.basicConfig(
         level=logging.INFO, format="[%(levelname)s|serve] %(message)s"
     )

@@ -24,10 +24,12 @@ names>`` and independently trained checkpoints assemble into this module
 
 ``fused=True`` runs the torch7 detector's ResModules through kernels K3
 (forward) and K4 (backward) on a CUDA tensor; the preact detector has no
-kernel path and raises. The lifting half stays in ``dtype`` and never goes
-through the lifting kernels K1/K2 (as in JAX). Train-mode dropout draws
-its masks from the ``generator`` given to ``forward``, on the activations'
-device.
+kernel path and raises. ``quantize="int8"`` gives either detector its
+eval-mode int8 convolutions (``ops/int8.py``, kernels K6/K7; an int8 eval
+forward launches no K3). The lifting half stays in ``dtype`` and never
+goes through the lifting kernels K1/K2 (as in JAX). Train-mode dropout
+draws its masks from the ``generator`` given to ``forward``, on the
+activations' device.
 """
 from __future__ import annotations
 
@@ -52,16 +54,10 @@ class End2End(nn.Module):
                  n_modules: Optional[int] = None,
                  generator: Optional[torch.Generator] = None):
         """Size overrides of None keep the reference detector (8 stacks,
-        256 features, depth 4). ``quantize="int8"`` (the detectors' int8
-        convolutions) is not ported yet and raises. ``generator`` seeds the
-        initialisation of both halves."""
+        256 features, depth 4). ``quantize="int8"``: the detector's int8
+        convolutions in eval mode (the lifter stays in ``dtype``, as in
+        JAX). ``generator`` seeds the initialisation of both halves."""
         super().__init__()
-        if quantize not in (None, "int8"):
-            raise ValueError(f"unsupported quantize mode {quantize!r}")
-        if quantize is not None:
-            raise NotImplementedError(
-                f"End2End quantize={quantize!r} (the detectors' int8 "
-                "convolutions) is not ported yet; see ROADMAP.md")
         self.variant = variant
         self.temperature = temperature
         self.dtype = dtype
@@ -69,7 +65,7 @@ class End2End(nn.Module):
         self.hourglass = make_model(variant, dtype, n_stacks=n_stacks,
                                     features=features, depth=depth,
                                     fused=fused, n_modules=n_modules,
-                                    generator=generator)
+                                    generator=generator, quantize=quantize)
         self.bilinear = BilinearUnit(generator=generator, dtype=dtype)
 
     def forward(self, images: torch.Tensor, centers: torch.Tensor,

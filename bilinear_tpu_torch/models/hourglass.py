@@ -27,9 +27,16 @@ tree's ``{slot}_m{k}``.
 heatmaps in f32; inside, activations are NCHW tensors in
 ``torch.channels_last``. Precision as in JAX: parameters are f32; convs run
 in ``dtype`` (inputs, weights and the bias cast), each BN runs in f32 on
-its input and is rounded back to ``dtype``. There are no kernels of this
-repo on this model's path: the fused ResModule kernels are the torch7
-variant's.
+its input and is rounded back to ``dtype``. The fused ResModule kernels
+are the torch7 variant's.
+
+``quantize="int8"`` runs, in eval mode, the three LightConvs of every
+ResUnit (the stem's, the hourglasses' and each ``prev_heatmap``'s) as
+dynamic int8 convolutions (``ops/int8.py``: kernels K6/K7 on a CUDA
+tensor), as JAX's ``StackedHourglass`` does; the stem conv, the ResUnits'
+skip convs and the stack heads (``prev_heatmap``'s 1x1, the skip, heatmap
+and after-heatmap LightConvs) stay float. Train mode ignores it and the
+state_dict is the same.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bilinear_tpu_torch.core.norm import BatchNorm2d
+from bilinear_tpu_torch.ops import int8
 
 N_STACKS = 8
 N_FEATURES = 256
@@ -65,30 +73,39 @@ def conv_in(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
 
 
 class LightConv(nn.Sequential):
-    """model/hourglass.py:7-12: [BN, ReLU, Conv]."""
+    """model/hourglass.py:7-12: [BN, ReLU, Conv]; with ``quantize="int8"``
+    the conv runs as an int8 conv in eval mode."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 1,
-                 bias: bool = False, dtype=torch.float32):
+                 bias: bool = False, dtype=torch.float32,
+                 quantize: Optional[str] = None):
         super().__init__(BatchNorm2d(cin), nn.ReLU(),
                          nn.Conv2d(cin, cout, kernel,
                                    padding=(kernel - 1) // 2, bias=bias))
+        if quantize not in int8.MODES:
+            raise ValueError(f"unsupported quantize mode {quantize!r}")
         self.dtype = dtype
+        self.quantize = quantize
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self[0](x.to(_wide(self.dtype))).to(self.dtype)
-        return conv_in(self[2], torch.relu(h), self.dtype)
+        h = torch.relu(self[0](x.to(_wide(self.dtype))).to(self.dtype))
+        if self.quantize == "int8" and not self.training:
+            return int8.conv2d(self[2], h, self.dtype)
+        return conv_in(self[2], h, self.dtype)
 
 
 class ResUnit(nn.Module):
     """model/hourglass.py:34-52: ``conv`` (three LightConvs) + ``skip``."""
 
-    def __init__(self, cin: int, cout: int, dtype=torch.float32):
+    def __init__(self, cin: int, cout: int, dtype=torch.float32,
+                 quantize: Optional[str] = None):
         super().__init__()
         half = cout // 2
         self.dtype = dtype
-        self.conv = nn.Sequential(LightConv(cin, half, 1, dtype=dtype),
-                                  LightConv(half, half, 3, dtype=dtype),
-                                  LightConv(half, cout, 1, dtype=dtype))
+        kw = dict(dtype=dtype, quantize=quantize)
+        self.conv = nn.Sequential(LightConv(cin, half, 1, **kw),
+                                  LightConv(half, half, 3, **kw),
+                                  LightConv(half, cout, 1, **kw))
         self.skip = nn.Conv2d(cin, cout, 1) if cin != cout else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -110,28 +127,29 @@ class Hourglass(nn.Module):
     + ResUnit down], the waist, then [ResUnit up, nearest x2, + skip]."""
 
     def __init__(self, channels: int, depth: int = N_DEPTH,
-                 dtype=torch.float32, n_modules: int = 1):
+                 dtype=torch.float32, n_modules: int = 1,
+                 quantize: Optional[str] = None):
         super().__init__()
         self.depth, self.n_modules = depth, n_modules
 
+        def unit():
+            return ResUnit(channels, channels, dtype, quantize)
+
         def units():
-            return nn.ModuleList(ResUnit(channels, channels, dtype)
-                                 for _ in range(depth))
+            return nn.ModuleList(unit() for _ in range(depth))
 
         self.skip_connection = units()
         self.downscale = nn.ModuleList(
-            nn.Sequential(nn.MaxPool2d(2, 2), ResUnit(channels, channels,
-                                                      dtype))
-            for _ in range(depth))
-        self.res = ResUnit(channels, channels, dtype)
+            nn.Sequential(nn.MaxPool2d(2, 2), unit()) for _ in range(depth))
+        self.res = unit()
         self.upscale = nn.ModuleList(
-            nn.Sequential(ResUnit(channels, channels, dtype),
-                          nn.Upsample(scale_factor=2, mode="nearest"))
+            nn.Sequential(unit(), nn.Upsample(scale_factor=2,
+                                              mode="nearest"))
             for _ in range(depth))
         for k in range(1, n_modules):
             setattr(self, f"skip_connection_m{k}", units())
             setattr(self, f"downscale_m{k}", units())
-            setattr(self, f"res_m{k}", ResUnit(channels, channels, dtype))
+            setattr(self, f"res_m{k}", unit())
             setattr(self, f"upscale_m{k}", units())
 
     def _chain(self, slot: str, t: Optional[int], first: nn.Module,
@@ -167,19 +185,19 @@ class StackedHourglass(nn.Module):
                  quantize: Optional[str] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if quantize is not None:
-            raise NotImplementedError(
-                f"quantize={quantize!r} is not ported yet; see ROADMAP.md")
+        if quantize not in int8.MODES:
+            raise ValueError(f"unsupported quantize mode {quantize!r}")
         self.n_stacks, self.dtype = n_stacks, dtype
+        q = quantize
         self.feature_extraction = nn.Sequential(
             nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False),
-            ResUnit(64, 128, dtype), nn.MaxPool2d(2, 2),
-            ResUnit(128, 128, dtype), ResUnit(128, features, dtype))
+            ResUnit(64, 128, dtype, q), nn.MaxPool2d(2, 2),
+            ResUnit(128, 128, dtype, q), ResUnit(128, features, dtype, q))
         self.hourglass = nn.ModuleList(
-            Hourglass(features, depth, dtype, n_modules)
+            Hourglass(features, depth, dtype, n_modules, q)
             for _ in range(n_stacks))
         self.prev_heatmap = nn.ModuleList(
-            nn.Sequential(ResUnit(features, features, dtype),
+            nn.Sequential(ResUnit(features, features, dtype, q),
                           LightConv(features, features, dtype=dtype))
             for _ in range(n_stacks))
         self.heatmap_intermediate = nn.ModuleList(

@@ -31,6 +31,12 @@ on a CPU tensor. Unlike the TPU path there is no memory gate: the 128x128
 stem block runs the kernels too. ``conv_skip`` is always allocated, as in
 the reference, and applied only when the channel count changes; the
 identity blocks' copy is initialised to zeros and never trained.
+
+``quantize="int8"`` runs the three body convs of every ResModule in eval
+mode as dynamic int8 convolutions (``ops/int8.py``: kernels K6/K7 on a
+CUDA tensor), as JAX's ``ResModule`` does; the skip conv, the stem and the
+heads stay float. Like JAX, an int8 eval forward bypasses the fused blocks
+(no K3). Train mode ignores ``quantize``, and the state_dict is the same.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bilinear_tpu_torch.core.norm import BatchNorm2d, update_running_stats
+from bilinear_tpu_torch.ops import int8
 from bilinear_tpu_torch.ops import resmodule as rk
 
 N_STACKS = 8
@@ -80,13 +87,13 @@ class ResModule(nn.Module):
                  momentum: Optional[float] = 0.1, dtype=torch.float32,
                  fused: bool = False, quantize: Optional[str] = None):
         super().__init__()
-        if quantize is not None:
-            raise NotImplementedError(
-                f"quantize={quantize!r} is not ported yet; see ROADMAP.md")
+        if quantize not in int8.MODES:
+            raise ValueError(f"unsupported quantize mode {quantize!r}")
         half = out_channels // 2
         self.in_channels, self.out_channels = in_channels, out_channels
         self.dtype = dtype
         self.fused = fused
+        self.quantize = quantize
         self.conv_skip = _conv(in_channels, out_channels, 1)
         self.resSeq = nn.Sequential(
             BatchNorm2d(in_channels, momentum=momentum), nn.ReLU(),
@@ -99,15 +106,17 @@ class ResModule(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.contiguous(memory_format=CL)
-        if self.fused:
+        use_int8 = self.quantize == "int8" and not self.training
+        if self.fused and not use_int8:
             return self._fused(x)
         dt = self.dtype
         s = self.resSeq
+        body = int8.conv2d if use_int8 else conv_in
         skip = conv_in(self.conv_skip, x, dt) \
             if self.in_channels != self.out_channels else x.to(dt)
-        h = conv_in(s[2], torch.relu(bn_in(s[0], x, dt)), dt)
-        h = conv_in(s[5], torch.relu(bn_in(s[3], h, dt)), dt)
-        h = conv_in(s[8], torch.relu(bn_in(s[6], h, dt)), dt)
+        h = body(s[2], torch.relu(bn_in(s[0], x, dt)), dt)
+        h = body(s[5], torch.relu(bn_in(s[3], h, dt)), dt)
+        h = body(s[8], torch.relu(bn_in(s[6], h, dt)), dt)
         return skip + h
 
     def res_params(self) -> rk.ResParams:

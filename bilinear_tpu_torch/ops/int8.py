@@ -1,0 +1,278 @@
+"""Dynamic int8 convolutions of the detectors' eval path (counterpart of
+``bilinear_tpu/ops/int8.py``), with kernels K6 and K7
+(``csrc/int8_conv.cu``).
+
+The JAX package's scheme, to the letter:
+- weights: symmetric per-output-channel int8,
+  ``s_j = max(max|k[..., j]|, 1e-12) / 127``, ``kq = clip(round(k / s), -127,
+  127)``, quantized from the f32 parameters;
+- activations: symmetric per-SAMPLE int8 over (H, W, C), the same formula;
+  ``round`` is half-to-even and both divisions are true divisions;
+- ``acc`` = int8 x int8 -> int32, stride 1, padding (k - 1) // 2;
+- ``y = acc.f32 * (s_x * s_w)`` (the product of the scales formed first),
+  then ``+ bias`` in f32, then cast to the input's dtype.
+With that order ``kq``, ``xq`` and the scales are JAX's bit for bit on equal
+f32 inputs.
+
+Public functions keep the JAX layouts: NHWC activations, HWIO kernels.
+``quantize_conv_kernel`` is plain PyTorch on either device (once per loaded
+model: ``conv2d`` keeps its result on the conv module and quantizes again
+when the weights change). On a CUDA tensor ``quantize_activations``
+launches K6 and ``int8_conv`` launches K6 and K7; on a CPU tensor they run
+the plain versions (``*_ref``). There is no fallback.
+
+The plain versions never convolve int8 with ``F.conv2d`` (on the CPU it
+returns int8 and wraps) nor in f32 (a torch7 3x3 has K = 1,152, and
+1,152 * 127^2 > 2^24, so f32 partial sums need not be exact): the int32
+accumulator is a float64 convolution of the int8 values, exact because
+|acc| <= 9 * 256 * 127^2 < 2^53.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from bilinear_tpu_torch.ops import _build
+from bilinear_tpu_torch.ops.lifting import on_device
+
+# The detectors' quantize modes (``quantize=`` of the models, End2End and
+# End2EndServer).
+MODES = (None, "int8")
+
+# Launches of the kernels (one per call of each C entry): K6, K7.
+LAUNCHES_QUANTIZE = 0
+LAUNCHES_CONV = 0
+
+OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+
+
+class QuantizedKernel(NamedTuple):
+    """A conv's prepared weights: ``kq`` int8 (Co, kh, kw, Ci) contiguous
+    (the K-contiguous rows K7 reads; ``kq.permute(1, 2, 3, 0)`` is JAX's
+    HWIO), ``scale`` f32 (Co,), ``bias`` f32 (Co,) or None."""
+
+    kq: torch.Tensor
+    scale: torch.Tensor
+    bias: Optional[torch.Tensor]
+
+
+def _div127(a: torch.Tensor) -> torch.Tensor:
+    """``a / 127`` as a true division (torch multiplies a CUDA tensor by the
+    reciprocal of a Python scalar divisor)."""
+    return a / a.new_tensor(127.0)
+
+
+def _quantize(xf: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+
+
+def quantize_conv_kernel(kernel: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-output-channel int8 of an HWIO kernel: (kq int8 (kh, kw,
+    ci, co), scale f32 (co,))."""
+    kf = kernel.float()
+    scale = _div127(torch.clamp_min(kf.abs().amax(dim=(0, 1, 2)), 1e-12))
+    return _quantize(kf, scale), scale
+
+
+def prepare_kernel(kernel: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None) -> QuantizedKernel:
+    """An HWIO kernel (and its bias) in the form ``int8_conv`` takes."""
+    kq, scale = quantize_conv_kernel(kernel)
+    return QuantizedKernel(
+        kq.permute(3, 0, 1, 2).contiguous(), scale.contiguous(),
+        None if bias is None else bias.float().contiguous())
+
+
+def quantize_activations_ref(x: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K6: (xq int8 like ``x``, scale f32 (B, 1, 1, 1))."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=(1, 2, 3), keepdim=True)
+    scale = _div127(torch.clamp_min(amax, 1e-12))
+    return _quantize(xf, scale), scale
+
+
+def int8_conv_acc_ref(xq: torch.Tensor, kq: torch.Tensor) -> torch.Tensor:
+    """The exact int32 accumulator of NHWC int8 ``xq`` and (Co, kh, kw, Ci)
+    int8 ``kq``, stride 1, padding (k - 1) // 2: a float64 convolution of
+    the int8 values (exact below 2^53), as a contiguous NHWC tensor, the
+    layout K7 writes (the float ops after a conv pick their kernels, and so
+    their rounding, by the layout they are given)."""
+    k = kq.shape[1]
+    acc = F.conv2d(xq.permute(0, 3, 1, 2).double(),
+                   kq.permute(0, 3, 1, 2).double(), padding=(k - 1) // 2)
+    return acc.permute(0, 2, 3, 1).to(torch.int32).contiguous()
+
+
+def dequantize_ref(acc: torch.Tensor, sx: torch.Tensor,
+                   prepared: QuantizedKernel, out_dtype) -> torch.Tensor:
+    """JAX's epilogue: ``acc.f32 * (sx * ks)``, then ``+ bias`` (f32), then
+    the cast; ``sx`` (B, 1, 1, 1)."""
+    y = acc.float() * (sx.reshape(-1, 1, 1, 1) * prepared.scale)
+    if prepared.bias is not None:
+        y = y + prepared.bias
+    return y.to(out_dtype)
+
+
+def int8_conv_ref(x: torch.Tensor, kernel: Optional[torch.Tensor] = None,
+                  bias: Optional[torch.Tensor] = None, *,
+                  prepared: Optional[QuantizedKernel] = None,
+                  out_dtype=None) -> torch.Tensor:
+    """Plain version of ``int8_conv``."""
+    if prepared is None:
+        prepared = prepare_kernel(kernel, bias)
+    xq, sx = quantize_activations_ref(x)
+    return dequantize_ref(int8_conv_acc_ref(xq, prepared.kq), sx, prepared,
+                          out_dtype or x.dtype)
+
+
+# ------------------------------------------------------------------ kernels
+
+_fns = None
+
+
+def _lib():
+    global _fns
+    if _fns is None:
+        lib = _build.library("int8_conv")
+        q = lib.int8_quantize_activations
+        q.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_longlong] + [ctypes.c_void_p] * 4
+        q.restype = ctypes.c_int
+        c = lib.int8_conv_forward
+        c.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+            + [ctypes.c_void_p]
+        c.restype = ctypes.c_int
+        _fns = (q, c)
+    return _fns
+
+
+def _nhwc_for_kernel(x: torch.Tensor, dtypes, what: str) -> torch.Tensor:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} needs a CUDA tensor")
+    if x.dim() != 4 or x.dtype not in dtypes:
+        raise ValueError(f"{what}: x must be a 4-d NHWC tensor of "
+                         f"{dtypes}, got {x.dtype} {tuple(x.shape)}")
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def quantize_activations(x: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-sample symmetric int8 of an NHWC tensor: (xq int8, scale f32 (B,
+    1, 1, 1)). K6 on a CUDA tensor (f32 or bf16, H * W * C a multiple of
+    8), the plain version on a CPU tensor."""
+    global LAUNCHES_QUANTIZE
+    if x.device.type == "cpu":
+        return quantize_activations_ref(x)
+    x = _nhwc_for_kernel(x, (torch.float32, torch.bfloat16),
+                         "quantize_activations")
+    b = x.shape[0]
+    per = x[0].numel()
+    if per % 8:
+        raise ValueError("quantize_activations: H * W * C must be a "
+                         "multiple of 8")
+    xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scale = torch.empty((b, 1, 1, 1), dtype=torch.float32, device=x.device)
+    if b == 0:
+        return xq, scale
+    scratch = torch.empty((b,), dtype=torch.int32, device=x.device)
+    with on_device(x.device):
+        rc = _lib()[0](x.data_ptr(), int(x.dtype == torch.bfloat16), b, per,
+                       xq.data_ptr(), scale.data_ptr(), scratch.data_ptr(),
+                       torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "int8_quantize_activations")
+    LAUNCHES_QUANTIZE += 1
+    return xq, scale
+
+
+def int8_conv_cuda(xq: torch.Tensor, sx: Optional[torch.Tensor],
+                   prepared: QuantizedKernel, out_dtype) -> torch.Tensor:
+    """K7 on NHWC int8 ``xq`` (CUDA): (B, H, W, Co) in ``out_dtype`` (f32
+    or bf16, JAX's epilogue with the per-sample scales ``sx``) or, for
+    ``torch.int32``, the raw accumulator (``sx`` unused)."""
+    global LAUNCHES_CONV
+    xq = _nhwc_for_kernel(xq, (torch.int8,), "int8_conv")
+    kq, ks, bias = prepared
+    b, h, w, ci = xq.shape
+    co, kh, kw, kci = kq.shape
+    if out_dtype not in OUT_KINDS:
+        raise ValueError(f"int8_conv: no output type {out_dtype}")
+    if kh != kw or kh % 2 == 0 or kci != ci:
+        raise ValueError(f"int8_conv: kernel {tuple(kq.shape)} does not fit "
+                         f"x {tuple(xq.shape)} (odd square kernels only)")
+    if ci % 64 or co % 16:
+        raise ValueError("int8_conv: Ci must be a multiple of 64 and Co of "
+                         f"16, got Ci={ci}, Co={co}")
+    tensors = [kq, ks] + ([] if bias is None else [bias])
+    if out_dtype != torch.int32:
+        tensors.append(sx)
+        if sx.numel() != b or sx.dtype != torch.float32:
+            raise ValueError("int8_conv: one f32 scale per sample")
+    for t in tensors:
+        if t.device != xq.device or not t.is_contiguous():
+            raise ValueError("int8_conv: operands must be contiguous, on "
+                             "x's device")
+    if kq.dtype != torch.int8 or kq.data_ptr() % 16:
+        raise ValueError("int8_conv: kq must be 16-byte aligned int8")
+    if ks.dtype != torch.float32 or ks.shape != (co,) or (
+            bias is not None and (bias.dtype != torch.float32
+                                  or bias.shape != (co,))):
+        raise ValueError("int8_conv: scales and bias must be f32 (Co,)")
+    out = torch.empty((b, h, w, co), dtype=out_dtype, device=xq.device)
+    if out.numel() == 0:
+        return out
+    with on_device(xq.device):
+        rc = _lib()[1](xq.data_ptr(), kq.data_ptr(),
+                       None if out_dtype == torch.int32 else sx.data_ptr(),
+                       ks.data_ptr(), None if bias is None else
+                       bias.data_ptr(), out.data_ptr(), b, h, w, ci, co, kh,
+                       OUT_KINDS[out_dtype],
+                       torch.cuda.current_stream(xq.device).cuda_stream)
+    _build.check(rc, "int8_conv_forward")
+    LAUNCHES_CONV += 1
+    return out
+
+
+def int8_conv(x: torch.Tensor, kernel: Optional[torch.Tensor] = None,
+              bias: Optional[torch.Tensor] = None, *,
+              prepared: Optional[QuantizedKernel] = None,
+              out_dtype=None) -> torch.Tensor:
+    """The quantized conv at eval time, NHWC x HWIO with padding (k - 1) //
+    2 and stride 1: ``x`` and ``kernel`` are the ordinary float tensors
+    (or ``prepared=prepare_kernel(kernel, bias)``, quantized once), the
+    result is in ``out_dtype`` (default ``x.dtype``). K6 + K7 on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    out_dtype = out_dtype or x.dtype
+    if prepared is None:
+        prepared = prepare_kernel(kernel, bias)
+    if x.device.type == "cpu":
+        return int8_conv_ref(x, prepared=prepared, out_dtype=out_dtype)
+    xq, sx = quantize_activations(x)
+    return int8_conv_cuda(xq, sx, prepared, out_dtype)
+
+
+def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
+    """``conv`` (stride 1, 'same' padding) applied to the channels_last NCHW
+    activation ``x`` as an int8 conv, the result in ``dtype`` and
+    channels_last. The module's weights are quantized once and kept on it
+    beside the version and address of each; a changed weight (a reload
+    copies into it in place, a move gives it a new address) is quantized
+    again. Not a parameter or buffer: the state_dict is unchanged."""
+    w, b = conv.weight, conv.bias
+    key = (w.data_ptr(), w._version,
+           None if b is None else (b.data_ptr(), b._version))
+    cached = conv.__dict__.get("_int8_prepared")
+    if cached is None or cached[0] != key:
+        with torch.no_grad():
+            prepared = prepare_kernel(w.detach().permute(2, 3, 1, 0),
+                                      None if b is None else b.detach())
+        cached = (key, prepared)
+        conv.__dict__["_int8_prepared"] = cached
+    y = int8_conv(x.permute(0, 2, 3, 1), prepared=cached[1], out_dtype=dtype)
+    return y.permute(0, 3, 1, 2)

@@ -12,8 +12,10 @@ Weights are folded (and quantized, and calibrated) once per checkpoint.
 written by the JAX trainer or by the port, and ``reload`` swaps in a newer
 one. ``End2EndServer`` runs frames through hourglass -> soft-argmax ->
 lifting at fixed batch sizes; with ``model_kw={"fused": True}`` and the
-torch7 detector its ResModules run through kernel K3 (eval). Both servers
-run on the card unless ``device="cpu"`` is passed.
+torch7 detector its ResModules run through kernel K3 (eval), and with
+``quantize="int8"`` the detector's body convs run as int8 convolutions
+(kernels K6/K7, no K3). Both servers run on the card unless
+``device="cpu"`` is passed.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 from bilinear_tpu_torch.data.h36m import H36MSplit
 from bilinear_tpu_torch.device import resolve_device
 from bilinear_tpu_torch.io.checkpoint import latest_epoch, load_checkpoint
+from bilinear_tpu_torch.ops import int8
 from bilinear_tpu_torch.ops.lifting import lifting_forward, prepare_weights
 from bilinear_tpu_torch.ops.lifting_int8 import (
     calibrate_scales,
@@ -225,8 +228,10 @@ class End2EndServer:
         """``variables``: ``{"params", "batch_stats"}``, the JAX package's
         End2End trees (numpy leaves, as a ``.save`` holds them).
         ``model_kw`` goes to ``End2End`` (``{"fused": True}`` serves the
-        torch7 detector through K3). ``quantize="int8"`` is not ported yet
-        and raises. ``device``: None is the card, and raises when there is
+        torch7 detector through K3). ``quantize="int8"`` serves the
+        detector's body convs as dynamic int8 convolutions (the same
+        checkpoints; weights quantized once per loaded model, again at each
+        reload). ``device``: None is the card, and raises when there is
         none. ``mesh``: multi-device serving is not ported yet."""
         if mesh is not None:
             raise NotImplementedError(
@@ -234,6 +239,8 @@ class End2EndServer:
                 "ROADMAP.md")
         if dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"unsupported dtype {dtype!r}")
+        if quantize not in int8.MODES:
+            raise ValueError(f"unsupported quantize mode {quantize!r}")
         self.device = resolve_device(device)
         self.variant = variant
         self.dtype = dtype

@@ -49,22 +49,25 @@ STEP_RANGES = ("train_step/preprocess", "train_step/forward",
 
 def make_model(variant: str = "torch7", dtype=torch.float32, n_stacks=None,
                features=None, depth=None, fused=False, n_modules=None,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None, quantize=None):
     """'torch7' = the MainModel the MPII training trains, 'preact' = the
     StackedHourglass the H36M fine-tuning trains. Size overrides of None
     keep the reference's 8 stacks, 256 features, depth 4. ``fused`` (the
     ResModule kernels) exists for torch7 only: the preact variant raises
-    rather than ignore it."""
+    rather than ignore it. ``quantize="int8"``: the eval-mode int8 convs
+    of either variant."""
     kw = {k: v for k, v in dict(n_stacks=n_stacks, features=features,
                                 depth=depth, n_modules=n_modules).items()
           if v is not None}
     if variant == "torch7":
-        return MainModel(dtype=dtype, fused=fused, generator=generator, **kw)
+        return MainModel(dtype=dtype, fused=fused, generator=generator,
+                         quantize=quantize, **kw)
     if variant == "preact":
         if fused:
             raise ValueError("fused blocks exist for the torch7 variant "
                              "only; the preact variant has no kernel path")
-        return StackedHourglass(dtype=dtype, generator=generator, **kw)
+        return StackedHourglass(dtype=dtype, generator=generator,
+                                quantize=quantize, **kw)
     raise ValueError(f"unknown hourglass variant {variant!r}")
 
 

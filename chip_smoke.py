@@ -7,7 +7,7 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
 1. Card: name and power limit from nvidia-smi; TF32 switched off for
    matmuls and cuDNN, so the plain f32 versions run in full f32.
 2. Build: every CUDA source (csrc/lifting.cu, csrc/lifting_int8.cu,
-   csrc/resmodule.cu), one nvcc each, in parallel.
+   csrc/resmodule.cu, csrc/int8_conv.cu), one nvcc each, in parallel.
 3. Kernels vs their plain PyTorch versions, on the card, in the working
    type: K1 bf16 and f32, K2 dynamic and static, at every n of row_counts()
    (both sides of every boundary between kernel paths and tiles), full-width
@@ -110,8 +110,29 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    fault must fail the same gate); fused vs standard f32 step parity, with
    float64 beside both and beside the standard model on core/norm.py's BN;
    and times of the train step, predict and /v1/pose.
+13. The detectors' int8 convolutions (kernels K6, K7): the distinct conv
+   shapes of a full-width torch7 and preact int8 forward (321 / 345 K6 and
+   K7 launches per forward, no K3), and K6/K7 against their plain versions
+   at each shape at batch 1, 8 and 16, bf16 and f32 (int8 values, scales
+   and int32 accumulators bit-equal, outputs equal; a planted fault, the
+   scales of the wrong sample, must differ); cli.serve --kind both
+   --quantize int8 on phase 12's End2End 2.save: /v1/pose at 1, 8, 16
+   frames equal to predict, 321 K6 and K7 launches per chunk and no K3,
+   /v1/lift through K2; the int8 model on the tree's frames equal to its
+   plain int8 version (the planted fault must fail that), within JAX's
+   int8-versus-float heatmap gates of the bf16 model and no farther from
+   the plain f32 model than 1.5x the bf16 model in decode shift, pose2d
+   and mm (JAX's absolute decode gates reported); times: K7 and K6 per
+   shape beside their bounds, cuDNN's bf16 conv and torch._int_mm over an
+   im2col, the plain versions, int8 against bf16 predict, /v1/pose p50.
+14. AOT export: cli.export_aot of lifting (symbolic bf16 and int8-static)
+   from phase 9's checkpoint and of End2End (batch 8) from phase 12's
+   2.save; each artifact loaded in a fresh process that imports io/aot.py
+   alone, its answers (chunked and padded) against the in-process plain
+   path; a serve --aot daemon answering /v1/lift and /v1/pose as the
+   artifacts do; export, load and /v1/pose times.
 
-Phases run in the order 1-5, 9, 6-8, 10, 11, 12. The line before the last is the kernels' JSON record; the last line is
+Phases run in the order 1-5, 9, 6-8, 10-14. The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or bilinear_tpu.
 """
 import json
@@ -3149,16 +3170,14 @@ def _e2e_batch(data_dir, dev):
         batch, train.s, train.centers, train.scales), batch
 
 
-def time_e2e(work, http_sizes=POSE_TIME_SIZES):
+def time_e2e(work):
     """Measurements of phase 12, no gate: the End2End train step (batch 8,
     full width, fused and standard, f32 and bf16: ms/step, img/s,
     device-busy ms and device kernels per step from a trace);
     End2EndServer.predict at 1, 8 and 16 u8 frames (bf16, fused and
     standard: ms and frames/s); and the wall p50 of /v1/pose at 1, 8 and
     16 frames (one request at a time, fused)."""
-    import numpy as np
     import torch
-    from bilinear_tpu_torch.client import PoseClient
     from bilinear_tpu_torch.data.h36m import Task, load_h36m
     from bilinear_tpu_torch.serving import End2EndServer
     from bilinear_tpu_torch.serving_http import PoseHTTPServer
@@ -3229,11 +3248,553 @@ def time_e2e(work, http_sizes=POSE_TIME_SIZES):
         log(f"  End2EndServer.predict {label}, bf16, u8 frames: " + ", ".join(
             f"{n} frames {r['ms']:.2f} ms ({r['frames_per_s']:.1f} "
             f"frames/s)" for n, r in row.items()))
-    http = PoseHTTPServer(end2end=servers["fused"], max_delay_ms=0)
+    out["pose_http_p50_ms"] = _pose_p50(PoseHTTPServer(
+        end2end=servers["fused"], max_delay_ms=0))
+    log("  /v1/pose wall p50 (fused, bf16, u8, one request at a time): "
+        + ", ".join(f"{n} frames {v:.2f} ms"
+                    for n, v in out["pose_http_p50_ms"].items()))
+    return out
+
+
+# ------------------------------------------------------------ phase 13
+
+INT8_BATCHES = (1, 8, 16)
+INT8_TIME_BATCH = 8  # a served chunk
+# The kernels line's shape: the hourglass 3x3 at 64 x 64 (B, H, W, Ci, Co,
+# k), the most frequent large conv of a forward.
+INT8_MAIN_SHAPE = (8, 64, 64, 128, 128, 3)
+# The preact heatmap head's width (Co = 16), which K7 takes though the
+# JAX package keeps that conv float: held beside the forward's shapes.
+INT8_EXTRA_SHAPES = ((64, 64, 256, 16, 1),)
+# K7 launches per forward: three body convs per ResModule (torch7, 107) or
+# ResUnit (preact, 3 + 8 * 14 = 115); one K6 launch before each.
+INT8_PER_FORWARD = {"torch7": 3 * RES_PER_FORWARD, "preact": 3 * (3 + 8 * 14)}
+# JAX's int8-versus-float gates (tests/test_hourglass_int8.py:82-102 and
+# :155-160): last-stack heatmaps mean / max |d| against their range,
+# soft-argmax decode shift mean / max in heatmap pixels, pose2d mean pixels,
+# pose3d mean |d| against mean |mm|. JAX set them on a briefly trained tiny
+# detector; the served checkpoint here is a barely trained full-width one
+# whose last-stack heatmaps are nearly flat, so the x10 soft-argmax turns
+# any rounding into pixels (bf16 against f32 moves pose2d by pixels too,
+# phase 12): the heatmap gates are held; the decode measures are held
+# relative, the int8 model no farther from the plain f32 model than
+# POSE_BF16_RATIO times the bf16 model is, and JAX's absolute numbers are
+# reported.
+INT8_HEATMAP_GATES = (0.01, 0.05)
+INT8_DECODE_GATES = (0.5, 2.0)
+INT8_POSE2D_GATE = 2.0
+INT8_MM_GATE = 0.1
+INT8_POSE_SIZES = (1, 8, 16)
+INT8_TIME_CALLS = 50
+
+
+def _int8_counts():
+    from bilinear_tpu_torch.ops import int8
+
+    return {"int8_quantize": int8.LAUNCHES_QUANTIZE,
+            "int8_conv": int8.LAUNCHES_CONV}
+
+
+def _zero_int8_counts():
+    from bilinear_tpu_torch.ops import int8
+
+    int8.LAUNCHES_QUANTIZE = int8.LAUNCHES_CONV = 0
+
+
+def int8_conv_shapes():
+    """The distinct (H, W, Ci, Co, k) of the int8 convs of one full-width
+    torch7 and one full-width preact forward (bf16, quantize="int8", batch
+    1), recorded at K7's wrapper; each forward must launch K6 and K7
+    INT8_PER_FORWARD times and K3 never (the fused torch7 model bypasses
+    its blocks in int8 eval)."""
+    import torch
+    from bilinear_tpu_torch.models.hourglass import StackedHourglass
+    from bilinear_tpu_torch.models.hourglass_torch7 import MainModel
+    from bilinear_tpu_torch.ops import int8
+
+    shapes, per_forward = set(), {}
+    real = int8.int8_conv_cuda
+
+    def record(xq, sx, prepared, out_dtype):
+        shapes.add(tuple(xq.shape[1:]) + (prepared.kq.shape[0],
+                                          prepared.kq.shape[1]))
+        return real(xq, sx, prepared, out_dtype)
+
+    int8.int8_conv_cuda = record
+    try:
+        for name, model in (
+                ("torch7", MainModel(quantize="int8", fused=True,
+                                     dtype=torch.bfloat16)),
+                ("preact", StackedHourglass(quantize="int8",
+                                            dtype=torch.bfloat16))):
+            model = model.cuda().eval()
+            _zero_int8_counts()
+            _zero_res_counts()
+            with torch.no_grad():
+                model(torch.rand(1, 256, 256, 3, device="cuda"))
+            torch.cuda.synchronize()
+            per_forward[name] = dict(_int8_counts(), **_res_counts())
+            want = INT8_PER_FORWARD[name]
+            got = per_forward[name]
+            if got["int8_conv"] != want or got["int8_quantize"] != want or \
+                    any(got[k] for k in _res_counts()):
+                raise AssertionError(f"{name} int8 forward launches {got}, "
+                                     f"expected {want} of K6 and K7, no K3")
+            del model
+    finally:
+        int8.int8_conv_cuda = real
+    out = sorted(shapes, key=lambda s: (-s[0], s[2], s[3], s[4]))
+    log(f"  {len(out)} distinct int8 conv shapes (H, W, Ci, Co, k) over a "
+        f"full torch7 and a full preact forward: {out}; launches per "
+        f"forward {per_forward}")
+    return out, per_forward
+
+
+def _int8_operands(shape, b, dtype, gen, bias=True):
+    """Seeded NHWC activations whose samples differ in range, an HWIO
+    kernel with per-channel ranges and a bias, on the card."""
+    import torch
+
+    h, w, ci, co, k = shape
+    x = (torch.randn(b, h, w, ci, generator=gen)
+         * (torch.rand(b, 1, 1, 1, generator=gen) * 3 + 0.1))
+    kern = torch.randn(k, k, ci, co, generator=gen) * (
+        torch.rand(1, 1, 1, co, generator=gen) * 0.1 + 0.01)
+    bias_t = torch.randn(co, generator=gen) if bias else None
+    return (x.to(dtype).cuda(), kern.cuda(),
+            None if bias_t is None else bias_t.cuda())
+
+
+def check_int8_kernels(shapes):
+    """K6 and K7 against their plain versions on the card at every shape
+    of ``shapes`` and INT8_EXTRA_SHAPES, at batch 1, 8 and 16, bf16 and f32
+    (the extra shape also without a bias): K6's int8 values and scales, and
+    K7's int32 accumulators bit-equal to the plain versions', and K7's
+    outputs equal to the plain epilogue's on the plain accumulator. A
+    planted fault (the scales of the wrong sample) must change the
+    outputs. Returns {kernel: max |diff|}."""
+    import torch
+    from bilinear_tpu_torch.ops import int8
+
+    gen = torch.Generator().manual_seed(SEED + 130)
+    errs = {"int8_quantize": 0.0, "int8_conv": 0.0}
+    cases = [(s, b, dt, True) for s in list(shapes) + list(INT8_EXTRA_SHAPES)
+             for b in INT8_BATCHES for dt in (torch.bfloat16, torch.float32)]
+    cases += [(s, 8, torch.bfloat16, False) for s in INT8_EXTRA_SHAPES]
+    t0 = time.perf_counter()
+    for shape, b, dt, with_bias in cases:
+        x, kern, bias = _int8_operands(shape, b, dt, gen, with_bias)
+        prepared = int8.prepare_kernel(kern, bias)
+        xq, sx = int8.quantize_activations(x)
+        xr, sr = int8.quantize_activations_ref(x)
+        acc = int8.int8_conv_cuda(xq, None, prepared, torch.int32)
+        y = int8.int8_conv_cuda(xq, sx, prepared, dt)
+        accr = int8.int8_conv_acc_ref(xr, prepared.kq)
+        yr = int8.dequantize_ref(accr, sr, prepared, dt)
+        torch.cuda.synchronize()
+        eq = (torch.equal(xq, xr) and torch.equal(sx, sr),
+              torch.equal(acc, accr), torch.equal(y, yr))
+        errs["int8_quantize"] = max(errs["int8_quantize"], float(
+            (xq.int() - xr.int()).abs().max()))
+        errs["int8_conv"] = max(errs["int8_conv"], float(
+            (y.float() - yr.float()).abs().max()))
+        if not all(eq):
+            raise AssertionError(
+                f"int8 kernels at (B={b}, H, W, Ci, Co, k)={shape} {dt} "
+                f"bias={with_bias}: quantize/accumulator/output equal {eq}")
+        if b == 8 and shape == tuple(INT8_MAIN_SHAPE[1:]) and with_bias \
+                and dt == torch.bfloat16:
+            wrong = int8.int8_conv_cuda(xq, torch.roll(sx, 1, 0), prepared,
+                                        dt)
+            if torch.equal(wrong, yr):
+                raise AssertionError("K7 with the scales of the wrong "
+                                     "sample matched the plain version")
+            log("  planted fault (K7 given the scales of the wrong sample): "
+                f"max |d| {float((wrong.float() - yr.float()).abs().max()):.3e}"
+                " from the plain version: caught")
+    log(f"  K6/K7 vs the plain versions: {len(cases)} cases (every shape at "
+        f"batch {INT8_BATCHES}, bf16 and f32): int8 values, scales and int32 "
+        f"accumulators bit-equal, outputs equal; {time.perf_counter() - t0:.1f}"
+        " s")
+    return errs
+
+
+def _im2col_int8(xq, k):
+    """(B*H*W, k*k*Ci) int8 im2col of NHWC int8 ``xq`` (channel-major taps,
+    as F.unfold gives them): the int8 GEMM yardstick's operand."""
+    import torch.nn.functional as F
+
+    b, h, w, ci = xq.shape
+    cols = F.unfold(xq.permute(0, 3, 1, 2).float(), k, padding=(k - 1) // 2)
+    return cols.transpose(1, 2).reshape(b * h * w, ci * k * k).to(
+        xq.dtype).contiguous()
+
+
+def int8_bound(kind, b, shape, out_itemsize=2):
+    """Least time (ms): K7's int8 operations 2 M Co K at 1,979 TOP/s
+    against its bytes (int8 activations and weights read once, the output
+    written once) at 3.35 TB/s; K6's bytes (x read once, int8 written
+    once)."""
+    h, w, ci, co, k = shape
+    m = b * h * w
+    if kind == "int8_quantize":
+        nbytes = m * ci * (out_itemsize + 1) + 4 * b
+        return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+    ops = 2 * m * co * k * k * ci
+    nbytes = m * ci + co * k * k * ci + m * co * out_itemsize + 4 * (b + 2 * co)
+    ops_s, bytes_s = ops / PEAK_INT8, nbytes / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def time_int8(shapes):
+    """K7 and K6 by CUDA events at every int8 conv shape at batch 8 (and
+    the main shape at 1 and 16), bf16, beside each bound, cuDNN's bf16 conv
+    of the same shape and torch._int_mm over an int8 im2col (the GEMM
+    alone: yardsticks, not what the port calls); the plain versions at the
+    main shape. Returns {"per_shape": [...], "main": {...}}."""
+    import torch
+    import torch.nn.functional as F
+    from bilinear_tpu_torch.ops import int8
+
+    gen = torch.Generator().manual_seed(SEED + 131)
+    rows = []
+    main_shape = tuple(INT8_MAIN_SHAPE[1:])
+    todo = [(INT8_TIME_BATCH, s) for s in shapes]
+    todo += [(b, main_shape) for b in INT8_BATCHES if b != INT8_TIME_BATCH]
+    for b, shape in todo:
+        h, w, ci, co, k = shape
+        x, kern, bias = _int8_operands(shape, b, torch.bfloat16, gen)
+        prepared = int8.prepare_kernel(kern, bias)
+        xq, sx = int8.quantize_activations(x)
+        iters = INT8_TIME_CALLS
+        row = {"shape_bhwcok": [b, h, w, ci, co, k]}
+        row["k7_ms"] = cuda_ms(lambda: int8.int8_conv_cuda(
+            xq, sx, prepared, torch.bfloat16), iters)
+        row["k6_ms"] = cuda_ms(lambda: int8.quantize_activations(x), iters)
+        row["k7_bound_ms"], row["k7_bound_by"] = int8_bound(
+            "int8_conv", b, shape)
+        row["k6_bound_ms"], _ = int8_bound("int8_quantize", b, shape)
+        xn = x.permute(0, 3, 1, 2)  # channels_last NCHW view
+        wn = kern.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        row["cudnn_bf16_conv_ms"] = cuda_ms(
+            lambda: F.conv2d(xn, wn, padding=(k - 1) // 2), iters)
+        a = _im2col_int8(xq, k)
+        bm = prepared.kq.permute(0, 3, 1, 2).reshape(co, -1).t()
+        row["int_mm_im2col_ms"] = cuda_ms(
+            lambda: torch._int_mm(a, bm), iters) if a.shape[0] > 16 else None
+        if b == INT8_TIME_BATCH and shape == main_shape:
+            row["k7_plain_ms"] = cuda_ms(lambda: int8.dequantize_ref(
+                int8.int8_conv_acc_ref(xq, prepared.kq), sx, prepared,
+                torch.bfloat16), 5)
+            row["k6_plain_ms"] = cuda_ms(
+                lambda: int8.quantize_activations_ref(x), 5)
+            for kern, fn in (("k7", lambda: int8.int8_conv_cuda(
+                    xq, sx, prepared, torch.bfloat16)),
+                    ("k6", lambda: int8.quantize_activations(x))):
+                per = _trace_whole(fn, 20)
+                row[f"{kern}_trace_ms"] = sum(ms for ms, _ in per.values())
+                row[f"{kern}_device_kernels_per_call"] = sum(
+                    c for _, c in per.values())
+        rows.append(row)
+        log(f"  int8 conv (B, H, W, Ci, Co, k)=({b}, {h}, {w}, {ci}, {co}, "
+            f"{k}): K7 {row['k7_ms']:.4f} ms (bound {row['k7_bound_ms']:.4f},"
+            f" {row['k7_bound_by']}; {row['k7_ms'] / row['k7_bound_ms']:.1f}x)"
+            f", K6 {row['k6_ms']:.4f} (bound {row['k6_bound_ms']:.4f}); "
+            f"cuDNN bf16 conv {row['cudnn_bf16_conv_ms']:.4f}, _int_mm "
+            f"im2col {row['int_mm_im2col_ms']}"
+            + (f"; plain K7 {row['k7_plain_ms']:.4f}, plain K6 "
+               f"{row['k6_plain_ms']:.4f}; by trace K7 "
+               f"{row['k7_trace_ms']:.4f} ms in "
+               f"{row['k7_device_kernels_per_call']:.0f} device kernels, K6 "
+               f"{row['k6_trace_ms']:.4f} in "
+               f"{row['k6_device_kernels_per_call']:.0f}"
+               if "k7_plain_ms" in row else ""))
+        del x, xq, a
+    main = next(r for r in rows if r["shape_bhwcok"] == list(INT8_MAIN_SHAPE))
+    total = sum(r["k7_ms"] for r in rows if r["shape_bhwcok"][0] ==
+                INT8_TIME_BATCH)
+    log(f"  K7 summed over the {len(shapes)} distinct shapes at batch "
+        f"{INT8_TIME_BATCH}: {total:.4f} ms")
+    return {"per_shape": rows, "main": main}
+
+
+def _last_heatmaps(server, frames):
+    """(last-stack heatmaps (N, 64, 64, 16), pose2d, pose3d mm) of a
+    server's model on u8 ``frames`` in chunks of 16, full-frame boxes, with
+    every chunk's answers as predict returns them."""
+    import numpy as np
+    import torch
+
+    model, dev = server._model, server.device
+    hms, p2s, p3s = [], [], []
+    with torch.no_grad():
+        for i in range(0, len(frames), 16):
+            f = torch.from_numpy(frames[i:i + 16]).to(dev).float() / 255.0
+            n = f.shape[0]
+            hm, p2, p3 = model(f, torch.full((n, 2), 128.0, device=dev),
+                               torch.full((n,), 256.0 / 200.0, device=dev),
+                               server._mean_part, server._std_part)
+            hms.append(hm[-1].float().cpu().numpy())
+            p2s.append(p2.float().cpu().numpy())
+            p3s.append((p3.float().cpu().numpy() * server._std_s
+                         + server._mean_s).reshape(n, 16, 3))
+    return (np.concatenate(hms), np.concatenate(p2s), np.concatenate(p3s))
+
+
+def _int8_gates(q, f):
+    """JAX's int8-versus-float measures of (heatmaps, pose2d, mm) ``q``
+    against ``f``: returns (record, the names of the gates missed)."""
+    import numpy as np
+    import torch
+    from bilinear_tpu_torch.ops.decode import softargmax
+
+    hq, pq, mq = q
+    hf, pf, mf = f
+    rng = float(hf.max() - hf.min())
+    d = np.abs(hq - hf)
+
+    def dec(h):
+        return softargmax(torch.from_numpy(h).permute(0, 3, 1, 2)).numpy()
+
+    shift = np.linalg.norm(dec(hq) - dec(hf), axis=-1)
+    p2 = float(np.linalg.norm(pq - pf, axis=-1).mean())
+    mm = float(np.abs(mq - mf).mean() / (np.abs(mf).mean() + 1e-9))
+    rec = {"heatmap_mean_of_range": float(d.mean() / rng),
+           "heatmap_max_of_range": float(d.max() / rng),
+           "decode_shift_mean_px": float(shift.mean()),
+           "decode_shift_max_px": float(shift.max()),
+           "pose2d_mean_px": p2, "mm_mean_rel": mm}
+    fails = []
+    if rec["heatmap_mean_of_range"] >= INT8_HEATMAP_GATES[0] or \
+            rec["heatmap_max_of_range"] >= INT8_HEATMAP_GATES[1]:
+        fails.append("heatmaps")
+    if rec["decode_shift_mean_px"] >= INT8_DECODE_GATES[0] or \
+            rec["decode_shift_max_px"] >= INT8_DECODE_GATES[1]:
+        fails.append("decode shift")
+    if p2 >= INT8_POSE2D_GATE:
+        fails.append("pose2d")
+    if mm >= INT8_MM_GATE:
+        fails.append("mm")
+    return rec, fails
+
+
+def _plain_int8():
+    """Context: the int8 convs through their plain versions on the card
+    (K6/K7's wrappers replaced by the plain functions)."""
+    import contextlib
+
+    from bilinear_tpu_torch.ops import int8
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = int8.quantize_activations, int8.int8_conv_cuda
+        int8.quantize_activations = int8.quantize_activations_ref
+        int8.int8_conv_cuda = lambda xq, sx, p, dt: int8.dequantize_ref(
+            int8.int8_conv_acc_ref(xq, p.kq), sx, p, dt)
+        try:
+            yield
+        finally:
+            int8.quantize_activations, int8.int8_conv_cuda = saved
+    return ctx()
+
+
+def _rel_gap(a, b):
+    """max |a - b| over max |b|, over (heatmaps, pose2d, mm) triples."""
+    import numpy as np
+
+    return max(float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-9))
+               for x, y in zip(a, b))
+
+
+def drive_int8_serving(work):
+    """The int8 slice through the serve CLI on the card: ``--kind both
+    --quantize int8`` on phase 12's End2End 2.save and phase 9's lifting
+    checkpoint (a torch7 detector, fused, whose int8 ResModules bypass K3;
+    lifting through K2). /v1/pose at 1, 8 and 16 person frames of the H36M
+    tree: each answer equals End2EndServer.predict on the same frames
+    (POSE_SELF_GATE), exactly INT8_PER_FORWARD K6 and K7 launches per
+    served chunk and no K3. Every tree frame through the int8 model: equal
+    (POSE_SELF_GATE) to the same model with the int8 convs' plain versions,
+    within JAX's heatmap gates of the bf16 fused model (phase 12's served
+    path), JAX's decode measures reported beside the bf16 model's distance
+    from the plain f32 one; a planted fault (K7 given the scales of the
+    wrong sample) must fail the plain-version gate. Returns (launches,
+    record)."""
+    import numpy as np
+    import torch
+    from bilinear_tpu_torch.cli import serve
+    from bilinear_tpu_torch.client import PoseClient
+    from bilinear_tpu_torch.data.h36m import Task, load_h36m
+    from bilinear_tpu_torch.ops import int8
+    from bilinear_tpu_torch.serving import End2EndServer
+
+    save_root = os.path.join(work, "save")
+    data_dir = os.path.join(work, "Human3.6M")
+    serve_dir = os.path.join(work, "serve_e2e")
+    train = load_h36m(data_dir)[Task.Train]
+    tree = _tree_frames(data_dir, torch.device("cuda"))
+    args = serve.build_parser().parse_args(
+        ["--kind", "both", "--run-dir", serve_dir, "--lifting-run-dir",
+         os.path.join(save_root, "Bilinear GT"), "--data-dir", data_dir,
+         "--quantize", "int8", "--port", "0", "--max-delay-ms", "0"])
+    http = serve.build_server(args)
+    e2e = http.end2end
+    if e2e.quantize != "int8" or e2e.epoch != 2 or \
+            not e2e._model.hourglass.hgArray[0].res1[0].fused:
+        raise AssertionError("serve --quantize int8 did not build a fused "
+                             "int8 End2EndServer on 2.save")
+    warmed = http.warm(("uint8",))
+    http.start()
+    record = {"requests": []}
+    launches = {k: 0 for k in list(_int8_counts()) + list(_res_counts())}
+    try:
+        client = PoseClient(f"http://{http.host}:{http.port}")
+        for i, n in enumerate(INT8_POSE_SIZES):
+            frames = np.take(tree, np.arange(3 * i, 3 * i + n) % len(tree),
+                             axis=0)
+            _zero_int8_counts()
+            _zero_res_counts()
+            p2, p3 = client.pose(frames)
+            count = dict(_int8_counts(), **_res_counts())
+            chunks = len(e2e._chunks(n))
+            want = INT8_PER_FORWARD["torch7"] * chunks
+            if count["int8_conv"] != want or count["int8_quantize"] != want \
+                    or any(count[k] for k in _res_counts()):
+                raise AssertionError(f"/v1/pose of {n} frames: launches "
+                                     f"{count}, expected {want} of K6 and K7"
+                                     ", no K3")
+            for k, v in count.items():
+                launches[k] += v
+            d2, d3 = e2e.predict(frames)
+            self_gap = max(float(np.abs(p2 - d2).max() /
+                                 max(np.abs(d2).max(), 1.0)),
+                           float(np.abs(p3 - d3).max() /
+                                 max(np.abs(d3).max(), 1.0)))
+            record["requests"].append({"frames": n, "chunks": chunks,
+                                       "launches": count,
+                                       "self_rel": self_gap})
+            log(f"  /v1/pose int8, {n} frames ({chunks} chunk): launches "
+                f"{count}; vs predict {self_gap:.1e}")
+            if self_gap > POSE_SELF_GATE or not np.isfinite(p3).all():
+                raise AssertionError(f"int8 /v1/pose of {n} frames: "
+                                     f"{self_gap} from predict")
+        kp = 500.0 + 100.0 * np.random.RandomState(SEED + 72).randn(
+            4, 16, 2).astype(np.float32)
+        k2 = _lift_counts()[1]
+        mm = client.lift(kp)
+        if _lift_counts()[1] - k2 != 1 or not np.isfinite(mm).all():
+            raise AssertionError("/v1/lift int8 did not answer through K2")
+    finally:
+        http.stop()
+    log(f"  serve --kind both --quantize int8: warmed {warmed}; /v1/lift "
+        "through K2")
+
+    def server(dtype, fused):
+        return End2EndServer.from_run_dir(
+            serve_dir, train, variant="torch7", model_kw={"fused": fused},
+            dtype=dtype)
+
+    q = _last_heatmaps(e2e, tree)
+    with _plain_int8():
+        plain = _last_heatmaps(e2e, tree)
+    bf16 = _last_heatmaps(server(torch.bfloat16, True), tree)
+    f32 = _last_heatmaps(server(torch.float32, False), tree)
+    record["served_vs_plain_int8"] = _rel_gap(q, plain)
+    rec, missed = _int8_gates(q, bf16)
+    record["int8_vs_bf16"] = dict(rec, missed=missed)
+    record["bf16_vs_f32"], _ = _int8_gates(bf16, f32)
+    record["int8_vs_f32"], _ = _int8_gates(q, f32)
+    real = int8.int8_conv_cuda
+    int8.int8_conv_cuda = lambda xq, sx, p, dt: real(
+        xq, sx if dt == torch.int32 else torch.roll(sx, 1, 0), p, dt)
+    try:
+        fault = _last_heatmaps(e2e, tree)
+    finally:
+        int8.int8_conv_cuda = real
+    record["fault_vs_plain_int8"] = _rel_gap(fault, plain)
+    log(f"  int8 model on {len(tree)} tree frames: K6/K7 against the plain "
+        f"int8 convs {record['served_vs_plain_int8']:.2e} (gate "
+        f"{POSE_SELF_GATE}); planted fault (K7 given the scales of the "
+        f"wrong sample) {record['fault_vs_plain_int8']:.2e}")
+    for label in ("int8_vs_bf16", "bf16_vs_f32", "int8_vs_f32"):
+        log(f"  {label}: " + ", ".join(
+            f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in record[label].items()))
+    log(f"  JAX's gates: heatmaps {INT8_HEATMAP_GATES} of the range (held), "
+        f"decode shift {INT8_DECODE_GATES} px, pose2d {INT8_POSE2D_GATE} "
+        f"px, mm {INT8_MM_GATE} (reported; int8 held to {POSE_BF16_RATIO}x "
+        "bf16's distance from f32)")
+    relative = ("decode_shift_mean_px", "pose2d_mean_px", "mm_mean_rel")
+    far = [k for k in relative if record["int8_vs_f32"][k]
+           > POSE_BF16_RATIO * record["bf16_vs_f32"][k]]
+    if record["served_vs_plain_int8"] > POSE_SELF_GATE:
+        raise AssertionError("the int8 model through K6/K7 is off its plain "
+                             "version")
+    if record["fault_vs_plain_int8"] <= POSE_SELF_GATE:
+        raise AssertionError("the planted int8 fault passes the gate")
+    if "heatmaps" in missed:
+        raise AssertionError("int8 heatmaps outside JAX's gates of bf16")
+    if far:
+        raise AssertionError(f"int8 farther from f32 than {POSE_BF16_RATIO}x"
+                             f" bf16 in {far}")
+    return launches, record
+
+
+def time_int8_serving(work):
+    """End2EndServer.predict, int8 (fused torch7, K6/K7) against bf16
+    fused (K3), at 1, 8 and 16 u8 frames: ms and frames/s; /v1/pose wall
+    p50 of the int8 server (one request at a time)."""
+    import torch
+    from bilinear_tpu_torch.data.h36m import Task, load_h36m
+    from bilinear_tpu_torch.serving import End2EndServer
+    from bilinear_tpu_torch.serving_http import PoseHTTPServer
+
+    data_dir = os.path.join(work, "Human3.6M")
+    serve_dir = os.path.join(work, "serve_e2e")
+    train = load_h36m(data_dir)[Task.Train]
+    out = {"predict": {}, "pose_http_p50_ms": {}}
+    servers = {q or "bf16": End2EndServer.from_run_dir(
+        serve_dir, train, variant="torch7", model_kw={"fused": True},
+        dtype=torch.bfloat16, quantize=q) for q in ("int8", None)}
+    for turn in ("int8", "bf16", "bf16", "int8"):
+        row = out["predict"].setdefault(turn, {})
+        for n in POSE_TIME_SIZES:
+            frames = _pose_frames(n, SEED + 92)
+            for _ in range(3):
+                servers[turn].predict(frames)
+            t0 = time.perf_counter()
+            for _ in range(POSE_TIME_CALLS):
+                servers[turn].predict(frames)
+            ms = (time.perf_counter() - t0) * 1e3 / POSE_TIME_CALLS
+            row.setdefault(n, []).append(ms)
+    for label, row in out["predict"].items():
+        for n, v in row.items():
+            row[n] = {"ms": min(v), "ms_turns": v,
+                      "frames_per_s": n * 1e3 / min(v)}
+        log(f"  End2EndServer.predict {label} (fused torch7, u8; best of two "
+            "turns): " + ", ".join(f"{n} frames {r['ms']:.2f} ms "
+                                   f"({r['frames_per_s']:.1f} frames/s)"
+                                   for n, r in row.items()))
+    out["pose_http_p50_ms"] = _pose_p50(PoseHTTPServer(
+        end2end=servers["int8"], max_delay_ms=0))
+    log("  /v1/pose wall p50 (int8, u8, one request at a time): " + ", ".join(
+        f"{n} frames {v:.2f} ms" for n, v in out["pose_http_p50_ms"].items()))
+    return out
+
+
+def _pose_p50(http):
+    """Wall p50 of /v1/pose at POSE_TIME_SIZES u8 frames, one request at a
+    time, through ``http`` (started and stopped here)."""
+    import numpy as np
+    from bilinear_tpu_torch.client import PoseClient
+
+    out = {}
     http.start()
     try:
         client = PoseClient(f"http://{http.host}:{http.port}")
-        for n in http_sizes:
+        for n in POSE_TIME_SIZES:
             frames = _pose_frames(n, SEED + 91)
             for _ in range(3):
                 client.pose(frames)
@@ -3242,17 +3803,216 @@ def time_e2e(work, http_sizes=POSE_TIME_SIZES):
                 t0 = time.perf_counter()
                 client.pose(frames)
                 secs.append(time.perf_counter() - t0)
-            out["pose_http_p50_ms"][n] = float(np.percentile(secs, 50)) * 1e3
+            out[n] = float(np.percentile(secs, 50)) * 1e3
     finally:
         http.stop()
-    log("  /v1/pose wall p50 (fused, bf16, u8, one request at a time): "
-        + ", ".join(f"{n} frames {v:.2f} ms"
-                    for n, v in out["pose_http_p50_ms"].items()))
     return out
+
+
+# ------------------------------------------------------------ phase 14
+
+# One End2End program: n = 3 pads to 8, 21 is 8 + 8 + 5 padded to 8 (each
+# size costs ~28 s of export and ~24 s of every load at full width).
+AOT_E2E_SIZES = ("8",)
+AOT_LIFT_ROWS = (1, 37, 300)
+AOT_POSE_FRAMES = (3, 21)
+# An artifact's answers against the in-process plain path on the same
+# device: mean and max |d| relative to mean |ref|. Lifting runs the same
+# operators (bf16 BilinearUnit; the static int8 chain) and End2End the
+# standard detector; the exported graph may take another kernel of an
+# operator (an addmm for a linear), so not every bit is the same.
+AOT_GATES = (1e-4, 1e-2)
+
+_AOT_CHILD = r"""
+import sys, numpy as np
+from bilinear_tpu_torch.io.aot import load_artifact
+leaked = sorted(m for m in sys.modules if m.startswith("bilinear_tpu_torch")
+                and m not in ("bilinear_tpu_torch", "bilinear_tpu_torch.io",
+                              "bilinear_tpu_torch.io.aot"))
+assert not leaked, leaked
+inputs = np.load(sys.argv[2])
+out = {}
+for path in sys.argv[3:]:
+    pose = load_artifact(path)
+    tag = path.rsplit("/", 1)[-1]
+    if pose.kind == "lifting":
+        for n in sorted(int(k.split("_")[1]) for k in inputs.files
+                        if k.startswith("kp_")):
+            out[f"{tag}:{n}"] = pose(inputs[f"kp_{n}"])
+    else:
+        for n in sorted(int(k.split("_")[1]) for k in inputs.files
+                        if k.startswith("frames_")):
+            p2, p3 = pose(inputs[f"frames_{n}"])
+            out[f"{tag}:{n}:2d"], out[f"{tag}:{n}:3d"] = p2, p3
+np.savez(sys.argv[1], **out)
+print("answered", len(out))
+"""
+
+
+def drive_aot(work):
+    """cli.export_aot on the card: lifting from phase 9's checkpoint (one
+    symbolic-batch bf16 program, and int8-static) and End2End from phase
+    12's 2.save (bf16, batch sizes AOT_E2E_SIZES). Each artifact is loaded
+    in a fresh process that imports io/aot.py alone, whose answers at
+    batch sizes that need chunking and padding must match the in-process
+    plain path (AOT_GATES); a ``serve --aot`` daemon of the int8-static
+    lifting and the End2End artifacts answers /v1/lift and /v1/pose as the
+    loaded artifacts do. Returns a record with the times."""
+    import numpy as np
+    import torch
+    from bilinear_tpu_torch.cli import export_aot, serve
+    from bilinear_tpu_torch.client import PoseClient
+    from bilinear_tpu_torch.data.h36m import Task, load_h36m
+    from bilinear_tpu_torch.io.checkpoint import latest_epoch, \
+        load_checkpoint
+    from bilinear_tpu_torch.models.bilinear import BilinearUnit
+    from bilinear_tpu_torch.ops.lifting_int8 import (calibrate_scales,
+                                                     forward_chain,
+                                                     prepare_weights_int8)
+    from bilinear_tpu_torch.serving import End2EndServer
+    from bilinear_tpu_torch.serving_http import PoseHTTPServer
+    from bilinear_tpu_torch.utils.weights import bilinear_from_jax
+
+    save_root = os.path.join(work, "save")
+    data_dir = os.path.join(work, "Human3.6M")
+    lift_run = os.path.join(save_root, "Bilinear GT")
+    serve_dir = os.path.join(work, "serve_e2e")
+    out_dir = os.path.join(work, "aot")
+    os.makedirs(out_dir)
+    train = load_h36m(data_dir)[Task.Train]
+    common = ["--data-dir", data_dir]
+    paths = {t: os.path.join(out_dir, f"{t}.aot")
+             for t in ("lifting", "lifting_int8", "end2end")}
+    record = {"export_s": {}, "artifact_mb": {}}
+    for tag, argv in (
+            ("lifting", ["--kind", "lifting", "--run-dir", lift_run]),
+            ("lifting_int8", ["--kind", "lifting", "--run-dir", lift_run,
+                              "--quantize", "int8-static"]),
+            ("end2end", ["--kind", "end2end", "--run-dir", serve_dir,
+                         "--batch-sizes", *AOT_E2E_SIZES])):
+        t0 = time.perf_counter()
+        run_cli(export_aot.main, common + argv + ["--out", paths[tag]])
+        record["export_s"][tag] = time.perf_counter() - t0
+        record["artifact_mb"][tag] = os.path.getsize(paths[tag]) / 1e6
+    log(f"  cli.export_aot: {record['export_s']} s; "
+        f"{record['artifact_mb']} MB")
+
+    rs = np.random.RandomState(SEED + 140)
+    tree = _tree_frames(data_dir, torch.device("cuda"))
+    inputs = {f"kp_{n}": (train.mean_part + train.std_part * rs.randn(
+        n, 32)).astype(np.float32).reshape(n, 16, 2) for n in AOT_LIFT_ROWS}
+    inputs.update({f"frames_{n}": np.take(tree, np.arange(n) % len(tree),
+                                          axis=0) for n in AOT_POSE_FRAMES})
+    in_path, out_path = (os.path.join(out_dir, f) for f in ("in.npz",
+                                                             "out.npz"))
+    np.savez(in_path, **inputs)
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", _AOT_CHILD, out_path, in_path,
+         *paths.values()], cwd=ROOT, capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)))
+    record["fresh_process_s"] = time.perf_counter() - t0
+    if child.returncode != 0:
+        raise AssertionError(f"the fresh process failed: "
+                             f"{child.stderr[-4000:]}")
+    got = dict(np.load(out_path))
+    log(f"  a fresh process importing io/aot.py alone loaded the three "
+        f"artifacts and answered {len(got)} requests in "
+        f"{record['fresh_process_s']:.1f} s")
+
+    dev = torch.device("cuda")
+    payload = load_checkpoint(os.path.join(lift_run, "parameter"),
+                              latest_epoch(os.path.join(lift_run,
+                                                        "parameter")))
+    params, stats = payload["state"]["params"], payload["state"]["batch_stats"]
+    net = BilinearUnit(dtype=torch.bfloat16)
+    net.load_state_dict(bilinear_from_jax(params, stats))
+    net = net.to(dev).eval()
+    prepared = prepare_weights_int8(params, stats, dev)
+    scales = calibrate_scales(prepare_weights_int8(params, stats, "cpu"),
+                              np.asarray(train.part, np.float32)[:4096])
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32).reshape(-1),
+                               device=dev)
+
+    mp, sp, ms, ss = (t(a) for a in (train.mean_part, train.std_part,
+                                     train.mean_s, train.std_s))
+    gaps, failed = {}, []
+    with torch.no_grad():
+        for n in AOT_LIFT_ROWS:
+            x = (torch.from_numpy(inputs[f"kp_{n}"]).to(dev).reshape(n, 32)
+                 - mp) / sp
+            refs = {"lifting": net(x), "lifting_int8": forward_chain(
+                prepared, scales, x[None])[0]}
+            for tag, y in refs.items():
+                ref = (y.float() * ss + ms).reshape(n, 16, 3).cpu().numpy()
+                gaps[f"{tag}:{n}"] = (got[f"{tag}.aot:{n}"], ref)
+    plain = End2EndServer.from_run_dir(
+        serve_dir, train, variant="torch7", dtype=torch.bfloat16,
+        batch_sizes=tuple(int(b) for b in AOT_E2E_SIZES))
+    for n in AOT_POSE_FRAMES:
+        p2, p3 = plain.predict(inputs[f"frames_{n}"])
+        gaps[f"end2end:{n}:2d"] = (got[f"end2end.aot:{n}:2d"], p2)
+        gaps[f"end2end:{n}:3d"] = (got[f"end2end.aot:{n}:3d"], p3)
+    record["vs_plain"] = {}
+    for key, (a, ref) in gaps.items():
+        d, scale = np.abs(a - ref), float(np.abs(ref).mean()) or 1.0
+        rel = (float(d.mean() / scale), float(d.max() / scale))
+        record["vs_plain"][key] = {"mean_rel": rel[0], "max_rel": rel[1],
+                                   "bit_equal_share": float((d == 0).mean())}
+        if a.shape != ref.shape or rel[0] > AOT_GATES[0] or \
+                rel[1] > AOT_GATES[1]:
+            failed.append(f"{key}: {rel}")
+    log("  artifacts vs the in-process plain path (mean, max |d| / mean|ref|"
+        f", gates {AOT_GATES}): " + "; ".join(
+            f"{k} {v['mean_rel']:.2e} {v['max_rel']:.2e}"
+            for k, v in record["vs_plain"].items()))
+    if failed:
+        raise AssertionError("artifacts off the plain path: "
+                             + "; ".join(failed))
+
+    args = serve.build_parser().parse_args(
+        ["--aot", paths["lifting_int8"], paths["end2end"], "--port", "0"])
+    t0 = time.perf_counter()
+    http = serve.build_server(args)
+    record["serve_aot_load_s"] = time.perf_counter() - t0
+    http.start()
+    try:
+        client = PoseClient(f"http://{http.host}:{http.port}")
+        health = client.health()
+        lifted = client.lift(inputs["kp_37"])
+        p2, p3 = client.pose(inputs["frames_3"])
+    finally:
+        http.stop()
+    if health["lift"]["epoch"] != payload["epoch"] or \
+            health["pose"]["epoch"] != 2:
+        raise AssertionError(f"serve --aot health {health}")
+    if not (np.array_equal(lifted, got["lifting_int8.aot:37"])
+            and np.array_equal(p2, got["end2end.aot:3:2d"])
+            and np.array_equal(p3, got["end2end.aot:3:3d"])):
+        raise AssertionError("serve --aot answers differ from the loaded "
+                             "artifacts'")
+    log(f"  serve --aot daemon: /v1/lift and /v1/pose answer as the loaded "
+        f"artifacts; health {health}")
+    pose = _pose_p50(PoseHTTPServer(end2end=http.end2end, max_delay_ms=0))
+    record["pose_http_p50_ms"] = pose
+    log("  /v1/pose wall p50 through the End2End artifact (bf16, sizes "
+        f"{AOT_E2E_SIZES}, u8, one request at a time): " + ", ".join(
+            f"{n} frames {v:.2f} ms" for n, v in pose.items()))
+    return record
 
 
 # ------------------------------------------------------------------ main
 
+# K6/K7 replace no Pallas kernel: the JAX functions they stand for are XLA.
+INT8_SOURCES = {
+    "int8_quantize": ("bilinear_tpu_torch/csrc/int8_conv.cu",
+                      "bilinear_tpu/ops/int8.py:43"),
+    "int8_conv": ("bilinear_tpu_torch/csrc/int8_conv.cu",
+                  "bilinear_tpu/ops/int8.py:53"),
+}
 SOURCES = {
     "lifting_bf16": ("bilinear_tpu_torch/csrc/lifting.cu",
                      "bilinear_tpu/ops/pallas/lifting.py:46"),
@@ -3291,9 +4051,10 @@ def run() -> dict:
     from bilinear_tpu_torch.utils.weights import bilinear_to_jax
 
     # phase 2: build
-    secs = _build.build_all(["lifting", "lifting_int8", "resmodule"])
-    log(f"phase 2: built csrc/lifting.cu, csrc/lifting_int8.cu and "
-        f"csrc/resmodule.cu in {secs:.1f} s")
+    secs = _build.build_all(["lifting", "lifting_int8", "resmodule",
+                             "int8_conv"])
+    log(f"phase 2: built csrc/lifting.cu, csrc/lifting_int8.cu, "
+        f"csrc/resmodule.cu and csrc/int8_conv.cu in {secs:.1f} s")
 
     # phase 3: kernels vs plain versions
     log("phase 3: kernels vs plain versions")
@@ -3327,8 +4088,8 @@ def run() -> dict:
 
 
 def _run_after_phase5(card, keep, errs, launches, table, end_to_end):
-    """Phases 9, 6-8, 10, 11 and 12, and the kernels' record; ``keep``
-    holds phase 9's lifting checkpoint for phase 12."""
+    """Phases 9, 6-8 and 10-14, and the kernels' record; ``keep`` holds
+    phase 9's lifting checkpoint for phase 12."""
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         # phase 9: training lifting
@@ -3389,6 +4150,20 @@ def _run_after_phase5(card, keep, errs, launches, table, end_to_end):
                       "step_parity_f32": e2e_parity(work)}
         log(f"phase 12: End2End times on {card}")
         e2e_result["times"] = time_e2e(work)
+        # phase 13: the detectors' int8 convolutions
+        log("phase 13: the detectors' int8 convolutions: K6/K7 vs their "
+            "plain versions, serve --kind both --quantize int8")
+        int8_shapes, int8_result = int8_conv_shapes()
+        int8_result = {"launches_per_forward": int8_result}
+        errs.update(check_int8_kernels(int8_shapes))
+        int8_launches, int8_result["serving"] = drive_int8_serving(work)
+        log(f"phase 13: int8 times on {card}")
+        int8_times = time_int8(int8_shapes)
+        int8_result["serving_times"] = time_int8_serving(work)
+        # phase 14: AOT export
+        log("phase 14: AOT export through cli.export_aot, fresh-process "
+            "loads, serve --aot")
+        aot_result = drive_aot(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3457,7 +4232,30 @@ def _run_after_phase5(card, keep, errs, launches, table, end_to_end):
         "recalibrated_stats_max_rel_diff": eval_parity,
         "times": eval_times}}))
     log(json.dumps({"fine_tuning_and_sh": ft_result}))
+    for name, (source, replaces) in INT8_SOURCES.items():
+        main = int8_times["main"]
+        k = "k6" if name == "int8_quantize" else "k7"
+        entry = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": int8_launches[name],
+            "launches_by_path": {"phase13_int8_serving":
+                                 int8_launches[name]},
+            "max_abs_err": errs[name], "shape_bhwcok": list(INT8_MAIN_SHAPE),
+            "ms": main[f"{k}_ms"], "plain_ms": main[f"{k}_plain_ms"],
+            "bound_ms": main[f"{k}_bound_ms"],
+            "bound_by": main.get(f"{k}_bound_by", "bytes"),
+            "library_ms": None}
+        entry["trace_ms"] = main[f"{k}_trace_ms"]
+        entry["device_kernels_per_call"] = main[
+            f"{k}_device_kernels_per_call"]
+        if k == "k7":
+            entry["yardstick_cudnn_bf16_conv_ms"] = main["cudnn_bf16_conv_ms"]
+            entry["yardstick_int_mm_im2col_ms"] = main["int_mm_im2col_ms"]
+            entry["per_shape"] = int8_times["per_shape"]
+        kernels.append(entry)
     log(json.dumps({"end2end": e2e_result}))
+    log(json.dumps({"int8": int8_result}))
+    log(json.dumps({"aot": aot_result}))
     return {"kernels": kernels, "card": card}
 
 

@@ -37,7 +37,8 @@ from bilinear_tpu_torch.ops import decode
 from bilinear_tpu_torch.serving import End2EndServer
 from bilinear_tpu_torch.serving_http import PoseHTTPServer, coerce_frames
 from bilinear_tpu_torch.utils import weights as wt
-from torch_port_fixtures import NoDropoutEnd2End, scramble_bn
+from torch_port_fixtures import (NoDropoutEnd2End, one_torch_thread,
+                                 scramble_bn)
 
 SIZE = dict(n_stacks=2, features=16, depth=2)
 VARIANTS = ("torch7", "preact")
@@ -195,8 +196,9 @@ def test_assemble_variables_and_refusals():
     model.load_state_dict(assemble_variables(det, lift))
     assert torch.equal(model.hourglass.htmapArray[0].weight,
                        det["htmapArray.0.weight"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        End2End(quantize="int8", **SIZE)
+    int8_model = End2End(quantize="int8", **SIZE)
+    assert int8_model.hourglass.hgArray[0].res1[0].quantize == "int8"
+    assert int8_model.state_dict().keys() == model.state_dict().keys()
     with pytest.raises(ValueError, match="unsupported quantize"):
         End2End(quantize="int4", **SIZE)
     with pytest.raises(ValueError, match="torch7 variant only"):
@@ -310,8 +312,8 @@ def test_warm_and_refusals(run_dir, h36m, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             End2EndServer.from_run_dir(run_dir, train, model_kw=SIZE)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        _server(run_dir, train, quantize="int8")
+    with pytest.raises(ValueError, match="unsupported quantize"):
+        _server(run_dir, train, quantize="int8-static")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         _server(run_dir, train, mesh=object())
 

@@ -62,7 +62,7 @@ from bilinear_tpu_torch.io import checkpoint as pckpt
 from bilinear_tpu_torch.train import end2end as te
 from bilinear_tpu_torch.train import hourglass as th
 from bilinear_tpu_torch.utils import weights as wt
-from torch_port_fixtures import NoDropoutEnd2End
+from torch_port_fixtures import NoDropoutEnd2End, one_torch_thread
 
 SIZE = dict(n_stacks=2, features=16, depth=2)
 BATCH, CANVAS, STEPS = 4, 256, 3

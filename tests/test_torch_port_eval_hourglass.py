@@ -36,6 +36,7 @@ from bilinear_tpu_torch.io import checkpoint as pckpt
 from bilinear_tpu_torch.ops import decode as pdecode
 from bilinear_tpu_torch.train.hourglass import HourglassTrainer
 from bilinear_tpu_torch.utils import weights as wt
+from torch_port_fixtures import one_torch_thread  # noqa: F401
 
 SIZE = dict(n_stacks=1, features=16, depth=2)
 BATCH, CANVAS = 4, 256

@@ -31,6 +31,7 @@ from bilinear_tpu_torch.models.hourglass import StackedHourglass
 from bilinear_tpu_torch.ops import joints as pjoints
 from bilinear_tpu_torch.train import hourglass as th
 from bilinear_tpu_torch.utils import weights as wt
+from torch_port_fixtures import one_torch_thread  # noqa: F401
 
 SIZE = dict(n_stacks=2, features=16, depth=2)
 JSIZE = dict(stacks=2, out_channels=16, compression_time=2)

@@ -24,6 +24,7 @@ from bilinear_tpu_torch.core.optim import hourglass_optimizer
 from bilinear_tpu_torch.models.hourglass_torch7 import MainModel
 from bilinear_tpu_torch.train.hourglass import heatmap_loss
 from bilinear_tpu_torch.utils import weights as wt
+from torch_port_fixtures import one_torch_thread  # noqa: F401
 
 CFG = dict(n_stacks=2, features=16, depth=2)
 

@@ -19,7 +19,8 @@ from bilinear_tpu.ops.pallas import lifting_int8 as jq
 from bilinear_tpu.train.bilinear import BilinearTrainer
 from bilinear_tpu_torch.ops import lifting as pl
 from bilinear_tpu_torch.ops import lifting_int8 as pq
-from torch_port_fixtures import rows, scrambled_variables, ulp_gap
+from torch_port_fixtures import (one_torch_thread, rows,
+                                 scrambled_variables, ulp_gap)
 
 
 def _gate(out, ref, scale):

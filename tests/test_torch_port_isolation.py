@@ -73,8 +73,26 @@ def test_port_modules_are_listed():
                      "bilinear_tpu_torch.train.end2end",
                      "bilinear_tpu_torch.cli.train_end2end",
                      "bilinear_tpu_torch.cli.valid_end2end",
-                     "bilinear_tpu_torch.cli.webcam"):
+                     "bilinear_tpu_torch.cli.webcam",
+                     "bilinear_tpu_torch.ops.int8",
+                     "bilinear_tpu_torch.io.aot",
+                     "bilinear_tpu_torch.cli.export_aot",
+                     "bilinear_tpu_torch.cli.export_torch"):
         assert expected in names
+
+
+def test_aot_loader_imports_no_other_port_module():
+    """io/aot.py, whose loader half a deployment box runs, imports torch,
+    numpy and the standard library: no other module of the port (the
+    export half imports the models inside its functions)."""
+    code = ("import sys, bilinear_tpu_torch.io.aot; print(sorted(m for m in "
+            "sys.modules if m.startswith('bilinear_tpu_torch')))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.split() == ["['bilinear_tpu_torch',",
+                                   "'bilinear_tpu_torch.io',",
+                                   "'bilinear_tpu_torch.io.aot']"]
 
 
 @pytest.mark.parametrize("extra", [[], ["chip_smoke"]],

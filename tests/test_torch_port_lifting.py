@@ -10,7 +10,7 @@ import torch
 from bilinear_tpu.models.bilinear import BilinearUnit as JaxBilinearUnit
 from bilinear_tpu.ops.pallas import lifting as jl
 from bilinear_tpu_torch.ops import lifting as pl
-from torch_port_fixtures import rows, scrambled_variables
+from torch_port_fixtures import one_torch_thread, rows, scrambled_variables
 
 
 @pytest.fixture(scope="module")

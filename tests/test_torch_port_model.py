@@ -20,7 +20,7 @@ from bilinear_tpu_torch.eval.mpjpe import evaluate_mpjpe
 from bilinear_tpu_torch.io import checkpoint as pckpt
 from bilinear_tpu_torch.models.bilinear import BilinearUnit
 from bilinear_tpu_torch.utils.weights import bilinear_from_jax, bilinear_to_jax
-from torch_port_fixtures import rows, scrambled_variables
+from torch_port_fixtures import one_torch_thread, rows, scrambled_variables
 
 
 @pytest.fixture(scope="module")

@@ -28,6 +28,7 @@ from bilinear_tpu_torch.ops import affine as paff
 from bilinear_tpu_torch.ops import augment as paug
 from bilinear_tpu_torch.ops import heatmap as phm
 from bilinear_tpu_torch.ops.joints import MPII_FLIP_SWAP
+from torch_port_fixtures import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -17,6 +17,7 @@ import torch
 
 from bilinear_tpu.ops.pallas import resmodule as jrm
 from bilinear_tpu_torch.ops import resmodule as prm
+from torch_port_fixtures import one_torch_thread  # noqa: F401
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

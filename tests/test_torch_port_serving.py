@@ -198,8 +198,8 @@ def test_cli_builds_lifting_daemon(setup):
     args = pserve.build_parser().parse_args(
         ["--run-dir", run_dir, "--data-dir", d, "--device", "cpu",
          "--aot", "lifting.aot"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pserve.build_server(args)
+    with pytest.raises(FileNotFoundError, match="lifting.aot"):
+        pserve.build_server(args)  # --aot serves artifacts, not the run
 
 
 def test_cli_builds_end2end_and_both_daemons(setup, tmp_path):
@@ -207,8 +207,8 @@ def test_cli_builds_end2end_and_both_daemons(setup, tmp_path):
     /v1/lift (its lifting model from --lifting-run-dir), at the small size
     of --n-stacks/--features/--depth, on the CPU; the torch7 detector is
     built fused (its ResModule kernels' plain versions on the CPU), the
-    preact one not; --kind end2end --quantize int8 (the detectors' int8
-    convolutions) raises "not ported yet"."""
+    preact one not; --kind end2end --quantize int8 and int8-static build
+    an int8 End2EndServer (the detectors' int8 convolutions)."""
     d, run_dir, _ = setup
     e2e_dir = str(tmp_path / "End2End")
     common = ["--data-dir", d, "--device", "cpu",
@@ -249,5 +249,12 @@ def test_cli_builds_end2end_and_both_daemons(setup, tmp_path):
         args = pserve.build_parser().parse_args(
             common + ["--kind", "end2end", "--quantize", quantize,
                       "--run-dir", f"{e2e_dir}/torch7"])
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            pserve.build_server(args)
+        http = pserve.build_server(args)
+        http.start()
+        try:
+            assert http.end2end.quantize == "int8"
+            p2, _ = PoseClient(f"http://{http.host}:{http.port}").pose(
+                frames[:1])
+            assert np.isfinite(p2).all()
+        finally:
+            http.stop()

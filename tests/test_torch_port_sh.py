@@ -35,6 +35,7 @@ from bilinear_tpu_torch.data.h36m import Protocol, Task, load_h36m
 from bilinear_tpu_torch.data.synthetic import write_h36m_dataset, \
     write_mpii_dataset
 from bilinear_tpu_torch.serving_http import PoseHTTPServer
+from torch_port_fixtures import one_torch_thread  # noqa: F401
 
 TINY = ["--n-stacks", "1", "--features", "8", "--depth", "1"]
 CPU = ["--device", "cpu"]

@@ -19,6 +19,7 @@ from bilinear_tpu_torch.cli import train_hourglass
 from bilinear_tpu_torch.data.synthetic import write_mpii_dataset
 from bilinear_tpu_torch.io import checkpoint as pckpt
 from bilinear_tpu_torch.train.hourglass import HourglassTrainer
+from torch_port_fixtures import one_torch_thread  # noqa: F401
 
 SIZE = dict(n_stacks=1, features=16, depth=2)
 ARGS = ["--n-stacks", "1", "--features", "16", "--depth", "2",

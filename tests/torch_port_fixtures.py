@@ -1,10 +1,13 @@
 """Shared inputs of the ``test_torch_port_*`` files: the JAX package's
 ``BilinearUnit`` at full width with non-trivial BN statistics, as numpy
-trees that both packages take; a BN scrambler; and the JAX End2End without
-dropout."""
+trees that both packages take; a BN scrambler; the JAX End2End without
+dropout; and the fixture that runs each port test module on one torch
+thread."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from bilinear_tpu.models.bilinear import BilinearUnit
 from bilinear_tpu.models.end2end import End2End as _JaxEnd2End
@@ -83,3 +86,19 @@ class NoDropoutEnd2End(_JaxEnd2End):
                 **{names[k]: v for k, v in size.items()})
         self.bilinear = BilinearUnit(dtype=self.dtype, dropout=0.0,
                                      name="bilinear")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The module's tests run torch on one intra-op thread (imported by name
+    into each port test module, which makes it autouse there). The suite
+    runs in several worker processes on one machine, where each process's
+    pool of OpenMP threads waits at the barrier of every small op for
+    threads the other processes keep descheduled: on an 8-core CPU the SH
+    protocol chain of test_torch_port_sh.py took 261 s with torch's default
+    pool beside five busy processes, 63 s with one thread, and 13 s
+    alone."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
