@@ -328,41 +328,24 @@ __device__ __forceinline__ unsigned char* align_ring(unsigned char* raw) {
       (reinterpret_cast<uintptr_t>(raw) + 1023) & ~(uintptr_t)1023);
 }
 
-// acc = A[m0 .. m0 + BM, :] @ B[n0 .. n0 + BN, :]^T for this thread's
-// warpgroup. kbytes: a row of K in bytes (a multiple of 32). The copies of
-// slab s + AHEAD start when slab s is multiplied, into the stage whose
-// product every warpgroup has waited for. Ends with the ring free.
-template <typename TC, int NWG, int BN, int DEPTH>
+// acc = the products of slabs [s0, s1) of K (128 bytes each; kbytes, a row
+// of K in bytes, a multiple of 32) for this thread's warpgroup, the first
+// product overwriting acc. load(stage, s) issues this thread's copies of
+// slab s into the ring stage at shared address `stage` (BM rows of A, then
+// BN rows of B, 128-byte swizzled); it is called once per slab, in order.
+// The copies of slab s + AHEAD start when slab s is multiplied, into the
+// stage whose product every warpgroup has waited for. Ends with the ring
+// free.
+template <typename TC, int NWG, int BN, int DEPTH, typename Load>
 __device__ __forceinline__ void mainloop(
-    const unsigned char* __restrict__ A, const unsigned char* __restrict__ B,
-    int M, int N, int kbytes, int m0, int n0, unsigned char* ring,
+    Load& load, int kbytes, int s0, int s1, unsigned char* ring,
     typename MmaOf<TC, BN>::acc_t (&acc)[BN / 2]) {
   using C = Tile<NWG, BN, DEPTH>;
-  const int tid = threadIdx.x, j = tid & 7, rb = tid >> 3;
-  const int wgid = tid >> 7;
-  const int slabs = (kbytes + 127) >> 7;
+  const int wgid = threadIdx.x >> 7;
   const uint32_t ring_s = (uint32_t)__cvta_generic_to_shared(ring);
-  int fetched = 0, fstage = 0;
+  int fetched = s0, fstage = 0;
   auto fetch = [&]() {
-    if (fetched < slabs) {
-      const uint32_t st = ring_s + fstage * C::STAGE;
-      const int kb = fetched * 128 + j * 16;
-      const bool kok = kb < kbytes;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = rb + i * (C::THREADS / 8);
-        const bool ok = kok && m0 + r < M;
-        cp16z(st + swz(r, j), A + (ok ? (size_t)(m0 + r) * kbytes + kb : 0),
-              ok);
-      }
-#pragma unroll
-      for (int i = 0; i < BN * 8 / C::THREADS; ++i) {
-        const int n = rb + i * (C::THREADS / 8);
-        const bool ok = kok && n0 + n < N;
-        cp16z(st + C::A_BYTES + swz(n, j),
-              B + (ok ? (size_t)(n0 + n) * kbytes + kb : 0), ok);
-      }
-    }
+    if (fetched < s1) load(ring_s + fstage * C::STAGE, fetched);
     ++fetched;
     fstage = fstage + 1 == DEPTH ? 0 : fstage + 1;
     cp_commit();  // one group per slab, empty past the end
@@ -370,7 +353,7 @@ __device__ __forceinline__ void mainloop(
 #pragma unroll
   for (int s = 0; s < C::AHEAD; ++s) fetch();
   int cstage = 0;
-  for (int s = 0; s < slabs; ++s) {
+  for (int s = s0; s < s1; ++s) {
     const unsigned char* st = ring + cstage * C::STAGE;
     cstage = cstage + 1 == DEPTH ? 0 : cstage + 1;
     cp_wait<C::AHEAD - 1>();  // this thread's copies of slab s have landed
@@ -384,7 +367,7 @@ __device__ __forceinline__ void mainloop(
       if (kk < steps)
         MmaOf<TC, BN>::run(acc, wg::desc(st + wgid * 8192 + kk * 32, 16, 1024),
                            wg::desc(st + C::A_BYTES + kk * 32, 16, 1024),
-                           (s | kk) != 0);
+                           (s != s0 || kk != 0));
     wg::commit();
     if (C::DRAIN)
       wg::wait<0>();
@@ -495,9 +478,31 @@ __device__ __forceinline__ void gemm_tile(const Layer<W>& L, int m0, int n0,
   acc_t acc[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
-  mainloop<TC, NWG, BN, DEPTH>(static_cast<const unsigned char*>(L.A),
-                               static_cast<const unsigned char*>(L.B), L.M, L.N,
-                               L.K * (int)sizeof(TC), m0, n0, ring, acc);
+  // Slab s: rows m0.. of A and n0.. of B, bytes [128 s, 128 s + 128) of K.
+  const unsigned char* A = static_cast<const unsigned char*>(L.A);
+  const unsigned char* B = static_cast<const unsigned char*>(L.B);
+  const int kbytes = L.K * (int)sizeof(TC);
+  const int j = tid & 7, rb = tid >> 3;
+  auto load = [&](uint32_t st, int s) {
+    const int kb = s * 128 + j * 16;
+    const bool kok = kb < kbytes;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = rb + i * (C::THREADS / 8);
+      const bool ok = kok && m0 + r < L.M;
+      cp16z(st + swz(r, j), A + (ok ? (size_t)(m0 + r) * kbytes + kb : 0),
+            ok);
+    }
+#pragma unroll
+    for (int i = 0; i < BN * 8 / C::THREADS; ++i) {
+      const int n = rb + i * (C::THREADS / 8);
+      const bool ok = kok && n0 + n < L.N;
+      cp16z(st + C::A_BYTES + swz(n, j),
+            B + (ok ? (size_t)(n0 + n) * kbytes + kb : 0), ok);
+    }
+  };
+  mainloop<TC, NWG, BN, DEPTH>(load, kbytes, 0, (kbytes + 127) >> 7, ring,
+                               acc);
 
   acc_t* stg = reinterpret_cast<acc_t*>(ring);
   {

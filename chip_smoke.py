@@ -111,20 +111,26 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    float64 beside both and beside the standard model on core/norm.py's BN;
    and times of the train step, predict and /v1/pose.
 13. The detectors' int8 convolutions (kernels K6, K7): the distinct conv
-   shapes of a full-width torch7 and preact int8 forward (321 / 345 K6 and
-   K7 launches per forward, no K3), and K6/K7 against their plain versions
-   at each shape at batch 1, 8 and 16, bf16 and f32 (int8 values, scales
-   and int32 accumulators bit-equal, outputs equal; a planted fault, the
-   scales of the wrong sample, must differ); cli.serve --kind both
-   --quantize int8 on phase 12's End2End 2.save: /v1/pose at 1, 8, 16
-   frames equal to predict, 321 K6 and K7 launches per chunk and no K3,
-   /v1/lift through K2; the int8 model on the tree's frames equal to its
-   plain int8 version (the planted fault must fail that), within JAX's
-   int8-versus-float heatmap gates of the bf16 model and no farther from
-   the plain f32 model than 1.5x the bf16 model in decode shift, pose2d
-   and mm (JAX's absolute decode gates reported); times: K7 and K6 per
-   shape beside their bounds, cuDNN's bf16 conv and torch._int_mm over an
-   im2col, the plain versions, int8 against bf16 predict, /v1/pose p50.
+   shapes of a full-width torch7 and preact int8 forward (INT8_SHAPES; 321
+   / 345 K6 and K7 launches per forward, no K3), and K6 and every K7 route
+   against their plain versions bit for bit (int8 values, scales, int32
+   accumulators, outputs) at each shape at batch 1, 8 and 16, bf16 and
+   f32, and at three extra shapes: K7 through its own plan and, at batch 8
+   in bf16, through every other route and tile forced through plan_conv,
+   and the one-call K6 + K7 entry; two planted faults must be caught (K7
+   given the scales of the wrong sample; a split-K plan with its last
+   split dropped); cli.serve --kind both --quantize int8 on phase 12's
+   End2End 2.save: /v1/pose at 1, 8, 16 frames equal to predict, 321 K6
+   and K7 launches per chunk and no K3, /v1/lift through K2; the int8
+   model on the tree's frames equal to its plain int8 version (the planted
+   wrong-scale fault must fail that), within JAX's int8-versus-float
+   heatmap gates of the bf16 model and no farther from the plain f32 model
+   than 1.5x the bf16 model in decode shift, pose2d and mm (JAX's absolute
+   decode gates reported); times: K7 and K6 per shape by events and by
+   trace beside their bounds, cuDNN's bf16 conv (events and trace) and
+   torch._int_mm over an im2col, the plain versions, int8 against bf16
+   predict with each chunk's device time and K6/K7 share by trace,
+   /v1/pose p50 of both.
 14. AOT export: cli.export_aot of lifting (symbolic bf16 and int8-static)
    from phase 9's checkpoint and of End2End (batch 8) from phase 12's
    2.save; each artifact loaded in a fresh process that imports io/aot.py
@@ -137,6 +143,7 @@ Phases run in the order 1-5, 9, 6-8, 10-14. The line before the last is the kern
 """
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1552,12 +1559,14 @@ def _trace(fn, calls: int, pad: float = 0.02):
     One more call runs first, in the profiler's warm-up window: on a busy
     host the tracer comes up late and loses the first launches after its
     start, and records of the warm-up window are discarded anyway. The
-    recorded calls start ``pad`` seconds after the window opens, and the
-    window closes ``pad`` seconds after the card has finished them: the
-    profiler keeps a device record only if it falls inside the window on
-    the host's clock, and the card's timestamps, carried over to that
-    clock, can be off by some milliseconds either way (the first kernel of
-    the first call, or every kernel after it, were lost on torch 2.11)."""
+    window opens ``pad`` seconds after the warm-up call has finished, the
+    recorded calls start ``pad`` seconds after it opens, and it closes
+    ``pad`` seconds after the card has finished them: the profiler keeps a
+    device record only if it falls inside the window on the host's clock,
+    and the card's timestamps, carried over to that clock, can be off by
+    some milliseconds either way (the first kernel of the first call, or
+    every kernel after it, were lost on torch 2.11; the warm-up call's
+    kernels were once counted in, a whole extra call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1567,6 +1576,7 @@ def _trace(fn, calls: int, pad: float = 0.02):
                                    repeat=1)) as prof:
         fn()
         torch.cuda.synchronize()
+        time.sleep(pad)
         prof.step()
         time.sleep(pad)
         for _ in range(calls):
@@ -3263,9 +3273,30 @@ INT8_TIME_BATCH = 8  # a served chunk
 # The kernels line's shape: the hourglass 3x3 at 64 x 64 (B, H, W, Ci, Co,
 # k), the most frequent large conv of a forward.
 INT8_MAIN_SHAPE = (8, 64, 64, 128, 128, 3)
-# The preact heatmap head's width (Co = 16), which K7 takes though the
-# JAX package keeps that conv float: held beside the forward's shapes.
-INT8_EXTRA_SHAPES = ((64, 64, 256, 16, 1),)
+# The distinct (H, W, Ci, Co, k) of the int8 convs of a full-width torch7
+# and preact forward (int8_conv_shapes checks that the models still give
+# these), the largest first.
+INT8_SHAPES = (
+    (128, 128, 64, 64, 1), (128, 128, 64, 64, 3), (128, 128, 64, 128, 1),
+    (64, 64, 64, 64, 3), (64, 64, 64, 128, 1), (64, 64, 128, 64, 1),
+    (64, 64, 128, 128, 1), (64, 64, 128, 128, 3), (64, 64, 128, 256, 1),
+    (64, 64, 256, 128, 1), (32, 32, 128, 128, 3), (32, 32, 128, 256, 1),
+    (32, 32, 256, 128, 1), (16, 16, 128, 128, 3), (16, 16, 128, 256, 1),
+    (16, 16, 256, 128, 1), (8, 8, 128, 128, 3), (8, 8, 128, 256, 1),
+    (8, 8, 256, 128, 1), (4, 4, 128, 128, 3), (4, 4, 128, 256, 1),
+    (4, 4, 256, 128, 1))
+# Shapes K7 takes beside the forward's, each at one batch: the preact
+# heatmap head's width (Co = 16, which the JAX package keeps float), an M
+# (3 x 7 x 9 = 189) that is no multiple of the 128-row tile with a Co (48)
+# that is no tile width, and Ci = 192 (a 128-byte slab of K across two
+# taps at every other slab) with Co = 320 (two column tiles); samples that
+# end in a partial tile of K6 (8,192 values) in its cluster route (13 x 11 x
+# 128: 2.2 tiles) and its cooperative route (45 x 41 x 64: 14.4 tiles).
+INT8_EXTRA_SHAPES = ((8, (64, 64, 256, 16, 1)), (3, (7, 9, 64, 48, 3)),
+                     (2, (5, 3, 192, 320, 3)), (2, (13, 11, 128, 32, 1)),
+                     (2, (45, 41, 64, 16, 1)))
+# The shape of the planted dropped split: a split-K shape of a served chunk.
+INT8_SPLIT_SHAPE = (8, 16, 16, 128, 128, 3)
 # K7 launches per forward: three body convs per ResModule (torch7, 107) or
 # ResUnit (preact, 3 + 8 * 14 = 115); one K6 launch before each.
 INT8_PER_FORWARD = {"torch7": 3 * RES_PER_FORWARD, "preact": 3 * (3 + 8 * 14)}
@@ -3286,6 +3317,14 @@ INT8_POSE2D_GATE = 2.0
 INT8_MM_GATE = 0.1
 INT8_POSE_SIZES = (1, 8, 16)
 INT8_TIME_CALLS = 50
+# Device kernel names of K6 and K7 in a trace (K6: its cooperative kernel
+# or its cluster-per-sample kernel).
+INT8_KERNEL_NAMES = {"int8_quantize": ("quantize_kernel",
+                                       "quantize_sample_kernel"),
+                     "int8_conv": ("int8_conv_kernel",)}
+# K6's route, by the device kernel a trace shows it ran.
+K6_ROUTES = {"quantize_kernel": "cooperative_grid",
+             "quantize_sample_kernel": "cluster_per_sample"}
 
 
 def _int8_counts():
@@ -3304,23 +3343,23 @@ def _zero_int8_counts():
 def int8_conv_shapes():
     """The distinct (H, W, Ci, Co, k) of the int8 convs of one full-width
     torch7 and one full-width preact forward (bf16, quantize="int8", batch
-    1), recorded at K7's wrapper; each forward must launch K6 and K7
-    INT8_PER_FORWARD times and K3 never (the fused torch7 model bypasses
-    its blocks in int8 eval)."""
+    1), recorded at the one-call wrapper; each forward must launch K6 and
+    K7 INT8_PER_FORWARD times and K3 never (the fused torch7 model bypasses
+    its blocks in int8 eval), and the shapes must be INT8_SHAPES."""
     import torch
     from bilinear_tpu_torch.models.hourglass import StackedHourglass
     from bilinear_tpu_torch.models.hourglass_torch7 import MainModel
     from bilinear_tpu_torch.ops import int8
 
     shapes, per_forward = set(), {}
-    real = int8.int8_conv_cuda
+    real = int8.int8_conv_fused_cuda
 
-    def record(xq, sx, prepared, out_dtype):
-        shapes.add(tuple(xq.shape[1:]) + (prepared.kq.shape[0],
-                                          prepared.kq.shape[1]))
-        return real(xq, sx, prepared, out_dtype)
+    def record(x, prepared, out_dtype):
+        shapes.add(tuple(x.shape[1:]) + (prepared.kq.shape[0],
+                                         prepared.kq.shape[1]))
+        return real(x, prepared, out_dtype)
 
-    int8.int8_conv_cuda = record
+    int8.int8_conv_fused_cuda = record
     try:
         for name, model in (
                 ("torch7", MainModel(quantize="int8", fused=True,
@@ -3342,11 +3381,14 @@ def int8_conv_shapes():
                                      f"expected {want} of K6 and K7, no K3")
             del model
     finally:
-        int8.int8_conv_cuda = real
+        int8.int8_conv_fused_cuda = real
     out = sorted(shapes, key=lambda s: (-s[0], s[2], s[3], s[4]))
     log(f"  {len(out)} distinct int8 conv shapes (H, W, Ci, Co, k) over a "
         f"full torch7 and a full preact forward: {out}; launches per "
         f"forward {per_forward}")
+    if tuple(out) != INT8_SHAPES:
+        raise AssertionError(f"the int8 conv shapes are not INT8_SHAPES: "
+                             f"{out}")
     return out, per_forward
 
 
@@ -3365,58 +3407,103 @@ def _int8_operands(shape, b, dtype, gen, bias=True):
             None if bias_t is None else bias_t.cuda())
 
 
+def _int8_plans(b, shape):
+    """Every K7 plan of a shape: each instantiated tile through each route
+    K admits (split-K needs two slabs)."""
+    from bilinear_tpu_torch.ops import int8
+
+    h, w, ci, co, k = shape
+    return [int8.plan_conv(b, h, w, ci, co, k, route, bn, depth)
+            for bn, depth in int8.TILES for route in int8.ROUTES
+            if route == "wgmma" or k * k * ci > int8.SLAB]
+
+
 def check_int8_kernels(shapes):
-    """K6 and K7 against their plain versions on the card at every shape
-    of ``shapes`` and INT8_EXTRA_SHAPES, at batch 1, 8 and 16, bf16 and f32
-    (the extra shape also without a bias): K6's int8 values and scales, and
-    K7's int32 accumulators bit-equal to the plain versions', and K7's
-    outputs equal to the plain epilogue's on the plain accumulator. A
-    planted fault (the scales of the wrong sample) must change the
-    outputs. Returns {kernel: max |diff|}."""
+    """K6 and K7 against their plain versions on the card, bit for bit, at
+    every shape of ``shapes`` at batch 1, 8 and 16, bf16 and f32, and the
+    INT8_EXTRA_SHAPES (bf16, and without a bias): K6's int8 values and
+    scales; K7's int32 accumulator and outputs through its own plan; the
+    one-call entry's outputs; and at batch 8 in bf16, every other plan
+    (each route and tile forced through plan_conv where it is not chosen:
+    its accumulator and outputs). Two planted faults must change the
+    result: K7 given the scales of the wrong sample, and a split-K plan
+    with its last split dropped. Returns ({kernel: max |diff|}, {route:
+    cases})."""
     import torch
     from bilinear_tpu_torch.ops import int8
 
     gen = torch.Generator().manual_seed(SEED + 130)
     errs = {"int8_quantize": 0.0, "int8_conv": 0.0}
-    cases = [(s, b, dt, True) for s in list(shapes) + list(INT8_EXTRA_SHAPES)
-             for b in INT8_BATCHES for dt in (torch.bfloat16, torch.float32)]
-    cases += [(s, 8, torch.bfloat16, False) for s in INT8_EXTRA_SHAPES]
+    routes = {}
+    cases = [(s, b, dt, True) for s in shapes for b in INT8_BATCHES
+             for dt in (torch.bfloat16, torch.float32)]
+    cases += [(s, b, torch.bfloat16, bias) for b, s in INT8_EXTRA_SHAPES
+              for bias in (True, False)]
     t0 = time.perf_counter()
+    planted = set()
     for shape, b, dt, with_bias in cases:
         x, kern, bias = _int8_operands(shape, b, dt, gen, with_bias)
         prepared = int8.prepare_kernel(kern, bias)
         xq, sx = int8.quantize_activations(x)
         xr, sr = int8.quantize_activations_ref(x)
-        acc = int8.int8_conv_cuda(xq, None, prepared, torch.int32)
-        y = int8.int8_conv_cuda(xq, sx, prepared, dt)
         accr = int8.int8_conv_acc_ref(xr, prepared.kq)
         yr = int8.dequantize_ref(accr, sr, prepared, dt)
-        torch.cuda.synchronize()
-        eq = (torch.equal(xq, xr) and torch.equal(sx, sr),
-              torch.equal(acc, accr), torch.equal(y, yr))
+        own = int8.plan_conv(b, *shape)
+        plans = [own]
+        if b == INT8_TIME_BATCH and dt == torch.bfloat16:
+            plans += [p for p in _int8_plans(b, shape) if p != own]
+        eq = [torch.equal(xq, xr) and torch.equal(sx, sr)]
+        for plan in plans:
+            acc = int8.int8_conv_cuda(xq, None, prepared, torch.int32, plan)
+            y = int8.int8_conv_cuda(xq, sx, prepared, dt, plan)
+            eq += [torch.equal(acc, accr), torch.equal(y, yr)]
+            errs["int8_conv"] = max(errs["int8_conv"], float(
+                (y.float() - yr.float()).abs().max()))
+            key = f"{plan.route}/{plan.bn}x{plan.depth}"
+            routes[key] = routes.get(key, 0) + 1
+        fused = int8.int8_conv(x, prepared=prepared, out_dtype=dt)
+        eq.append(torch.equal(fused, yr))
         errs["int8_quantize"] = max(errs["int8_quantize"], float(
             (xq.int() - xr.int()).abs().max()))
-        errs["int8_conv"] = max(errs["int8_conv"], float(
-            (y.float() - yr.float()).abs().max()))
         if not all(eq):
             raise AssertionError(
                 f"int8 kernels at (B={b}, H, W, Ci, Co, k)={shape} {dt} "
-                f"bias={with_bias}: quantize/accumulator/output equal {eq}")
-        if b == 8 and shape == tuple(INT8_MAIN_SHAPE[1:]) and with_bias \
+                f"bias={with_bias}: quantize, then accumulator/output per "
+                f"plan {plans}, then the one-call entry: equal {eq}")
+        if (b,) + tuple(shape) == INT8_MAIN_SHAPE and with_bias \
                 and dt == torch.bfloat16:
             wrong = int8.int8_conv_cuda(xq, torch.roll(sx, 1, 0), prepared,
                                         dt)
             if torch.equal(wrong, yr):
                 raise AssertionError("K7 with the scales of the wrong "
                                      "sample matched the plain version")
+            planted.add("scales")
             log("  planted fault (K7 given the scales of the wrong sample): "
                 f"max |d| {float((wrong.float() - yr.float()).abs().max()):.3e}"
                 " from the plain version: caught")
+        if (b,) + tuple(shape) == INT8_SPLIT_SHAPE and with_bias \
+                and dt == torch.bfloat16:
+            if own.splits < 2:
+                raise AssertionError(f"{INT8_SPLIT_SHAPE} is planned "
+                                     f"without split-K: {own}")
+            dropped = own._replace(splits=own.splits - 1)
+            wrong = int8.int8_conv_cuda(xq, None, prepared, torch.int32,
+                                        dropped)
+            if torch.equal(wrong, accr):
+                raise AssertionError("K7 with a dropped split matched the "
+                                     "plain accumulator")
+            planted.add("split")
+            log(f"  planted fault (the last of {own.splits} splits of K "
+                f"dropped at {INT8_SPLIT_SHAPE}): max |d| "
+                f"{int((wrong.long() - accr.long()).abs().max())} in the "
+                "int32 accumulator: caught")
+    if planted != {"scales", "split"}:
+        raise AssertionError(f"planted faults run: {planted}")
     log(f"  K6/K7 vs the plain versions: {len(cases)} cases (every shape at "
-        f"batch {INT8_BATCHES}, bf16 and f32): int8 values, scales and int32 "
-        f"accumulators bit-equal, outputs equal; {time.perf_counter() - t0:.1f}"
-        " s")
-    return errs
+        f"batch {INT8_BATCHES}, bf16 and f32, and the extra shapes), K7 "
+        f"plans run {routes}: int8 values, scales, int32 accumulators and "
+        f"outputs bit-equal; {time.perf_counter() - t0:.1f} s")
+    return errs, routes
 
 
 def _im2col_int8(xq, k):
@@ -3447,16 +3534,47 @@ def int8_bound(kind, b, shape, out_itemsize=2):
                                        else "bytes")
 
 
-def time_int8(shapes):
-    """K7 and K6 by CUDA events at every int8 conv shape at batch 8 (and
-    the main shape at 1 and 16), bf16, beside each bound, cuDNN's bf16 conv
-    of the same shape and torch._int_mm over an int8 im2col (the GEMM
-    alone: yardsticks, not what the port calls); the plain versions at the
-    main shape. Returns {"per_shape": [...], "main": {...}}."""
+def _int8_kernel_split(per):
+    """{"int8_quantize" / "int8_conv" / "other": (ms, kernels)} per call of
+    a trace's {kernel: (ms, launches)}."""
+    out = {"int8_quantize": [0.0, 0.0], "int8_conv": [0.0, 0.0],
+           "other": [0.0, 0.0]}
+    for key, (ms, cnt) in per.items():
+        kind = next((k for k, names in INT8_KERNEL_NAMES.items()
+                     if any(n in key for n in names)), "other")
+        out[kind][0] += ms
+        out[kind][1] += cnt
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def _k6_route(per):
+    """K6's route in a trace of K6 + K7 calls: the K6_ROUTES name of each
+    device kernel that is not K7's (of any other kernel, its name), joined
+    by '+'."""
+    routes = set()
+    for key in per:
+        if any(n in key for n in INT8_KERNEL_NAMES["int8_conv"]):
+            continue
+        routes.add(next((r for n, r in K6_ROUTES.items()
+                         if re.search(rf"\b{n}\b", key)), key[:80]))
+    return "+".join(sorted(routes))
+
+
+def time_int8(shapes, q=None):
+    """K7 and K6 at every int8 conv shape at batch 8 (and the main shape
+    at 1 and 16), bf16: by CUDA events (K7 alone, K6 alone and the one-call
+    entry) and by a profiler trace of one K6 + K7 pair (each one's device
+    ms and device kernels per call), beside each bound, cuDNN's bf16 conv
+    of the same shape (by events and by trace) and torch._int_mm over an
+    int8 im2col (the GEMM alone: yardsticks, not what the port calls);
+    K7's route; the plain versions at the main shape. ``q`` is the ops.int8 module to time (by
+    default this checkout's): any checkout's, for a before run. Returns
+    {"per_shape": [...], "main": {...}}."""
     import torch
     import torch.nn.functional as F
-    from bilinear_tpu_torch.ops import int8
 
+    if q is None:
+        from bilinear_tpu_torch.ops import int8 as q
     gen = torch.Generator().manual_seed(SEED + 131)
     rows = []
     main_shape = tuple(INT8_MAIN_SHAPE[1:])
@@ -3465,13 +3583,33 @@ def time_int8(shapes):
     for b, shape in todo:
         h, w, ci, co, k = shape
         x, kern, bias = _int8_operands(shape, b, torch.bfloat16, gen)
-        prepared = int8.prepare_kernel(kern, bias)
-        xq, sx = int8.quantize_activations(x)
+        prepared = q.prepare_kernel(kern, bias)
+        xq, sx = q.quantize_activations(x)
         iters = INT8_TIME_CALLS
         row = {"shape_bhwcok": [b, h, w, ci, co, k]}
-        row["k7_ms"] = cuda_ms(lambda: int8.int8_conv_cuda(
-            xq, sx, prepared, torch.bfloat16), iters)
-        row["k6_ms"] = cuda_ms(lambda: int8.quantize_activations(x), iters)
+        if hasattr(q, "plan_conv"):
+            row["k7_route"] = q.plan_conv(b, h, w, ci, co, k)._asdict()
+
+        def k7():
+            return q.int8_conv_cuda(xq, sx, prepared, torch.bfloat16)
+
+        def k6():
+            return q.quantize_activations(x)
+
+        row["k7_ms"] = cuda_ms(k7, iters)
+        row["k6_ms"] = cuda_ms(k6, iters)
+        row["one_call_ms"] = cuda_ms(lambda: q.int8_conv(
+            x, prepared=prepared), iters)
+        # One K6 + K7 pair: every kernel but K7's is K6's (another
+        # checkout's K6 may be several device operations).
+        per = _trace_whole(lambda: (k6(), k7()), 10)
+        split = _int8_kernel_split(per)
+        row["k6_route"] = _k6_route(per)
+        row["k7_trace_ms"], row["k7_device_kernels_per_call"] = \
+            split["int8_conv"]
+        row["k6_trace_ms"] = split["int8_quantize"][0] + split["other"][0]
+        row["k6_device_kernels_per_call"] = (split["int8_quantize"][1]
+                                             + split["other"][1])
         row["k7_bound_ms"], row["k7_bound_by"] = int8_bound(
             "int8_conv", b, shape)
         row["k6_bound_ms"], _ = int8_bound("int8_quantize", b, shape)
@@ -3480,44 +3618,81 @@ def time_int8(shapes):
             memory_format=torch.channels_last)
         row["cudnn_bf16_conv_ms"] = cuda_ms(
             lambda: F.conv2d(xn, wn, padding=(k - 1) // 2), iters)
+        row["cudnn_bf16_conv_trace_ms"] = sum(ms for ms, _ in _trace_whole(
+            lambda: F.conv2d(xn, wn, padding=(k - 1) // 2), 10).values())
         a = _im2col_int8(xq, k)
         bm = prepared.kq.permute(0, 3, 1, 2).reshape(co, -1).t()
         row["int_mm_im2col_ms"] = cuda_ms(
             lambda: torch._int_mm(a, bm), iters) if a.shape[0] > 16 else None
         if b == INT8_TIME_BATCH and shape == main_shape:
-            row["k7_plain_ms"] = cuda_ms(lambda: int8.dequantize_ref(
-                int8.int8_conv_acc_ref(xq, prepared.kq), sx, prepared,
+            row["k7_plain_ms"] = cuda_ms(lambda: q.dequantize_ref(
+                q.int8_conv_acc_ref(xq, prepared.kq), sx, prepared,
                 torch.bfloat16), 5)
             row["k6_plain_ms"] = cuda_ms(
-                lambda: int8.quantize_activations_ref(x), 5)
-            for kern, fn in (("k7", lambda: int8.int8_conv_cuda(
-                    xq, sx, prepared, torch.bfloat16)),
-                    ("k6", lambda: int8.quantize_activations(x))):
-                per = _trace_whole(fn, 20)
-                row[f"{kern}_trace_ms"] = sum(ms for ms, _ in per.values())
-                row[f"{kern}_device_kernels_per_call"] = sum(
-                    c for _, c in per.values())
+                lambda: q.quantize_activations_ref(x), 5)
         rows.append(row)
+        route = row.get("k7_route", {})
         log(f"  int8 conv (B, H, W, Ci, Co, k)=({b}, {h}, {w}, {ci}, {co}, "
-            f"{k}): K7 {row['k7_ms']:.4f} ms (bound {row['k7_bound_ms']:.4f},"
-            f" {row['k7_bound_by']}; {row['k7_ms'] / row['k7_bound_ms']:.1f}x)"
-            f", K6 {row['k6_ms']:.4f} (bound {row['k6_bound_ms']:.4f}); "
-            f"cuDNN bf16 conv {row['cudnn_bf16_conv_ms']:.4f}, _int_mm "
-            f"im2col {row['int_mm_im2col_ms']}"
+            f"{k}) [{route.get('route', 'mma.sync')} bn {route.get('bn')} "
+            f"splits {route.get('splits')}]: K7 by trace "
+            f"{row['k7_trace_ms']:.4f} ms in "
+            f"{row['k7_device_kernels_per_call']:.0f} kernel(s) (events "
+            f"{row['k7_ms']:.4f}; bound {row['k7_bound_ms']:.4f}, "
+            f"{row['k7_bound_by']}; {row['k7_trace_ms'] / row['k7_bound_ms']:.1f}"
+            f"x), K6 by trace {row['k6_trace_ms']:.4f} in "
+            f"{row['k6_device_kernels_per_call']:.0f} [{row['k6_route']}] "
+            f"(events "
+            f"{row['k6_ms']:.4f}; bound {row['k6_bound_ms']:.4f}), one call "
+            f"K6+K7 {row['one_call_ms']:.4f}; cuDNN bf16 conv by trace "
+            f"{row['cudnn_bf16_conv_trace_ms']:.4f} (events "
+            f"{row['cudnn_bf16_conv_ms']:.4f}), _int_mm im2col "
+            f"{row['int_mm_im2col_ms']}"
             + (f"; plain K7 {row['k7_plain_ms']:.4f}, plain K6 "
-               f"{row['k6_plain_ms']:.4f}; by trace K7 "
-               f"{row['k7_trace_ms']:.4f} ms in "
-               f"{row['k7_device_kernels_per_call']:.0f} device kernels, K6 "
-               f"{row['k6_trace_ms']:.4f} in "
-               f"{row['k6_device_kernels_per_call']:.0f}"
-               if "k7_plain_ms" in row else ""))
+               f"{row['k6_plain_ms']:.4f}" if "k7_plain_ms" in row else ""))
         del x, xq, a
     main = next(r for r in rows if r["shape_bhwcok"] == list(INT8_MAIN_SHAPE))
-    total = sum(r["k7_ms"] for r in rows if r["shape_bhwcok"][0] ==
-                INT8_TIME_BATCH)
-    log(f"  K7 summed over the {len(shapes)} distinct shapes at batch "
-        f"{INT8_TIME_BATCH}: {total:.4f} ms")
+    at8 = [r for r in rows if r["shape_bhwcok"][0] == INT8_TIME_BATCH]
+    log(f"  summed over the {len(shapes)} distinct shapes at batch "
+        f"{INT8_TIME_BATCH}: K7 {sum(r['k7_trace_ms'] for r in at8):.4f} ms "
+        f"by trace ({sum(r['k7_ms'] for r in at8):.4f} by events), K6 "
+        f"{sum(r['k6_trace_ms'] for r in at8):.4f} by trace")
     return {"per_shape": rows, "main": main}
+
+
+def int8_forward_totals(model_cls, batches=INT8_POSE_SIZES):
+    """The launch-weighted cost of the int8 convs: one bf16 int8 eval
+    forward of a full-width, randomly initialised ``model_cls`` (a torch7
+    MainModel, fused, of any checkout) at each batch, traced: device ms
+    and kernels of the forward, K6's and K7's among them (by the names of
+    INT8_KERNEL_NAMES: another checkout's K6 kernels of other names count
+    with "other")."""
+    import torch
+
+    model = model_cls(quantize="int8", fused=True, dtype=torch.bfloat16,
+                      generator=torch.Generator().manual_seed(SEED))
+    model = model.cuda().eval()
+    out = {}
+    for n in batches:
+        x = torch.rand(n, 256, 256, 3, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(n))
+
+        def forward():
+            with torch.no_grad():
+                return model(x)
+
+        split = _int8_kernel_split(_trace_whole(forward, 1))
+        rec = {"device_ms": sum(ms for ms, _ in split.values()),
+               "device_kernels": sum(c for _, c in split.values())}
+        for key in INT8_KERNEL_NAMES:
+            rec[f"{key}_ms"], rec[f"{key}_kernels"] = split[key]
+        out[n] = rec
+        log(f"  one int8 forward of {n} frames by trace: "
+            f"{rec['device_ms']:.3f} ms of device time in "
+            f"{rec['device_kernels']:.0f} kernels; K6's named kernels "
+            f"{rec['int8_quantize_ms']:.3f} ms in "
+            f"{rec['int8_quantize_kernels']:.0f}, K7 "
+            f"{rec['int8_conv_ms']:.3f} ms in {rec['int8_conv_kernels']:.0f}")
+    return out
 
 
 def _last_heatmaps(server, frames):
@@ -3582,21 +3757,20 @@ def _int8_gates(q, f):
 
 def _plain_int8():
     """Context: the int8 convs through their plain versions on the card
-    (K6/K7's wrappers replaced by the plain functions)."""
+    (the one-call K6 + K7 wrapper replaced by the plain function)."""
     import contextlib
 
     from bilinear_tpu_torch.ops import int8
 
     @contextlib.contextmanager
     def ctx():
-        saved = int8.quantize_activations, int8.int8_conv_cuda
-        int8.quantize_activations = int8.quantize_activations_ref
-        int8.int8_conv_cuda = lambda xq, sx, p, dt: int8.dequantize_ref(
-            int8.int8_conv_acc_ref(xq, p.kq), sx, p, dt)
+        saved = int8.int8_conv_fused_cuda
+        int8.int8_conv_fused_cuda = lambda x, p, dt: int8.int8_conv_ref(
+            x, prepared=p, out_dtype=dt)
         try:
             yield
         finally:
-            int8.quantize_activations, int8.int8_conv_cuda = saved
+            int8.int8_conv_fused_cuda = saved
     return ctx()
 
 
@@ -3706,13 +3880,17 @@ def drive_int8_serving(work):
     record["int8_vs_bf16"] = dict(rec, missed=missed)
     record["bf16_vs_f32"], _ = _int8_gates(bf16, f32)
     record["int8_vs_f32"], _ = _int8_gates(q, f32)
-    real = int8.int8_conv_cuda
-    int8.int8_conv_cuda = lambda xq, sx, p, dt: real(
-        xq, sx if dt == torch.int32 else torch.roll(sx, 1, 0), p, dt)
+    real = int8.int8_conv_fused_cuda
+
+    def wrong_scales(x, p, dt):  # K6, then K7 on rolled scales
+        xq, sx = int8.quantize_activations(x)
+        return int8.int8_conv_cuda(xq, torch.roll(sx, 1, 0), p, dt)
+
+    int8.int8_conv_fused_cuda = wrong_scales
     try:
         fault = _last_heatmaps(e2e, tree)
     finally:
-        int8.int8_conv_cuda = real
+        int8.int8_conv_fused_cuda = real
     record["fault_vs_plain_int8"] = _rel_gap(fault, plain)
     log(f"  int8 model on {len(tree)} tree frames: K6/K7 against the plain "
         f"int8 convs {record['served_vs_plain_int8']:.2e} (gate "
@@ -3744,8 +3922,10 @@ def drive_int8_serving(work):
 
 def time_int8_serving(work):
     """End2EndServer.predict, int8 (fused torch7, K6/K7) against bf16
-    fused (K3), at 1, 8 and 16 u8 frames: ms and frames/s; /v1/pose wall
-    p50 of the int8 server (one request at a time)."""
+    fused (K3), at 1, 8 and 16 u8 frames: ms and frames/s, and from a trace
+    of one call the chunk's device ms and kernels, K6's and K7's among them
+    (the launch-weighted cost of the int8 convs per chunk); /v1/pose wall
+    p50 of both servers (one request at a time)."""
     import torch
     from bilinear_tpu_torch.data.h36m import Task, load_h36m
     from bilinear_tpu_torch.serving import End2EndServer
@@ -3777,10 +3957,30 @@ def time_int8_serving(work):
             "turns): " + ", ".join(f"{n} frames {r['ms']:.2f} ms "
                                    f"({r['frames_per_s']:.1f} frames/s)"
                                    for n, r in row.items()))
-    out["pose_http_p50_ms"] = _pose_p50(PoseHTTPServer(
-        end2end=servers["int8"], max_delay_ms=0))
-    log("  /v1/pose wall p50 (int8, u8, one request at a time): " + ", ".join(
-        f"{n} frames {v:.2f} ms" for n, v in out["pose_http_p50_ms"].items()))
+    out["chunk_trace"] = {}
+    for label, server in servers.items():
+        for n in POSE_TIME_SIZES:
+            frames = _pose_frames(n, SEED + 92)
+            split = _int8_kernel_split(_trace_whole(
+                lambda: server.predict(frames), 1))
+            rec = {"device_ms": sum(ms for ms, _ in split.values()),
+                   "device_kernels": sum(c for _, c in split.values())}
+            for key in INT8_KERNEL_NAMES:
+                rec[f"{key}_ms"], rec[f"{key}_kernels"] = split[key]
+            out["chunk_trace"].setdefault(label, {})[n] = rec
+            log(f"  one {label} chunk of {n} frames by trace: "
+                f"{rec['device_ms']:.3f} ms of device time in "
+                f"{rec['device_kernels']:.0f} kernels; K6 "
+                f"{rec['int8_quantize_ms']:.3f} ms in "
+                f"{rec['int8_quantize_kernels']:.0f}, K7 "
+                f"{rec['int8_conv_ms']:.3f} ms in "
+                f"{rec['int8_conv_kernels']:.0f}")
+    for label in ("int8", "bf16"):
+        out["pose_http_p50_ms"][label] = _pose_p50(PoseHTTPServer(
+            end2end=servers[label], max_delay_ms=0))
+        log(f"  /v1/pose wall p50 ({label}, u8, one request at a time): "
+            + ", ".join(f"{n} frames {v:.2f} ms" for n, v in
+                        out["pose_http_p50_ms"][label].items()))
     return out
 
 
@@ -4155,7 +4355,9 @@ def _run_after_phase5(card, keep, errs, launches, table, end_to_end):
             "plain versions, serve --kind both --quantize int8")
         int8_shapes, int8_result = int8_conv_shapes()
         int8_result = {"launches_per_forward": int8_result}
-        errs.update(check_int8_kernels(int8_shapes))
+        int8_errs, int8_result["routes_checked"] = check_int8_kernels(
+            int8_shapes)
+        errs.update(int8_errs)
         int8_launches, int8_result["serving"] = drive_int8_serving(work)
         log(f"phase 13: int8 times on {card}")
         int8_times = time_int8(int8_shapes)
@@ -4248,9 +4450,16 @@ def _run_after_phase5(card, keep, errs, launches, table, end_to_end):
         entry["trace_ms"] = main[f"{k}_trace_ms"]
         entry["device_kernels_per_call"] = main[
             f"{k}_device_kernels_per_call"]
+        entry["kernel_route"] = (main["k7_route"] if k == "k7" else {
+            "route": main["k6_route"],
+            "launches_per_call": main["k6_device_kernels_per_call"]})
+        entry["one_call_k6_k7_ms"] = main["one_call_ms"]
         if k == "k7":
             entry["yardstick_cudnn_bf16_conv_ms"] = main["cudnn_bf16_conv_ms"]
+            entry["yardstick_cudnn_bf16_conv_trace_ms"] = main[
+                "cudnn_bf16_conv_trace_ms"]
             entry["yardstick_int_mm_im2col_ms"] = main["int_mm_im2col_ms"]
+            entry["routes_checked"] = int8_result["routes_checked"]
             entry["per_shape"] = int8_times["per_shape"]
         kernels.append(entry)
     log(json.dumps({"end2end": e2e_result}))
