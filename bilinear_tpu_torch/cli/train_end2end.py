@@ -22,8 +22,12 @@ Unlike the JAX CLI, the config's ``--n-stacks/--features/--depth/
 them). ``--fused-blocks true`` with ``--variant torch7`` runs the
 detector's ResModules through kernels K3/K4. ``--device cpu`` runs the
 plain PyTorch path and is meant for tests only. ``--debug-nans``,
-``--cache-canvases``, multi-process runs and graceful preemption are not
-ported.
+``--cache-canvases`` and graceful preemption are not ported.
+
+Multi-process data parallelism: ``--coordinator host:port --num-processes
+N --process-id i`` on every process, as for ``train_hourglass``: every
+rank reads the same batches and draws and trains on its rows (global BN
+statistics in both halves); rank 0 alone logs and writes ``{epoch}.save``.
 """
 from __future__ import annotations
 
@@ -37,11 +41,13 @@ from bilinear_tpu_torch.config import HourglassFTConfig, parse_config
 from bilinear_tpu_torch.data.h36m import Task, load_h36m
 from bilinear_tpu_torch.data.h36m_images import H36MImageRecords
 from bilinear_tpu_torch.data.pipeline import MPIIHostPipeline
-from bilinear_tpu_torch.device import disable_tf32, resolve_device
+from bilinear_tpu_torch.device import disable_tf32
 from bilinear_tpu_torch.io.checkpoint import latest_epoch, \
     load_checkpoint, prune_checkpoints, resume_or_init, save_checkpoint
 from bilinear_tpu_torch.io.logger import get_logger
 from bilinear_tpu_torch.io.tensorboard import TBWriter
+from bilinear_tpu_torch.parallel.mesh import backend, is_primary, \
+    shutdown_distributed, start_run
 from bilinear_tpu_torch.train.end2end import End2EndTrainer, sample_augment
 from bilinear_tpu_torch.utils import weights as wt
 
@@ -54,9 +60,6 @@ def e2e_config(argv=None):
     cfg = parse_config(HourglassFTConfig(), argv)
     if cfg.comment == "Hourglass FT":
         cfg.comment = "End2End"
-    if cfg.coordinator or cfg.num_processes > 1:
-        raise NotImplementedError("multi-process training is not ported "
-                                  "yet; see ROADMAP.md")
     if cfg.cache_canvases:
         raise NotImplementedError("--cache-canvases is not ported yet")
     variant = "torch7" if cfg.variant == "torch7" else "preact"
@@ -104,8 +107,12 @@ def main(argv=None) -> None:
     args, _ = extra.parse_known_args(argv)
     if cfg.debug_nans:
         raise NotImplementedError("--debug-nans is not ported yet")
-    device = resolve_device(cfg.device or None)
-    logger, log_dir, _ = get_logger(cfg.comment, cfg.save_root)
+    mesh, device = start_run(cfg)
+    primary = is_primary(mesh)
+    logger, log_dir, _ = get_logger(cfg.comment, cfg.save_root,
+                                    quiet=not primary)
+    if mesh is not None:
+        logger.info("ranks: %d, backend %s", mesh.world, backend())
     parameter_dir = os.path.join(log_dir, "parameter")
 
     train = load_h36m(cfg.data_dir, "GT")[Task.Train]
@@ -120,7 +127,8 @@ def main(argv=None) -> None:
     trainer = End2EndTrainer(
         variant=variant, batch_size=cfg.batch_size,
         learning_rate=cfg.learning_rate, lambda_3d=args.lambda_3d,
-        dtype=DTYPES[cfg.dtype], model_kw=model_kw, device=device)
+        dtype=DTYPES[cfg.dtype], model_kw=model_kw, device=device,
+        mesh=mesh)
     state, start_epoch = resume_or_init(trainer.init_state(cfg.seed),
                                         parameter_dir)
     if start_epoch == 0:
@@ -134,7 +142,7 @@ def main(argv=None) -> None:
 
     stats = tuple(torch.as_tensor(a, dtype=torch.float32, device=device)
                   for a in (train.mean_part, train.std_part))
-    writer = TBWriter(log_dir)
+    writer = TBWriter(log_dir, enabled=primary)
     for epoch in range(start_epoch + 1, start_epoch + cfg.epochs_per_run + 1):
         t0 = time.perf_counter()
         n = 0
@@ -148,16 +156,21 @@ def main(argv=None) -> None:
             n += b["images"].shape[0]
         loss, hm_loss, loss_3d = float(loss), float(hm_loss), float(loss_3d)
         img_s = n / (time.perf_counter() - t0)
-        save_checkpoint(parameter_dir, epoch, *state.trees(),
-                        step=state.step)
-        prune_checkpoints(parameter_dir, cfg.keep_checkpoints,
-                          cfg.keep_every)
+        if primary:
+            save_checkpoint(parameter_dir, epoch, *state.trees(),
+                            step=state.step)
+            prune_checkpoints(parameter_dir, cfg.keep_checkpoints,
+                              cfg.keep_every)
+        if mesh is not None:
+            mesh.barrier()
         writer.scalar("E2E/loss", loss, state.step)
         writer.scalar("E2E/heatmap", hm_loss, state.step)
         writer.scalar("E2E/3d", loss_3d, state.step)
         logger.info("Epoch %d saved (loss %f = hm %f + 3d %f, epoch %.1f "
                     "img/s)", epoch, loss, hm_loss, loss_3d, img_s)
     writer.close()
+    if mesh is not None:
+        shutdown_distributed()
 
 
 if __name__ == "__main__":

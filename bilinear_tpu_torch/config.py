@@ -9,11 +9,17 @@ port's).
 
 The XLA compile cache and the platform override have no counterpart here,
 and the JAX configs' unused fields (prefetch, total_runs, the detector's
-profile) and process_id are left out; unknown flags are ignored, as in the
-JAX package. ``profile``, ``debug_nans`` and ``coordinator`` are kept where
-a CLI refuses them ("not ported yet"). ``device`` is the port's own:
-empty for the GPU (no CPU fallback), ``cpu`` for the plain-PyTorch path the
-tests take.
+profile) are left out; unknown flags are ignored, as in the JAX package.
+``profile`` and ``debug_nans`` are kept where a CLI refuses them ("not
+ported yet"). ``coordinator``/``num_processes``/``process_id`` start a
+multi-process run (``parallel/mesh.py::start_run``). ``device``,
+``local_processes`` and ``model_parallel`` are the port's own: ``device``
+empty for the GPU (no CPU fallback; rank i of a multi-process run takes
+``cuda:{(i % local_processes) % cards}``, ranks numbered host by host),
+``cpu`` for the plain-PyTorch path the tests take; ``local_processes`` the
+ranks each host runs (0: all of them, on one host); ``model_parallel`` the
+size of the lifter's tensor-parallel groups (the JAX CLI's mesh has a
+model axis of 1, and its TP is an API only).
 """
 from __future__ import annotations
 
@@ -50,8 +56,11 @@ class BilinearConfig:
     keep_checkpoints: int = 0
     keep_every: int = 0
     debug_nans: bool = False  # not ported yet
-    coordinator: str = ""  # multi-process DP: not ported yet
+    coordinator: str = ""  # host:port of rank 0 (multi-process)
     num_processes: int = 1
+    process_id: int = 0
+    local_processes: int = 0  # ranks on each host; 0 = all (one host)
+    model_parallel: int = 1  # ranks per tensor-parallel group
     device: str = ""  # '' = the GPU; 'cpu' = the plain path (tests)
 
 
@@ -78,8 +87,10 @@ class HourglassConfig:
     keep_checkpoints: int = 0
     keep_every: int = 0
     debug_nans: bool = False  # not ported yet
-    coordinator: str = ""  # multi-process DP: not ported yet
+    coordinator: str = ""  # host:port of rank 0 (multi-process)
     num_processes: int = 1
+    process_id: int = 0
+    local_processes: int = 0  # ranks on each host; 0 = all (one host)
     device: str = ""  # '' = the GPU; 'cpu' = the plain path (tests)
 
 

@@ -24,19 +24,92 @@ every BN's statistics and then re-estimates them with the cumulative
 average: ``reset_batch_stats`` and ``cumulative_momentum``. The JAX package
 passes the momentum at call time (``TorchBatchNorm.__call__``); torch keeps
 it on the module, so the context manager sets it and puts it back.
+
+Under data parallelism JAX's train-mode BN reduces over the global batch
+(GSPMD). Here a ``DataShard`` (the rows this rank holds of the global batch
+and the data group) is set on every BN with ``set_data_shard``; a BN whose
+shard's group has more than one rank normalises with global statistics
+(``global_batch_norm``: the per-channel sums and then the squared
+deviations all-reduced through the differentiable
+``torch.distributed.nn.functional.all_reduce``, so the backward reduces its
+per-channel sums too) and updates its running statistics with the global
+``n / (n - 1)``. With no shard, or a group of one, nothing changes.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator
+import math
+from typing import Iterator, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn.modules.batchnorm import _BatchNorm
 
 
+class DataShard:
+    """This rank's rows ``[offset, offset + rows)`` of a global batch of
+    ``total`` rows, and the data group that holds the others. The trainer
+    sets ``offset`` and ``total`` before each forward (``place``); every
+    module that was given the shard reads them then."""
+
+    def __init__(self, group=None):
+        self.group = group
+        self.offset = 0
+        self.total = 0
+
+    def place(self, offset: int, total: int) -> None:
+        self.offset, self.total = int(offset), int(total)
+
+    @property
+    def active(self) -> bool:
+        return self.group is not None and dist.get_world_size(self.group) > 1
+
+
+def active_shard(module: nn.Module) -> Optional[DataShard]:
+    """The module's ``DataShard`` when its group has more than one rank."""
+    shard = getattr(module, "data_shard", None)
+    return shard if shard is not None and shard.active else None
+
+
+def set_data_shard(model: nn.Module, shard: Optional[DataShard]) -> None:
+    """Give every module of ``model`` that reads a shard (every BN, and the
+    lifter's dropout layers) ``shard``; None takes it away."""
+    for m in model.modules():
+        if isinstance(m, _BatchNorm) or hasattr(type(m), "data_shard"):
+            m.data_shard = shard
+
+
+def global_batch_norm(bn: _BatchNorm, x: torch.Tensor,
+                      shard: DataShard) -> torch.Tensor:
+    """Train-mode BN of ``x`` (channels on dim 1) with the statistics of
+    the global batch: the per-channel sums all-reduced over the shard's
+    group for the mean, then the sums of squared deviations from it for the
+    biased variance, both through autograd. The running statistics take
+    the global mean and the unbiased variance with the global count."""
+    from torch.distributed.nn.functional import all_reduce
+
+    c = x.shape[1]
+    dims = [0] + list(range(2, x.ndim))
+    shape = (1, c) + (1,) * (x.ndim - 2)
+    n = shard.total * math.prod(x.shape[2:])
+    mean = all_reduce(x.sum(dims), group=shard.group) / n
+    d = x - mean.view(shape)
+    var = all_reduce(d.square().sum(dims), group=shard.group) / n
+    update_running_stats(bn, mean.detach(), var.detach(), n)
+    inv = torch.rsqrt(var + bn.eps) * bn.weight
+    return d * inv.view(shape) + bn.bias.view(shape)
+
+
+def batch_norm(bn: _BatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """``bn(x)``, or in train mode under a data group of more than one
+    rank, ``global_batch_norm``."""
+    shard = active_shard(bn) if bn.training else None
+    return bn(x) if shard is None else global_batch_norm(bn, x, shard)
+
+
 @torch.no_grad()
-def update_running_stats(bn: nn.BatchNorm2d, batch_mean: torch.Tensor,
+def update_running_stats(bn: _BatchNorm, batch_mean: torch.Tensor,
                          batch_var: torch.Tensor, n: int) -> None:
     """In place: count += 1, then ``r = (1 - f) r + f batch`` for the mean
     and for the unbiased variance ``var * n / (n - 1)``, with ``f =
@@ -67,6 +140,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        shard = active_shard(self)
+        if shard is not None:
+            return global_batch_norm(self, x, shard)
         var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
         n = x.numel() // x.shape[1]
         update_running_stats(self, mean.detach(), var.detach(), n)

@@ -25,7 +25,10 @@ class ClippedOptimizer:
     then a torch optimizer's step. ``count`` is the number of updates (the
     JAX optimizer state's ``count``). With a ``schedule``, the rate of
     update ``count + 1`` is written into the param groups before each
-    step."""
+    step. ``grad_norm``, when set, gives the norm to clip by (a model split
+    over ranks, ``parallel/tp.py``), with ``clip_grad_norm_``'s formula."""
+
+    grad_norm: Optional[Callable[[], torch.Tensor]] = None
 
     def __init__(self, params: Iterable[torch.nn.Parameter], inner,
                  max_norm: float,
@@ -41,7 +44,12 @@ class ClippedOptimizer:
 
     def step(self) -> None:
         with_grad = [p for p in self.params if p.grad is not None]
-        torch.nn.utils.clip_grad_norm_(with_grad, self.max_norm)
+        if self.grad_norm is None:
+            torch.nn.utils.clip_grad_norm_(with_grad, self.max_norm)
+        else:
+            coef = torch.clamp(self.max_norm / (self.grad_norm() + 1e-6),
+                               max=1.0)
+            torch._foreach_mul_([p.grad for p in with_grad], coef)
         if self.schedule is not None:
             lr = self.schedule(self.count + 1)
             for group in self.inner.param_groups:

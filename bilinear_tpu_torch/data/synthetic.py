@@ -1,8 +1,9 @@
 """Synthetic, schema-exact H36M annotation bins and MPII trees for tests and
 the chip smoke run (the port's own copy of ``make_h36m_bin``,
-``write_h36m_dataset``, ``make_mpii_mat`` and ``write_mpii_dataset`` from
-``bilinear_tpu/data/synthetic.py``; same seeds give the same arrays, the
-same ``.mat`` bytes and the same images).
+``write_h36m_dataset``, ``make_mpii_mat``, ``write_mpii_dataset`` and
+``write_h36m_learnable_dataset`` from ``bilinear_tpu/data/synthetic.py``;
+same seeds give the same arrays, the same ``.mat`` bytes and the same
+images).
 
 - 'image': ``{subject}_{action}.{camera}_{frame}.jpg`` names
 - 'S':      (N, 17, 3) float camera-space mm
@@ -371,3 +372,101 @@ def write_mpii_dataset(
             img = Image.fromarray(arr)
         img.save(os.path.join(root, "images", f"{i:09d}.jpg"), quality=92)
     return root
+
+
+def learnable_canvases(data_dir: str, seed: int = 0, img_size: int = 1000):
+    """Yield ``(path, canvas, xy, ring)`` for every image of a learnable
+    H36M tree whose bins are written, in ``write_h36m_learnable_dataset``'s
+    order: the uint8 canvas its JPEG encodes, and the (16, 2) pixels and
+    ring width of its markers, MPII id m's marker at ``xy[m]``. MPII id m's
+    marker goes to the H36M joint whose SH slot reads detection m and
+    survives the nose deletion (slot 9 is deleted by the lifting loader,
+    so only slot 10 takes the duplicated thorax id 9)."""
+    from PIL import Image
+
+    from bilinear_tpu_torch.data.h36m import Task
+    from bilinear_tpu_torch.ops.joints import FROM_MPII_TO_H36M
+
+    mpii_to_h36m_slot = {}
+    for h, m in enumerate(FROM_MPII_TO_H36M):
+        if h == 9:
+            continue
+        mpii_to_h36m_slot[int(m)] = h
+    assert len(mpii_to_h36m_slot) == 16
+    slots = [mpii_to_h36m_slot[m] for m in range(16)]
+
+    colors = _joint_colors()
+    rng = np.random.RandomState(seed + 7)
+    for task in (Task.Train, Task.Valid):
+        with open(os.path.join(data_dir, f"{task}_GT.bin"), "rb") as f:
+            bin_data = pickle.load(f)
+        for i, name in enumerate(bin_data["image"]):
+            subject = name.split("_")[0]
+            small = (rng.rand(img_size // 8, img_size // 8, 3) * 255)
+            small = (small * 0.35 + 20).astype(np.uint8)
+            img = Image.fromarray(small).resize(
+                (img_size, img_size), Image.BILINEAR
+            )
+            arr = np.asarray(img).copy()
+            xy = np.asarray(bin_data["part"][i])[slots]  # (16, 2)
+            ring = max(1.3, 2.0 * float(bin_data["scale"][i]))
+            for m in range(16):
+                _stamp_marker(arr, float(xy[m, 0]), float(xy[m, 1]), m,
+                              ring, colors)
+            yield os.path.join(data_dir, subject, name), arr, xy, ring
+
+
+def write_h36m_learnable_dataset(
+    data_dir: str,
+    n_train: int = 512,
+    n_valid: int = 128,
+    rank: int = 5,
+    seed: int = 0,
+    img_size: int = 1000,
+    calibration_dir: str = "/root/reference/calibration",
+    camera: str = "54138969",
+) -> str:
+    """A geometrically consistent, visually learnable H36M tree for the
+    whole SH chain (detector -> sh_preprocess -> SH lifting), the same
+    bins and images as the JAX package's for the same arguments:
+
+    - 3D poses on a shared low-rank manifold (2D determines 3D, so the
+      lifting task has a floor near zero);
+    - 2D 'part' through the camera calibration and the full distortion
+      model (``data/h36m_generate.py``);
+    - images carry the bullseye markers an MPII-trained detector reads, at
+      each joint's projected pixel, with ids chosen so that the SH
+      conversion's ``FROM_MPII_TO_H36M`` gather lands every detection on
+      the H36M slot that survives the loader's nose deletion.
+    """
+    from PIL import Image
+
+    from bilinear_tpu_torch.data.camera import load_camera
+    from bilinear_tpu_torch.data.h36m import Task
+    from bilinear_tpu_torch.data.h36m_generate import write_gt_bins
+
+    struct = np.random.RandomState(seed + 1000)
+    base = struct.randn(17, 3) * 150
+    basis = struct.randn(rank, 17, 3) * 80
+
+    def poses(n, s):
+        z = np.random.RandomState(s).randn(n, rank)
+        out = base[None] + np.einsum("nr,rjd->njd", z, basis)
+        out[:, :, 2] += 5000.0
+        return out.astype(np.float32)
+
+    def names(n, tag):
+        return [f"S1_Posing.{camera}_{tag}{i:06d}.jpg" for i in range(n)]
+
+    cam = load_camera(calibration_dir, camera)
+    splits = {
+        Task.Train: {"S": poses(n_train, seed), "images": names(n_train, "t"),
+                     "camera": cam},
+        Task.Valid: {"S": poses(n_valid, seed + 1),
+                     "images": names(n_valid, "v"), "camera": cam},
+    }
+    write_gt_bins(data_dir, splits)
+    for path, arr, _, _ in learnable_canvases(data_dir, seed, img_size):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(arr).save(path, quality=92)
+    return data_dir

@@ -12,11 +12,19 @@ from typing import Optional, Tuple
 FORMAT = "[%(levelname)s|%(filename)s:%(lineno)s] %(asctime)s > %(message)s"
 
 
-def get_logger(comment: Optional[str] = None, save_root: str = "save"
-               ) -> Tuple[logging.Logger, str, str]:
+def get_logger(comment: Optional[str] = None, save_root: str = "save",
+               quiet: bool = False) -> Tuple[logging.Logger, str, str]:
+    """``quiet=True`` (a data-parallel run's ranks but the first): the run
+    dir's names and a logger that writes nowhere."""
     if comment is None:
         comment = datetime.now().strftime("%b%d_%H-%M-%S")
     log_dir = os.path.join(save_root, comment)
+    if quiet:
+        logger = logging.getLogger("bilinear_tpu_torch.quiet")
+        logger.propagate = False
+        if not logger.handlers:
+            logger.addHandler(logging.NullHandler())
+        return logger, log_dir, comment
     os.makedirs(log_dir, exist_ok=True)
 
     formatter = logging.Formatter(FORMAT)

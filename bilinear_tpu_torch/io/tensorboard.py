@@ -14,9 +14,12 @@ except ImportError:  # pragma: no cover
 
 
 class TBWriter:
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, enabled: bool = True):
+        """``enabled=False`` writes nothing (a data-parallel run's ranks
+        but the first)."""
         self.path = os.path.join(log_dir, "visualize")
-        self._w = _SummaryWriter(log_dir=self.path) if _SummaryWriter else None
+        self._w = _SummaryWriter(log_dir=self.path) \
+            if _SummaryWriter and enabled else None
 
     def scalar(self, tag: str, value: float, step: int) -> None:
         if self._w:

@@ -21,6 +21,11 @@ tests' exact reference). The casts are explicit, no autocast.
 Train-mode dropout draws its keep mask from the ``generator`` passed to
 ``forward`` (on the activations' device), never from torch's global RNG:
 ``x / (1 - p)`` where ``rand < 1 - p``, else 0, as flax's ``Dropout``.
+
+Under data parallelism (``core/norm.py::set_data_shard``) the BNs take the
+global batch's statistics, and each dropout layer draws the mask of the
+whole global batch and keeps this rank's rows, so a step over the ranks
+draws what one process draws.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bilinear_tpu_torch.core.initializers import init_linear
+from bilinear_tpu_torch.core.norm import active_shard, batch_norm
 
 NUM_JOINTS = 17 - 1
 IN_FEATURES = 2 * NUM_JOINTS  # 32
@@ -49,9 +55,11 @@ def linear_in(linear: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            window=None) -> torch.Tensor:
     """Inverted dropout with a mask drawn from ``generator``; identity in
-    eval mode or at ``p == 0``."""
+    eval mode or at ``p == 0``. ``window``: (shape, index), the mask drawn
+    at the global ``shape`` and ``x``'s part of it taken by ``index``."""
     if not training or p == 0.0:
         return x
     if p >= 1.0:
@@ -60,13 +68,26 @@ def dropout(x: torch.Tensor, p: float, training: bool,
         raise ValueError("train-mode dropout needs an explicit "
                          "torch.Generator on the activations' device")
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape, index = (x.shape, ...) if window is None else window
+    mask = torch.rand(shape, generator=generator, device=x.device)[index] \
+        < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
 
+def row_window(x: torch.Tensor, shard):
+    """The dropout window of a rank's rows of the global batch (None
+    without an active shard)."""
+    if shard is None:
+        return None
+    return ((shard.total,) + tuple(x.shape[1:]),
+            slice(shard.offset, shard.offset + x.shape[0]))
+
+
 class HeavyLinear(nn.Sequential):
     """Linear -> BatchNorm1d -> ReLU -> Dropout."""
+
+    data_shard = None  # core/norm.py::set_data_shard
 
     def __init__(self, in_features: int, features: int,
                  dropout: float = 0.5, bn_momentum: Optional[float] = 0.1,
@@ -83,8 +104,10 @@ class HeavyLinear(nn.Sequential):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         lin, bn, _, drop = self
         h = linear_in(lin, x, self.dtype)
-        h = torch.relu(bn(h.to(_wide(self.dtype))).to(self.dtype))
-        return dropout(h, drop.p, self.training, generator)
+        h = torch.relu(batch_norm(bn, h.to(_wide(self.dtype)))
+                       .to(self.dtype))
+        return dropout(h, drop.p, self.training, generator,
+                       row_window(h, active_shard(self)))
 
 
 class BilinearUnit(nn.Module):

@@ -47,7 +47,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bilinear_tpu_torch.core.norm import BatchNorm2d, update_running_stats
+from bilinear_tpu_torch.core.norm import BatchNorm2d, active_shard, \
+    update_running_stats
 from bilinear_tpu_torch.ops import int8
 from bilinear_tpu_torch.ops import resmodule as rk
 
@@ -74,9 +75,11 @@ def conv_in(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
 def bn_in(bn: BatchNorm2d, x: torch.Tensor, dtype) -> torch.Tensor:
     """BN in f32 (f64 for a model in f64) on the ``dtype`` activation,
     rounded back to ``dtype``: torch's own on the card, ``bn``'s own
-    formulation on the CPU."""
+    formulation on the CPU and under a data group of more than one rank
+    (the global batch's statistics)."""
     x = x.to(torch.promote_types(torch.float32, dtype))
-    return (nn.BatchNorm2d.forward(bn, x) if x.is_cuda else bn(x)).to(dtype)
+    own = not x.is_cuda or (bn.training and active_shard(bn) is not None)
+    return (bn(x) if own else nn.BatchNorm2d.forward(bn, x)).to(dtype)
 
 
 class ResModule(nn.Module):
@@ -237,25 +240,46 @@ class MainModel(nn.Module):
             _conv(n_joints, features, 1) for _ in range(n_stacks - 1))
         init_weights(self, generator)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def stem(self, images: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) images -> the first stack's input (NCHW,
+        channels_last)."""
         dt = self.dtype
         x = images.permute(0, 3, 1, 2).to(dt).contiguous(memory_format=CL)
         pre = self.beforeHourglass
         h = torch.relu(bn_in(pre[1], conv_in(pre[0], x, dt), dt))
         h = pre[3](h)
         h = pre[5](F.max_pool2d(h, 2, 2))
-        inter = pre[6](h)
+        return pre[6](h)
+
+    def stack(self, i: int, inter: torch.Tensor):
+        """Stack ``i``: (its heatmaps (B, H/4, W/4, J) f32, the next
+        stack's input). The last stack has no feedback convs, and its
+        ``inter`` passes through."""
+        dt = self.dtype
+        ll = self.hgArray[i](inter)
+        lin = self.linArray[i]
+        ll = torch.relu(bn_in(lin[1], conv_in(lin[0], ll, dt), dt))
+        htmap = conv_in(self.htmapArray[i], ll, dt)
+        out = htmap.to(torch.promote_types(torch.float32, dt)) \
+            .permute(0, 2, 3, 1)
+        if i < self.n_stacks - 1:
+            inter = (inter + conv_in(self.llBarArray[i], ll, dt)
+                     + conv_in(self.htmapBarArray[i], htmap, dt))
+        return out, inter
+
+    def stack_modules(self, i: int):
+        """The modules stack ``i`` runs (for placing a pipeline stage)."""
+        mods = [self.hgArray[i], self.linArray[i], self.htmapArray[i]]
+        if i < self.n_stacks - 1:
+            mods += [self.llBarArray[i], self.htmapBarArray[i]]
+        return mods
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        inter = self.stem(images)
         heatmaps = []
         for i in range(self.n_stacks):
-            ll = self.hgArray[i](inter)
-            lin = self.linArray[i]
-            ll = torch.relu(bn_in(lin[1], conv_in(lin[0], ll, dt), dt))
-            htmap = conv_in(self.htmapArray[i], ll, dt)
-            heatmaps.append(htmap.to(torch.promote_types(torch.float32, dt))
-                            .permute(0, 2, 3, 1))
-            if i < self.n_stacks - 1:
-                inter = (inter + conv_in(self.llBarArray[i], ll, dt)
-                         + conv_in(self.htmapBarArray[i], htmap, dt))
+            out, inter = self.stack(i, inter)
+            heatmaps.append(out)
         return torch.stack(heatmaps, dim=0)  # (S, B, H/4, W/4, J)
 
 

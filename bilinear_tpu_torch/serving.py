@@ -16,6 +16,15 @@ torch7 detector its ResModules run through kernel K3 (eval), and with
 ``quantize="int8"`` the detector's body convs run as int8 convolutions
 (kernels K6/K7, no K3). Both servers run on the card unless
 ``device="cpu"`` is passed.
+
+``mesh=`` (a list of local devices or ``parallel/mesh.py::LocalMesh``; a
+device may repeat) serves one request over several devices, as JAX's
+``shard_map`` / GSPMD programs do: the weights are replicated to every
+device (one engine or model per device, republished together in one
+assignment on hot reload), a batch is split into equal row blocks (lifting
+pads the rows with zeros to a multiple of the devices, as JAX does), each
+block runs on its device through that device's kernels (K1/K2; K3 eval or
+K6/K7), and the blocks are joined in order.
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ from bilinear_tpu_torch.ops.lifting_int8 import (
     lifting_forward_int8,
     prepare_weights_int8,
 )
+from bilinear_tpu_torch.parallel.mesh import as_local_mesh
 
 QUANTIZE_MODES = (None, "int8", "int8-static")
 
@@ -48,6 +58,7 @@ class _LiftingEngine(NamedTuple):
 
     prepared: object
     static_scales: Optional[tuple]
+    shards: tuple = ()  # (device, prepared) per device of a mesh
 
 
 class LiftingServer:
@@ -76,16 +87,15 @@ class LiftingServer:
         re-calibrated on hot reload. Default (None) is the ``dtype`` kernel.
 
         ``device``: None is the card, and raises when there is none.
-        ``mesh``: multi-device serving is not ported yet."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded lifting is not ported yet; see ROADMAP.md"
-            )
+        ``mesh``: local devices to split each request's rows over (the
+        first holds the statistics and the answers)."""
         if quantize not in QUANTIZE_MODES:
             raise ValueError(f"unsupported quantize mode {quantize!r}")
         if dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"unsupported dtype {dtype!r}")
-        self.device = resolve_device(device)
+        self._mesh = None if mesh is None else as_local_mesh(mesh)
+        self.device = resolve_device(
+            self._mesh.devices[0] if self._mesh is not None else device)
         self._quantize = quantize
         self._dtype = dtype
         self._calib_sample = None if calib_sample is None else np.asarray(
@@ -107,20 +117,27 @@ class LiftingServer:
     def _set_weights(self, params, batch_stats) -> None:
         """(Re)fold the checkpoint into the kernel's prepared form and
         publish the complete new engine in one assignment."""
+        prepared = self._prepare(params, batch_stats, self.device)
         static_scales = None
+        if self._quantize == "int8-static":
+            if self._calib_sample is not None:
+                calib = self._calib_sample
+            else:
+                gen = torch.Generator().manual_seed(0)
+                calib = torch.randn((4096, 32), generator=gen)
+            static_scales = calibrate_scales(prepared, calib)
+        shards = () if self._mesh is None else tuple(
+            (dev, prepared if dev == self.device else
+             self._prepare(params, batch_stats, dev))
+            for dev in self._mesh.devices)
+        self._engine = _LiftingEngine(prepared, static_scales, shards)
+
+    def _prepare(self, params, batch_stats, device):
+        """The checkpoint folded (and quantized) for the kernel, on
+        ``device``."""
         if self._quantize in ("int8", "int8-static"):
-            prepared = prepare_weights_int8(params, batch_stats, self.device)
-            if self._quantize == "int8-static":
-                if self._calib_sample is not None:
-                    calib = self._calib_sample
-                else:
-                    gen = torch.Generator().manual_seed(0)
-                    calib = torch.randn((4096, 32), generator=gen)
-                static_scales = calibrate_scales(prepared, calib)
-        else:
-            prepared = prepare_weights(params, batch_stats, self._dtype,
-                                       self.device)
-        self._engine = _LiftingEngine(prepared, static_scales)
+            return prepare_weights_int8(params, batch_stats, device)
+        return prepare_weights(params, batch_stats, self._dtype, device)
 
     @classmethod
     def from_run_dir(cls, run_dir: str, split: H36MSplit, **kw):
@@ -164,14 +181,28 @@ class LiftingServer:
         self.epoch = newest
         return True
 
-    def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        eng = self._engine  # ONE read: a consistent snapshot
+    def _kernel(self, x: torch.Tensor, prepared, static_scales):
         if self._quantize in ("int8", "int8-static"):
             return lifting_forward_int8(
-                x=x, prepared=eng.prepared, static_scales=eng.static_scales,
+                x=x, prepared=prepared, static_scales=static_scales,
             )
         return lifting_forward(None, None, x, dtype=self._dtype,
-                               prepared=eng.prepared)
+                               prepared=prepared)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        eng = self._engine  # ONE read: a consistent snapshot
+        if not eng.shards:
+            return self._kernel(x, eng.prepared, eng.static_scales)
+        # JAX's sharded forward: zero rows up to a multiple of the devices,
+        # one equal block per device, the answers' first n rows.
+        n = x.shape[0]
+        k = len(eng.shards)
+        pad = (-n) % k
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad, x.shape[1]))])
+        outs = [self._kernel(block.to(dev), prepared, eng.static_scales)
+                for block, (dev, prepared) in zip(x.chunk(k), eng.shards)]
+        return torch.cat([o.to(self.device) for o in outs])[:n]
 
     def _rows(self, a, width: int) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(a, np.float32)) \
@@ -232,15 +263,22 @@ class End2EndServer:
         detector's body convs as dynamic int8 convolutions (the same
         checkpoints; weights quantized once per loaded model, again at each
         reload). ``device``: None is the card, and raises when there is
-        none. ``mesh``: multi-device serving is not ported yet."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded End2End serving is not ported yet; see "
-                "ROADMAP.md")
+        none. ``mesh``: local devices to split each chunk's frames over;
+        every entry of ``batch_sizes`` must divide over them."""
         if dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"unsupported dtype {dtype!r}")
         if quantize not in int8.MODES:
             raise ValueError(f"unsupported quantize mode {quantize!r}")
+        self._mesh = None if mesh is None else as_local_mesh(mesh)
+        if self._mesh is not None:
+            n_data = len(self._mesh)
+            bad = [b for b in batch_sizes if b % n_data]
+            if bad:
+                raise ValueError(
+                    f"batch_sizes {bad} do not divide the mesh's data axis "
+                    f"({n_data}); pick multiples of it"
+                )
+            device = self._mesh.devices[0]
         self.device = resolve_device(device)
         self.variant = variant
         self.dtype = dtype
@@ -251,22 +289,31 @@ class End2EndServer:
         self.epoch = epoch
         self._model = self._build(variables)
 
-        def stat(a):
+        def stat(a, dev=self.device):
             return torch.as_tensor(np.asarray(a, np.float32).reshape(-1),
-                                   device=self.device)
+                                   device=dev)
 
         self._mean_part, self._std_part = stat(mean_part), stat(std_part)
+        self._part_stats = None if self._mesh is None else tuple(
+            (stat(mean_part, d), stat(std_part, d))
+            for d in self._mesh.devices)
         self._mean_s = np.asarray(mean_s, np.float32).reshape(-1)
         self._std_s = np.asarray(std_s, np.float32).reshape(-1)
         self._255 = torch.tensor(255.0, device=self.device)
 
     def _build(self, variables):
-        """A new eval-mode End2End holding ``variables``, on the device."""
+        """A new eval-mode End2End holding ``variables``, on the device;
+        under a mesh a tuple of them, one per device."""
         from bilinear_tpu_torch.models.end2end import End2End
 
-        model = End2End(variant=self.variant, dtype=self.dtype,
-                        quantize=self.quantize, **self.model_kw)
-        return model.load_jax(variables).to(self.device).eval()
+        def one(dev):
+            model = End2End(variant=self.variant, dtype=self.dtype,
+                            quantize=self.quantize, **self.model_kw)
+            return model.load_jax(variables).to(dev).eval()
+
+        if self._mesh is None:
+            return one(self.device)
+        return tuple(one(d) for d in self._mesh.devices)
 
     @classmethod
     def from_run_dir(cls, run_dir: str, split: H36MSplit,
@@ -358,7 +405,7 @@ class End2EndServer:
                     s = torch.cat([s, s.new_ones(pad)])
                 if f.dtype == torch.uint8:
                     f = f.float() / self._255
-                _, p2, p3 = model(f, c, s, self._mean_part, self._std_part)
+                _, p2, p3 = self._run(model, f, c, s)
                 outs.append((take, p2[:take], p3[:take]))
                 done += take
             # Every chunk is queued before the first copy back waits.
@@ -366,6 +413,20 @@ class End2EndServer:
             pose3d = torch.cat([p for _, _, p in outs]).float().cpu().numpy()
         mm = pose3d * self._std_s + self._mean_s
         return pose2d, mm.reshape(n, 16, 3)
+
+    def _run(self, model, f, c, s):
+        """One chunk through the model, or its equal row blocks through
+        each device's model, joined in order on the first device."""
+        if self._mesh is None:
+            return model(f, c, s, self._mean_part, self._std_part)
+        k = len(model)
+        parts = [m(fb.to(d), cb.to(d), sb.to(d), mp, sp)
+                 for m, d, (mp, sp), fb, cb, sb in zip(
+                     model, self._mesh.devices, self._part_stats,
+                     f.chunk(k), c.chunk(k), s.chunk(k))]
+        return tuple(torch.cat([p[i].to(self.device) for p in parts],
+                               dim=1 if i == 0 else 0)
+                     for i in range(3))
 
     def warm(self, dtypes=("uint8",)) -> list:
         """Run every batch size once per frame dtype, so the kernels are

@@ -13,6 +13,18 @@ step counter starts at 1, as the reference's.
 
 Per-step losses stay on the device: ``train_epoch`` returns them as one
 tensor, and ``fit``'s hook fetches them once per epoch.
+
+``mesh=`` (``parallel/mesh.py::make_mesh``) trains over ranks, each holding
+the whole split and drawing the same permutation and dropout generator:
+each step takes the rank's row block of the global batch (a tail batch
+that does not divide gives blocks one row apart), the BNs take the global
+batch's statistics and the dropout layers the global batch's masks, the
+loss is the rank's share of the global mean, and the gradients are summed
+over the ranks; with a ``'model'`` group of more than one rank the
+network is ``parallel/tp.py::TPBilinearUnit``. The step is then the
+one-process step at any dropout rate (JAX's GSPMD computes the same, by
+padding the tail instead). ``trees`` gathers a split model into the
+one-process layout, and ``restore`` splits it again.
 """
 from __future__ import annotations
 
@@ -22,10 +34,15 @@ from typing import Callable, Optional, Union
 
 import torch
 
+import torch.distributed as dist
+
+from bilinear_tpu_torch.core.norm import DataShard, set_data_shard
 from bilinear_tpu_torch.core.optim import BilinearOptimizer, \
     bilinear_optimizer
 from bilinear_tpu_torch.device import resolve_device
 from bilinear_tpu_torch.models.bilinear import BilinearUnit
+from bilinear_tpu_torch.parallel.mesh import all_reduce_grads, local_rows
+from bilinear_tpu_torch.parallel.tp import TPBilinearUnit
 from bilinear_tpu_torch.utils import weights as wt
 
 
@@ -46,7 +63,7 @@ class TrainState:
     """The model (parameters + BN statistics), the optimizer and the step
     counter (the reference counts from 1)."""
 
-    model: BilinearUnit
+    model: BilinearUnit  # or a TPBilinearUnit shard
     optimizer: BilinearOptimizer
     step: int = 1
 
@@ -54,25 +71,38 @@ class TrainState:
         """(params, batch_stats, optimizer state) in the JAX package's
         checkpoint layout; the optimizer as ``{'0': {}, '1': {'count', 'mu',
         'nu'}}`` with the moments in the parameter tree's layout (zeros
-        before the first update)."""
-        params, stats = wt.bilinear_to_jax(self.model.state_dict())
+        before the first update). A tensor-parallel model is gathered into
+        the one-process layout: every rank of its model group calls this."""
+        tp = isinstance(self.model, TPBilinearUnit)
+        sd = self.model.full_state_dict() if tp else self.model.state_dict()
+        params, stats = wt.bilinear_to_jax(sd)
         mu, nu = {}, {}
         for key, p in self.model.named_parameters():
             m = self.optimizer.moments(p)
             mu[key], nu[key] = (torch.zeros_like(p), torch.zeros_like(p)) \
                 if m is None else m
+        if tp:
+            mu, nu = self.model.gather(mu), self.model.gather(nu)
         return params, stats, wt.bilinear_opt_to_jax(self.optimizer.count,
                                                      mu, nu)
 
     def restore(self, payload) -> None:
         """Load a ``{epoch}.save`` payload (either package's) in place. A
         checkpoint without optimizer state (a served model's) leaves the
-        optimizer as it is."""
+        optimizer as it is. A tensor-parallel model takes its shard."""
         state = payload["state"]
-        self.model.load_state_dict(wt.bilinear_from_jax(
-            state["params"], state["batch_stats"]))
+        full = wt.bilinear_from_jax(state["params"], state["batch_stats"])
+        tp = isinstance(self.model, TPBilinearUnit)
+        if tp:
+            self.model.load_full(full)
+        else:
+            self.model.load_state_dict(full)
         if payload["optimizer"]:
             count, mu, nu = wt.bilinear_opt_from_jax(payload["optimizer"])
+            if tp:
+                mesh = self.model.mesh
+                mu = wt.bilinear_tp_shard(mu, mesh.model_index, mesh.model)
+                nu = wt.bilinear_tp_shard(nu, mesh.model_index, mesh.model)
             if count:
                 for key, p in self.model.named_parameters():
                     self.optimizer.set_moments(p, mu[key], nu[key], count)
@@ -87,10 +117,12 @@ class BilinearTrainer:
                  mesh=None, dtype=torch.float32, dropout: float = 0.5,
                  device=None):
         """``learning_rate`` None is the reference's schedule. ``device``
-        None is the card, and raises when there is none."""
-        if mesh is not None:
-            raise NotImplementedError("data parallelism (mesh=) is not "
-                                      "ported yet; see ROADMAP.md")
+        None is the card, and raises when there is none. ``mesh``: a
+        ``parallel/mesh.py::Mesh`` of ranks (None, or one rank, is the
+        one-process trainer)."""
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        self.shard = None if self.mesh is None else \
+            DataShard(self.mesh.data_group)
         self.batch_size = batch_size
         self.learning_rate = learning_rate
         self.dtype = dtype
@@ -102,8 +134,16 @@ class BilinearTrainer:
         model = BilinearUnit(dropout=self.dropout, dtype=self.dtype,
                              generator=gen).to(self.device)
         model.train()
-        return TrainState(model, bilinear_optimizer(model.parameters(),
-                                                    self.learning_rate))
+        if self.mesh is None:
+            return TrainState(model, bilinear_optimizer(model.parameters(),
+                                                        self.learning_rate))
+        if self.mesh.model > 1:
+            model = TPBilinearUnit.from_full(model, self.mesh)
+        set_data_shard(model, self.shard)
+        opt = bilinear_optimizer(model.parameters(), self.learning_rate)
+        if self.mesh.model > 1:
+            opt.grad_norm = model.global_grad_norm
+        return TrainState(model, opt)
 
     def dropout_generator(self, seed: int, epoch: int) -> torch.Generator:
         gen = torch.Generator(device=self.device)
@@ -114,13 +154,38 @@ class BilinearTrainer:
                    by: torch.Tensor,
                    gen: Optional[torch.Generator]) -> torch.Tensor:
         """One update on a batch already on the device; returns the loss
-        (a device scalar, not synced). The model must be in train mode."""
+        (a device scalar, not synced). The model must be in train mode.
+        Under a mesh every rank passes the whole global batch and trains
+        on its rows; the loss returned is the global one."""
+        if self.mesh is not None:
+            return self._train_step_mesh(state, bx, by, gen)
         loss = (state.model(bx, gen) - by).square().mean()
         state.optimizer.zero_grad()
         loss.backward()
         state.optimizer.step()
         state.step += 1
         return loss.detach()
+
+    def _train_step_mesh(self, state: TrainState, bx, by, gen):
+        mesh = self.mesh
+        n = bx.shape[0]
+        self.shard.place(mesh.rows(n)[0], n)
+        bx, by = local_rows(mesh, (bx, by))
+        out = state.model(bx, gen)
+        # This rank's share of the global mean (each model rank of a data
+        # block holds the same rows: 1/model of it each).
+        local = (out - by).square().sum() / (n * by.shape[1] * mesh.model)
+        state.optimizer.zero_grad()
+        local.backward()
+        if isinstance(state.model, TPBilinearUnit):
+            state.model.sync_grads()
+        else:
+            all_reduce_grads(state.model.parameters(), mesh.data_group)
+        state.optimizer.step()
+        state.step += 1
+        loss = local.detach().clone()
+        dist.all_reduce(loss)
+        return loss
 
     def train_epoch(self, state: TrainState, x: torch.Tensor,
                     y: torch.Tensor, epoch: int, seed: int = 0,

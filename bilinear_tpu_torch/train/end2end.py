@@ -24,6 +24,12 @@ from a generator on the model's device, all seeded from (seed, epoch,
 step) and the stream's name (``sample_augment``). With
 ``model_kw={"fused": True}`` and the torch7 detector, its 107 ResModules
 run through kernels K3/K4 on the card.
+
+``mesh=`` trains data-parallel under the detector trainer's rules
+(``train/hourglass.py``): global-batch draws sliced to the rank's rows,
+global BN statistics in both halves, the lifter's dropout masks drawn for
+the global batch, the loss weighted by the global count, gradients summed
+over the ranks; fused blocks with more than one data rank raise.
 """
 from __future__ import annotations
 
@@ -32,11 +38,13 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from bilinear_tpu_torch.core.norm import DataShard, set_data_shard
 from bilinear_tpu_torch.core.optim import hourglass_optimizer
 from bilinear_tpu_torch.device import resolve_device
 from bilinear_tpu_torch.models.end2end import End2End
 from bilinear_tpu_torch.ops import augment as aug
 from bilinear_tpu_torch.ops.joints import FROM_H36M_TO_MPII
+from bilinear_tpu_torch.parallel.mesh import all_reduce_grads, local_rows
 from bilinear_tpu_torch.train import hourglass as th
 from bilinear_tpu_torch.train.hourglass import TrainState
 
@@ -62,12 +70,15 @@ def sample_augment(seed: int, epoch: int, step: int, batch: int,
                                                   "dropout", device))
 
 
-def e2e_loss(heatmaps, pose_3d, targets, s_norm, lambda_3d: float):
+def e2e_loss(heatmaps, pose_3d, targets, s_norm, lambda_3d: float,
+             total=None):
     """(loss, heatmap loss, 3D loss): the sum over stacks of the per-stack
     heatmap MSE plus ``lambda_3d`` times the MSE of the normalized 3D
-    pose."""
-    hm_loss = th.heatmap_loss(heatmaps, targets)
-    loss_3d = (pose_3d - s_norm).square().mean()
+    pose. ``total``: the global batch's rows these are a block of."""
+    hm_loss = th.heatmap_loss(heatmaps, targets, total)
+    sq = (pose_3d - s_norm).square()
+    loss_3d = sq.mean() if total is None else \
+        sq.sum() / (total * pose_3d.shape[1])
     return hm_loss + lambda_3d * loss_3d, hm_loss, loss_3d
 
 
@@ -79,9 +90,9 @@ class End2EndTrainer:
         """``model_kw``: End2End's detector overrides (``n_stacks``,
         ``features``, ``depth``, ``n_modules``, ``fused``). ``device``:
         None is the card, and raises when there is none."""
-        if mesh is not None:
-            raise NotImplementedError("data parallelism (mesh=) is not "
-                                      "ported yet; see ROADMAP.md")
+        self.mesh = th.check_mesh(mesh, bool((model_kw or {}).get("fused")))
+        self.shard = None if self.mesh is None else \
+            DataShard(self.mesh.data_group)
         self.variant = variant
         self.batch_size = batch_size
         self.learning_rate = learning_rate
@@ -93,9 +104,11 @@ class End2EndTrainer:
                                      dtype=torch.long, device=self.device)
 
     def make_model(self, seed: int = 0) -> End2End:
-        return End2End(variant=self.variant, dtype=self.dtype,
-                       generator=torch.Generator().manual_seed(seed),
-                       **self.model_kw).to(self.device)
+        model = End2End(variant=self.variant, dtype=self.dtype,
+                        generator=torch.Generator().manual_seed(seed),
+                        **self.model_kw).to(self.device)
+        set_data_shard(model, self.shard)
+        return model
 
     def init_state(self, seed: int = 0) -> TrainState:
         model = self.make_model(seed).train()
@@ -123,8 +136,15 @@ class End2EndTrainer:
         """One update. ``batch``: images, centers, scales, keypoints (H36M-16
         order), valid, s_norm, decode_centers, decode_scales; ``stats``:
         (mean_part, std_part) on the device. Returns (loss, heatmap loss,
-        3D loss) as device scalars (not synced)."""
+        3D loss) as device scalars (not synced). Under a mesh every rank
+        passes the global batch and draws; the losses are the global
+        ones."""
         mean_part, std_part = stats
+        total = None
+        if self.mesh is not None:
+            total = batch["images"].shape[0]
+            self.shard.place(self.mesh.rows(total)[0], total)
+            batch, augment = local_rows(self.mesh, (batch, augment))
         factor = augment.geometry.scale_factor.to(self.device)
         crops, targets, _ = th.preprocess_batch(
             batch["images"], batch["centers"], batch["scales"],
@@ -136,9 +156,13 @@ class End2EndTrainer:
             crops, batch["decode_centers"], batch["decode_scales"] * factor,
             mean_part, std_part, augment.dropout)
         loss, hm_loss, loss_3d = e2e_loss(heatmaps, pose_3d, targets,
-                                          batch["s_norm"], self.lambda_3d)
+                                          batch["s_norm"], self.lambda_3d,
+                                          total)
         state.optimizer.zero_grad()
         loss.backward()
+        if self.mesh is not None:
+            all_reduce_grads(state.model.parameters(), self.mesh.data_group)
         state.optimizer.step()
         state.step += 1
-        return loss.detach(), hm_loss.detach(), loss_3d.detach()
+        return tuple(th.global_loss(v, self.mesh)
+                     for v in (loss, hm_loss, loss_3d))

@@ -18,6 +18,14 @@ ColorJitter(.3, .3, .3, .3); joints out of the heatmap are masked out of
 the target. Each step's draws come from a CPU ``torch.Generator`` seeded
 from (seed, epoch, step), so a step's augmentation does not depend on the
 device.
+
+``mesh=`` (``parallel/mesh.py::make_mesh``) trains data-parallel over
+ranks: every rank reads the same batches and augmentation draws (drawn for
+the global batch), keeps its row block of both, normalises with the global
+batch's BN statistics (``core/norm.py::global_batch_norm``), takes its
+share of the global loss, and sums the gradients over the ranks, so a
+step is the one-process step. Fused blocks with more than one data rank
+raise: K3 computes and applies the BN statistics inside one call.
 """
 from __future__ import annotations
 
@@ -29,6 +37,9 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+import torch.distributed as dist
+
+from bilinear_tpu_torch.core.norm import DataShard, set_data_shard
 from bilinear_tpu_torch.core.optim import HourglassOptimizer, \
     hourglass_optimizer
 from bilinear_tpu_torch.device import resolve_device
@@ -39,6 +50,7 @@ from bilinear_tpu_torch.ops.affine import crop_batch, hflip
 from bilinear_tpu_torch.ops.heatmap import keypoints_to_heatmap_space, \
     render_heatmaps
 from bilinear_tpu_torch.ops.joints import MPII_FLIP_SWAP
+from bilinear_tpu_torch.parallel.mesh import all_reduce_grads, local_rows
 from bilinear_tpu_torch.utils import weights as wt
 
 # Profiler ranges of HourglassTrainer.train_step, in order: augmentation and
@@ -129,11 +141,33 @@ def batch_tensors(batch, device, rows: Optional[int] = None) -> dict:
                 valid=t(batch.valid))
 
 
-def heatmap_loss(out: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def heatmap_loss(out: torch.Tensor, targets: torch.Tensor,
+                 total: Optional[int] = None) -> torch.Tensor:
     """Sum over stacks of the per-stack mean MSE; out (S, B, H, W, J),
-    targets (B, J, H, W)."""
+    targets (B, J, H, W). ``total``: the rows of the global batch these
+    are a block of (the block's share of the global loss)."""
     tgt = targets.permute(0, 2, 3, 1)
-    return (out - tgt[None]).square().mean(dim=(1, 2, 3, 4)).sum()
+    sq = (out - tgt[None]).square()
+    if total is None:
+        return sq.mean(dim=(1, 2, 3, 4)).sum()
+    return sq.sum(dim=(1, 2, 3, 4)).sum() / (total * out[0, 0].numel())
+
+
+def check_mesh(mesh, fused: bool):
+    """The mesh a detector trainer takes: None for one rank; a data group
+    of more than one rank refuses fused blocks."""
+    if mesh is None or mesh.world == 1:
+        return None
+    if mesh.model > 1:
+        raise ValueError("the detectors have no tensor parallelism; use a "
+                         "mesh with model=1")
+    if fused:
+        raise NotImplementedError(
+            "fused blocks (K3/K4) under data parallelism are not ported "
+            "yet: K3 computes and applies the BN statistics in one call, "
+            "and the global batch's statistics need its partial sums "
+            "reduced between its passes; see ROADMAP.md")
+    return mesh
 
 
 def step_generator(seed: int, epoch: int, step: int, stream: str = "",
@@ -145,6 +179,16 @@ def step_generator(seed: int, epoch: int, step: int, stream: str = "",
     digest = hashlib.sha256(key.encode()).digest()
     return torch.Generator(device=device or "cpu").manual_seed(
         int.from_bytes(digest[:8], "little") & ((1 << 63) - 1))
+
+
+def global_loss(loss: torch.Tensor, mesh) -> torch.Tensor:
+    """A rank's share of the loss summed over the data group (the loss
+    itself without a mesh)."""
+    loss = loss.detach()
+    if mesh is not None:
+        loss = loss.clone()
+        dist.all_reduce(loss, group=mesh.data_group)
+    return loss
 
 
 @dataclass
@@ -200,9 +244,9 @@ class HourglassTrainer:
                  features=None, depth=None, fused_blocks: bool = False,
                  n_modules=None, device=None, joint_remap=None,
                  flip_prob: float = 0.4):
-        if mesh is not None:
-            raise NotImplementedError("data parallelism (mesh=) is not "
-                                      "ported yet; see ROADMAP.md")
+        self.mesh = check_mesh(mesh, fused_blocks)
+        self.shard = None if self.mesh is None else \
+            DataShard(self.mesh.data_group)
         if remat:
             raise NotImplementedError("remat is not ported yet; see "
                                       "ROADMAP.md")
@@ -224,6 +268,7 @@ class HourglassTrainer:
         model = make_model(self.variant, self.dtype, generator=gen,
                            **self.model_kw).to(self.device)
         model.train()
+        set_data_shard(model, self.shard)
         return TrainState(model, hourglass_optimizer(model.parameters(),
                                                      self.learning_rate))
 
@@ -235,8 +280,14 @@ class HourglassTrainer:
                    augment: Augment) -> torch.Tensor:
         """One update; returns the loss (a device scalar, not synced). Its
         four phases are ``STEP_RANGES`` under ``torch.profiler`` (the ranges
-        do nothing outside a profile)."""
+        do nothing outside a profile). Under a mesh every rank passes the
+        global batch and its draws; the loss returned is the global one."""
         preprocess, forward, backward, optimizer = STEP_RANGES
+        total = None
+        if self.mesh is not None:
+            total = batch["images"].shape[0]
+            self.shard.place(self.mesh.rows(total)[0], total)
+            batch, augment = local_rows(self.mesh, (batch, augment))
         with record_function(preprocess):
             crops, targets, _ = preprocess_batch(
                 batch["images"], batch["centers"], batch["scales"],
@@ -245,14 +296,17 @@ class HourglassTrainer:
                 targets = targets[:, self.remap]
         with record_function(forward):
             state.model.train()
-            loss = heatmap_loss(state.model(crops), targets)
+            loss = heatmap_loss(state.model(crops), targets, total)
         with record_function(backward):
             state.optimizer.zero_grad()
             loss.backward()
+            if self.mesh is not None:
+                all_reduce_grads(state.model.parameters(),
+                                 self.mesh.data_group)
         with record_function(optimizer):
             state.optimizer.step()
         state.step += 1
-        return loss.detach()
+        return global_loss(loss, self.mesh)
 
     @torch.no_grad()
     def overlay_forward(self, state: TrainState, batch: dict):

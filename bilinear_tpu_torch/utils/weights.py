@@ -610,3 +610,116 @@ def converters_of(model) -> HourglassConverters:
     if getattr(model, "end2end", False):
         return end2end_converters(model.variant)
     return HOURGLASS[model.variant]
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel shards of BilinearUnit (parallel/tp.py), in state_dict
+# layout. Column-parallel (encode and the first layer of each residual
+# pair): the Linear's output rows, its bias and its BN split over the model
+# group. Row-parallel (the pair's second layer): the Linear weight's input
+# columns split; its bias and BN replicated. decode replicated. The BN's
+# num_batches_tracked is replicated everywhere. Adam's moments, keyed by
+# parameter name, split the same way.
+# ---------------------------------------------------------------------------
+
+def _tp_split_dim(key: str):
+    """The dim a BilinearUnit state_dict entry splits along under TP, or
+    None for a replicated one."""
+    if key.endswith("num_batches_tracked"):
+        return None
+    if key.startswith("encode.") or any(
+            key.startswith(f"bilinear.{b}.0.") for b in range(NUM_BLOCKS)):
+        return 0
+    if any(key == f"bilinear.{b}.1.0.weight" for b in range(NUM_BLOCKS)):
+        return 1
+    return None
+
+
+def bilinear_tp_shard(state: Mapping[str, Any], index: int, parts: int
+                      ) -> Dict[str, Any]:
+    """Model rank ``index``'s shard (of ``parts``) of a full BilinearUnit
+    state_dict (or of a name -> moment map)."""
+    out = {}
+    for k, v in state.items():
+        dim = _tp_split_dim(k)
+        out[k] = v if dim is None else \
+            torch.chunk(torch.as_tensor(v), parts, dim=dim)[index].clone()
+    return out
+
+
+def bilinear_tp_gather(shards) -> Dict[str, Any]:
+    """Inverse of ``bilinear_tp_shard``: the full state from every model
+    rank's shard, in rank order."""
+    out = {}
+    for k, v in shards[0].items():
+        dim = _tp_split_dim(k)
+        out[k] = v if dim is None else torch.cat([s[k] for s in shards],
+                                                 dim=dim)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Pipeline-parallel trees of the torch7 detector (JAX parallel/pp.py's
+# split_pipeline_variables / merge_pipeline_variables, numpy): the stem's
+# subtree, and the stacks' subtrees stacked on a leading (n_stacks,) axis
+# under stack-index-free names, the final stack's absent feedback convs
+# zero-filled. The port's pipeline (parallel/pp.py) runs a MainModel's own
+# modules; these carry JAX pipeline trees across.
+# ---------------------------------------------------------------------------
+
+STEM_KEYS = ("stem_conv", "stem_bn", "stem_res1", "stem_res2", "stem_res3")
+_STACK_KEYS = ("hg", "lin", "htmap", "ll_bar", "htmap_bar")
+
+
+def _tree_map(fn, *trees):
+    if isinstance(trees[0], Mapping):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _zero_feedback(features: int, n_joints: int, col: str):
+    if col != "params":
+        return {}
+    return {
+        "ll_bar": {"kernel": np.zeros((1, 1, features, features), np.float32),
+                   "bias": np.zeros((features,), np.float32)},
+        "htmap_bar": {"kernel": np.zeros((1, 1, n_joints, features),
+                                         np.float32),
+                      "bias": np.zeros((features,), np.float32)},
+    }
+
+
+def split_pipeline_variables(variables, n_stacks: int, *, features: int = 256,
+                             n_joints: int = 16):
+    """MainModel JAX variables -> (stem_variables, stacked_stack_variables)."""
+    per_stack = []
+    for i in range(n_stacks):
+        entry = {}
+        for col, tree in variables.items():
+            sub = {short: tree[f"{short}_{i}"] for short in _STACK_KEYS
+                   if f"{short}_{i}" in tree}
+            sub.update({k: v for k, v in _zero_feedback(
+                features, n_joints, col).items() if k not in sub})
+            entry[col] = sub
+        per_stack.append(entry)
+    stacked = _tree_map(lambda *xs: np.stack([np.asarray(x) for x in xs]),
+                        *per_stack)
+    stem = {col: {k: tree[k] for k in STEM_KEYS if k in tree}
+            for col, tree in variables.items()}
+    return stem, stacked
+
+
+def merge_pipeline_variables(stem_vars, stacked_vars, n_stacks: int):
+    """Inverse of ``split_pipeline_variables``; the final stack's
+    zero-filled feedback convs are dropped."""
+    out = {col: dict(tree) for col, tree in stem_vars.items()}
+    for col in stacked_vars:
+        for i in range(n_stacks):
+            per = _tree_map(lambda a: np.asarray(a)[i], stacked_vars[col])
+            for short in _STACK_KEYS:
+                if short not in per:
+                    continue
+                if i == n_stacks - 1 and short in ("ll_bar", "htmap_bar"):
+                    continue
+                out.setdefault(col, {})[f"{short}_{i}"] = per[short]
+    return out

@@ -138,7 +138,24 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    path; a serve --aot daemon answering /v1/lift and /v1/pose as the
    artifacts do; export, load and /v1/pose times.
 
-Phases run in the order 1-5, 9, 6-8, 10-14. The line before the last is the kernels' JSON record; the last line is
+15. Camera and bin generation, then parallelism: project on the card
+   against project_np over 2^20 poses of 17 joints per camera and the
+   unproject round trip; GT bins of manifold poses through the camera,
+   cli.train_bilinear at full width for 10 epochs (valid MPJPE below 0.1x
+   epoch 0's), the learnable image tree (markers at the projected joints)
+   and the trained run served through LiftingServer (K1); train_bilinear
+   DP (2 ranks), TP (1 x 2) and DP x TP (2 x 2) and a full-width standard
+   train_hourglass DP step (2 x 4 rows), every rank a process started
+   through the CLI's --coordinator flags on this card (gloo), each against
+   one process; a one-rank NCCL run; --fused-blocks true over 2 ranks must
+   raise; LiftingServer(mesh=["cuda:0"] * 2) in bf16, int8 and int8-static
+   and End2EndServer(mesh=...) fused bf16 and int8 against the unsharded
+   servers (launches per call, bit-equality per shard); pipeline_forward
+   fused and int8 at (S, M) in {(2, 2), (2, 4), (4, 4), (8, 8)} with its
+   launches, pipeline_end2end against End2End, one make_pp_train_step at
+   (2, 2) against the accumulated one-process step; times of each.
+
+Phases run in the order 1-5, 9, 6-8, 10-15. The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or bilinear_tpu.
 """
 import json
@@ -4204,6 +4221,839 @@ def drive_aot(work):
     return record
 
 
+# ------------------------------------------------------------ phase 15
+
+CAMERA_POSES = 1 << 20  # x 17 joints: 71 MB of points and pixels in f32
+CAMERA_GATE_PX = 1e-3  # project on the card vs project_np (FMA contraction)
+UNPROJECT_GATE_MM = 0.05  # JAX's round-trip gate (tests/test_camera.py)
+LEARN_TRAIN, LEARN_VALID, LEARN_RANK = 4096, 512, 5
+LEARN_EPOCHS = 10
+LEARN_GATE = 0.1  # MPJPE after 10 epochs below 0.1x epoch 0's
+# Mean |JPEG - canvas| per image in levels of 255: quality 92 gives about
+# 2, the JPEG of another canvas tens.
+LEARN_JPEG_GATE = 4.0
+DP_ROWS = 256  # the DP/TP equality legs: 4 steps of 64
+DIST_STEP_REL = 1e-5  # multi-rank vs one process: losses and digests
+DIST_GRAD_REL = 1e-4  # gradient-scale leaves, of each leaf's largest
+GRAD_FLOOR = 1e-3  # below this of the tree's largest: rounding noise
+PP_CASES = ((2, 2), (2, 4), (4, 4), (8, 8))
+PP_BATCH = 8
+PP_TIME_ITERS = 3
+MESH_SHARDS = 2
+
+
+def write_calibration(root):
+    """H36M-like ``{camera}_{c,f,k,p}.txt`` for the four cameras (f ~ 1145
+    px, c ~ 512 px, small k and p), from a seed."""
+    import numpy as np
+    from bilinear_tpu_torch.data.camera import H36M_CAMERA_IDS
+
+    rng = np.random.RandomState(SEED)
+    os.makedirs(root, exist_ok=True)
+    for cid in H36M_CAMERA_IDS:
+        vals = dict(f=1145.0 + rng.uniform(-5, 5, 2),
+                    c=512.0 + rng.uniform(-10, 10, 2),
+                    k=rng.uniform(-0.2, 0.2, 3) * np.asarray([1.0, 0.5, 0.05]),
+                    p=rng.uniform(-2e-3, 2e-3, 2))
+        for suffix, v in vals.items():
+            np.savetxt(os.path.join(root, f"{cid}_{suffix}.txt"), v)
+    return root
+
+
+def check_camera(calib):
+    """project on the card against project_np over CAMERA_POSES poses of
+    17 joints per camera, and the unproject round trip."""
+    import numpy as np
+    import torch
+    from bilinear_tpu_torch.data import camera as cam_lib
+
+    cams = cam_lib.load_all_cameras(calib)
+    rng = np.random.RandomState(SEED + 15)
+    pts = (rng.randn(CAMERA_POSES, 17, 3) * 300).astype(np.float32)
+    pts[..., 2] = np.abs(pts[..., 2]) + 4000
+    dev_pts = torch.from_numpy(pts).cuda()
+    out = {}
+    for cid, cam in cams.items():
+        px = cam_lib.project(dev_pts, cam)
+        torch.cuda.synchronize()
+        ref = cam_lib.project_np(pts, cam)
+        gap = float(np.abs(px.cpu().numpy() - ref).max())
+        back = cam_lib.unproject(px, dev_pts[..., 2], cam)
+        rt = float((back - dev_pts).abs().max())
+        ms = cuda_ms(lambda: cam_lib.project(dev_pts, cam), 5)
+        log(f"  camera {cid}: project on the card vs project_np over "
+            f"{CAMERA_POSES} x 17 points: max |d| {gap:.3e} px (gate "
+            f"{CAMERA_GATE_PX}); unproject round trip max {rt:.3e} mm (gate "
+            f"{UNPROJECT_GATE_MM}); project {ms:.3f} ms")
+        if not gap <= CAMERA_GATE_PX:
+            raise AssertionError(f"camera {cid}: project {gap} px")
+        if not rt <= UNPROJECT_GATE_MM:
+            raise AssertionError(f"camera {cid}: unproject {rt} mm")
+        out[cid] = {"project_max_abs_px": gap, "unproject_max_mm": rt,
+                    "project_ms": ms}
+    return out
+
+
+def _manifold_bins(data_dir, calib, n_train, n_valid):
+    """GT bins of poses on one rank-LEARN_RANK manifold through camera
+    54138969 (tests/test_learnability.py's construction)."""
+    import numpy as np
+    from bilinear_tpu_torch.data.camera import load_camera
+    from bilinear_tpu_torch.data.h36m_generate import write_gt_bins
+
+    struct = np.random.RandomState(1234)
+    base = struct.randn(17, 3) * 150
+    basis = struct.randn(LEARN_RANK, 17, 3) * 80
+
+    def poses(n, seed):
+        z = np.random.RandomState(seed).randn(n, LEARN_RANK)
+        s = base[None] + np.einsum("nr,rjd->njd", z, basis)
+        s[:, :, 2] += 5000.0
+        return s.astype(np.float32)
+
+    def names(n, tag):
+        return [f"S1_Posing.54138969_{tag}{i:06d}.jpg" for i in range(n)]
+
+    cam = load_camera(calib, "54138969")
+    write_gt_bins(data_dir, {
+        "train": {"S": poses(n_train, 0), "images": names(n_train, "t"),
+                  "camera": cam},
+        "valid": {"S": poses(n_valid, 1), "images": names(n_valid, "v"),
+                  "camera": cam}})
+    return data_dir
+
+
+def drive_learnability(work, calib):
+    """Bins from the camera, cli.train_bilinear at full width for
+    LEARN_EPOCHS epochs, cli.valid_bilinear before and after (MPJPE below
+    LEARN_GATE of epoch 0's); the learnable image tree's bins load and its
+    markers sit at the projected joints (``check_learnable_markers``); the
+    trained run served through
+    LiftingServer (K1). Returns (record, K1 launches)."""
+    import json as _json
+
+    from bilinear_tpu_torch.cli import train_bilinear, valid_bilinear
+    from bilinear_tpu_torch.data.h36m import Task, load_h36m
+    from bilinear_tpu_torch.data.synthetic import \
+        write_h36m_learnable_dataset
+    from bilinear_tpu_torch.eval.mpjpe import evaluate_mpjpe
+    from bilinear_tpu_torch.ops import lifting as pl
+    from bilinear_tpu_torch.serving import LiftingServer
+
+    data = _manifold_bins(os.path.join(work, "learn_h36m"), calib,
+                          LEARN_TRAIN, LEARN_VALID)
+    argv = ["--data-dir", data, "--save-root", os.path.join(work, "save"),
+            "--comment", "learn", "--seed", str(SEED)]
+    run_dir = os.path.join(work, "save", "learn")
+    run_cli(valid_bilinear.main, argv)
+    t0 = time.perf_counter()
+    run_cli(train_bilinear.main, argv + ["--epochs-per-run",
+                                         str(LEARN_EPOCHS)])
+    secs = time.perf_counter() - t0
+    run_cli(valid_bilinear.main, argv)
+    mpjpe = {}
+    for e in (0, LEARN_EPOCHS):
+        with open(os.path.join(run_dir, f"mpjpe_epoch{e}.json")) as f:
+            mpjpe[e] = _json.load(f)["overall"]
+    log(f"  learnability: cli.train_bilinear {LEARN_EPOCHS} epochs of "
+        f"{LEARN_TRAIN} rows in {secs:.1f} s; valid MPJPE epoch 0 "
+        f"{mpjpe[0]:.2f} mm, epoch {LEARN_EPOCHS} "
+        f"{mpjpe[LEARN_EPOCHS]:.2f} mm (gate < {LEARN_GATE} x epoch 0)")
+    if not mpjpe[LEARN_EPOCHS] < LEARN_GATE * mpjpe[0]:
+        raise AssertionError(f"lifting did not learn: {mpjpe}")
+
+    tree = os.path.join(work, "learnable_tree")
+    write_h36m_learnable_dataset(tree, n_train=24, n_valid=8,
+                                 calibration_dir=calib)
+    splits = load_h36m(tree, "GT")
+    markers = check_learnable_markers(tree)
+    log(f"  learnable tree: {len(splits[Task.Train])} + "
+        f"{len(splits[Task.Valid])} frames load")
+    if len(splits[Task.Train]) != 24 or len(splits[Task.Valid]) != 8:
+        raise AssertionError("learnable tree: its bins did not load")
+
+    import torch
+
+    valid = load_h36m(data, "GT")[Task.Valid]
+    server, epoch = LiftingServer.from_run_dir(
+        run_dir, load_h36m(data, "GT")[Task.Train], dtype=torch.bfloat16)
+    pl.LAUNCHES = 0
+    _, served = evaluate_mpjpe(
+        lambda x: server.lift_normalized(x), valid, chunk=LEARN_VALID)
+    k1 = pl.LAUNCHES
+    log(f"  served epoch {epoch} through LiftingServer (bf16): MPJPE "
+        f"{served:.2f} mm against the CLI's {mpjpe[LEARN_EPOCHS]:.2f}; "
+        f"{k1} K1 launches")
+    if k1 < 1 or abs(served - mpjpe[LEARN_EPOCHS]) > 0.01 * \
+            mpjpe[LEARN_EPOCHS]:
+        raise AssertionError(f"served {served} vs {mpjpe}, {k1} launches")
+    return {"mpjpe_epoch0": mpjpe[0], "mpjpe_trained": mpjpe[LEARN_EPOCHS],
+            "served_mpjpe_bf16": served, "train_s": secs,
+            "learnable_tree_markers": markers}, k1
+
+
+def check_learnable_markers(tree):
+    """The learnable tree's markers, held on its JPEG-free canvases
+    (``learnable_canvases``, the arrays its JPEGs encode): each JPEG
+    decodes to its canvas within LEARN_JPEG_GATE levels on average;
+    stamping a frame's 16 markers again at the bins' projected joints
+    leaves its canvas unchanged bit for bit (every joint of every frame),
+    and stamping them 1 px to the right changes it (the check sees a 1 px
+    slip); and every joint whose rounded pixel no later marker covers
+    carries its white centre there."""
+    import numpy as np
+    from PIL import Image
+    from bilinear_tpu_torch.data.synthetic import _joint_colors, \
+        _stamp_marker, learnable_canvases
+
+    colors = _joint_colors()
+    joints = same = moved = visible = white = 0
+    jpeg = 0.0
+    for path, canvas, xy, ring in learnable_canvases(tree):
+        decoded = np.asarray(Image.open(path)).astype(np.float64)
+        jpeg = max(jpeg, float(np.abs(decoded - canvas).mean()))
+        for shift, counter in ((0.0, "same"), (1.0, "moved")):
+            again = canvas.copy()
+            for m, (x, y) in enumerate(xy):
+                _stamp_marker(again, float(x) + shift, float(y), m, ring,
+                              colors)
+            equal = bool(np.array_equal(again, canvas))
+            if counter == "same":
+                same += 16 * equal
+            else:
+                moved += 16 * (not equal)
+        joints += 16
+        h, w, _ = canvas.shape
+        for m, (px, py) in enumerate(np.rint(xy).astype(int)):
+            later = xy[m + 1:]
+            d2 = (px - later[:, 0]) ** 2 + (py - later[:, 1]) ** 2
+            if (d2 <= (5 * ring) ** 2).any() or not (0 <= px < w
+                                                      and 0 <= py < h):
+                continue
+            visible += 1
+            white += int((canvas[py, px] == 255).all())
+    log(f"  learnable tree markers on the JPEG-free canvases: {same} of "
+        f"{joints} joints re-stamped in place bit for bit, {moved} of "
+        f"{joints} moved by a 1 px shift; {white} of {visible} joints that "
+        f"no later marker covers carry the white centre; JPEG vs canvas "
+        f"mean |d| at most {jpeg:.3f} levels (gate {LEARN_JPEG_GATE})")
+    if not (same == moved == joints > 0 and white == visible > 0
+            and jpeg <= LEARN_JPEG_GATE):
+        raise AssertionError(f"learnable tree markers: {same}, {moved}, "
+                             f"{white}/{visible}, {jpeg} of {joints}")
+    return {"joints": joints, "restamped_in_place": same,
+            "moved_by_1px": moved, "white_centres": [white, visible],
+            "jpeg_mean_abs_max": jpeg}
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _ranks(module, argv, world, expect_ok=True, timeout=900):
+    """``python -m module argv --coordinator ...`` as ``world`` ranks on
+    this card; returns their stderr. Every rank is waited for."""
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", module, *argv, "--coordinator",
+         f"localhost:{port}", "--num-processes", str(world),
+         "--process-id", str(r)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(world)]
+    errs = []
+    for p in procs:
+        _, err = p.communicate(timeout=timeout)
+        errs.append(err)
+        if expect_ok and p.returncode != 0:
+            raise AssertionError(f"{module} rank failed: {err[-3000:]}")
+        if not expect_ok and p.returncode == 0:
+            raise AssertionError(f"{module} rank should have failed")
+    return errs
+
+
+def _save_digests(run_dir):
+    """A run's 1.save (its trees, as ``payload``), last logged loss,
+    digests (sum |params|, sum |BN means|), parameter files and log."""
+    import numpy as np
+    from bilinear_tpu_torch.io.checkpoint import load_checkpoint
+
+    pdir = os.path.join(run_dir, "parameter")
+    payload = load_checkpoint(pdir, 1)
+    params = sum(float(np.abs(v).sum())
+                 for v in _flat(payload["state"]["params"]).values())
+    means = sum(float(np.abs(v).sum()) for k, v in
+                _flat(payload["state"]["batch_stats"]).items()
+                if k.endswith("/mean"))
+    with open(os.path.join(run_dir, "debug.log")) as f:
+        text = f.read()
+    loss = _log_value(text, "saved (loss:", "loss: ")[-1]
+    return {"loss": loss, "params_abs_sum": params, "bn_mean_abs_sum": means,
+            "payload": payload, "files": sorted(os.listdir(pdir)),
+            "log": text}
+
+
+def _flat(tree, prefix=""):
+    """{path: float64 array} of a nested dict's leaves."""
+    import numpy as np
+
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v, np.float64)
+    return out
+
+
+def _leaf_gap(got, ref, floor=0.0):
+    """Each leaf's max |got - ref| / max |ref|: (the largest, its leaf,
+    the leaves not compared). A leaf whose
+    max |ref| is below ``floor`` of the tree's largest is not compared: a
+    gradient that is zero in exact arithmetic (the bias in front of a
+    train-mode BN) is rounding noise on both sides."""
+    import numpy as np
+
+    g, r = _flat(got), _flat(ref)
+    if sorted(g) != sorted(r):
+        raise AssertionError(f"trees differ: {sorted(set(g) ^ set(r))}")
+    top = max(float(np.abs(v).max()) for v in r.values() if v.size)
+    gaps = {}
+    for k, want in r.items():
+        scale = float(np.abs(want).max()) if want.size else 0.0
+        if scale >= floor * top and want.size:
+            gaps[k] = float(np.abs(g[k] - want).max()) / max(scale, 1e-30)
+    worst = max(gaps, key=gaps.get)
+    return gaps[worst], worst, len(r) - len(gaps)
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _held_to(name, got, ref, adam):
+    """A multi-rank run against the one-process run on the card, leaf by
+    leaf. Gated: loss and digests within DIST_STEP_REL, and the
+    gradients. The lifter's (Adam's mu, of the leaves above GRAD_FLOOR of
+    the tree's largest) each within DIST_GRAD_REL of its leaf's largest.
+    The detector's f32 gradients at a random state are ill-conditioned
+    (ROADMAP.md Queue 3; the CPU tests hold them in float64), so they get
+    phase 7's gates for two f32 evaluations of its step in another order
+    (PARITY_F32: median and 90th percentile over tensors of |g_a - g_b| /
+    |g_b|, here of |g| = 10 sqrt(square_avg), every conv bias but the
+    heatmap heads' left out: a train-mode BN removes its shift), and its
+    first step's BN statistics each within DIST_STEP_REL of its leaf's
+    largest. Reported, not gated: the largest gradient gaps, and after
+    Adam the parameters and BN statistics per leaf (Adam moves an element
+    whose gradient is near eps by up to lr on rounding alone, and cuBLAS
+    rounds a row differently at another batch or width, so after the
+    first step these gaps measure that amplification, not the split)."""
+    import numpy as np
+
+    def trees(run):
+        state, opt = run["payload"]["state"], run["payload"]["optimizer"]
+        return state["params"], state["batch_stats"], opt["1"]
+
+    gaps = {k: _rel(got[k], ref[k])
+            for k in ("loss", "params_abs_sum", "bn_mean_abs_sum")}
+    gates = dict.fromkeys(gaps, DIST_STEP_REL)
+    (gp, gs, go), (rp, rs, ro) = trees(got), trees(ref)
+    stats, stats_at, _ = _leaf_gap(gs, rs)
+    reported = {"bn_stats_leaf_worst": [stats, stats_at]}
+    if adam:
+        worst, where, noise = _leaf_gap(go["mu"], ro["mu"],
+                                        floor=GRAD_FLOOR)
+        gaps["grad_leaf"], gates["grad_leaf"] = worst, DIST_GRAD_REL
+        reported["params_leaf_worst"] = list(_leaf_gap(gp, rp)[:2])
+        compared = f"{len(_flat(ro['mu'])) - noise} of {len(_flat(ro['mu']))}"
+    else:
+        g_abs, r_abs = ({k: np.sqrt(v) for k, v in
+                         _flat(o["square_avg"]).items()} for o in (go, ro))
+        gated = [k for k in r_abs if not (k.endswith("/bias") and
+                                          k[:-4] + "kernel" in r_abs
+                                          and not re.match(r"htmap_\d+/",
+                                                           k))]
+        rel = sorted((float(np.linalg.norm(g_abs[k] - r_abs[k])
+                            / max(np.linalg.norm(r_abs[k]), 1e-30)), k)
+                     for k in gated)
+        q = _quantiles(rel)
+        gaps["grad_rel_median"], gaps["grad_rel_p90"] = q[0.5], q[0.9]
+        gates["grad_rel_median"], gates["grad_rel_p90"] = PARITY_F32[1:]
+        gaps["bn_stats_leaf"], gates["bn_stats_leaf"] = stats, DIST_STEP_REL
+        reported["grad_rel_max"] = list(rel[-1])
+        compared = f"{len(gated)} of {len(r_abs)}"
+    log(f"  {name}: loss {got['loss']:.6f} (one process {ref['loss']:.6f}); "
+        "gaps " + ", ".join(f"{k} {v:.2e} (gate {gates[k]})"
+                            for k, v in gaps.items())
+        + "; reported: " + ", ".join(f"{k} {v:.2e} at {at}"
+                                     for k, (v, at) in reported.items())
+        + f"; {compared} gradient tensors compared; files {got['files']}")
+    if got["files"] != ["1.save"] or any(gaps[k] > gates[k] for k in gaps):
+        raise AssertionError(f"{name}: {gaps} (gates {gates}), "
+                             f"{got['files']}")
+    return dict(gaps, gates=gates, reported=reported)
+
+
+def _epoch_step_ms(text):
+    """ms per step of the last epoch logged by cli.train_bilinear."""
+    line = [ln for ln in text.splitlines() if "saved (loss:" in ln][-1]
+    steps, secs = re.search(r"(\d+) steps in ([0-9.]+) s", line).groups()
+    return float(secs) * 1e3 / int(steps)
+
+
+def drive_parallel_training(work, calib, card):
+    """Phase 15's multi-rank legs on this one card, every rank a process
+    started through the CLI's --coordinator flags (gloo: the ranks share
+    the card): train_bilinear DP (2 ranks), TP (data 1 x model 2) and
+    DP x TP (2 x 2) for one epoch of DP_ROWS rows, each against one
+    process; a full-width standard train_hourglass step over 2 ranks (4
+    rows each) against one process; train_hourglass --fused-blocks true
+    over 2 ranks must fail; a one-rank NCCL train_bilinear; the DP run's
+    1.save resumed by one process; ms per step with two ranks sharing the
+    card."""
+    from bilinear_tpu_torch.cli import train_bilinear, train_hourglass
+    from bilinear_tpu_torch.data.synthetic import write_mpii_dataset
+
+    out = {}
+    data = _manifold_bins(os.path.join(work, "dp_h36m"), calib, DP_ROWS, 64)
+    lift = ["--data-dir", data, "--epochs-per-run", "1", "--seed",
+            str(SEED), "--comment", "lift"]
+    one_root = os.path.join(work, "dp_one")
+    run_cli(train_bilinear.main, lift + ["--save-root", one_root])
+    ref = _save_digests(os.path.join(one_root, "lift"))
+    module = "bilinear_tpu_torch.cli.train_bilinear"
+    for name, world, model in (("bilinear_dp_2", 2, 1),
+                               ("bilinear_tp_1x2", 2, 2),
+                               ("bilinear_dp_tp_2x2", 4, 2)):
+        root = os.path.join(work, name)
+        t0 = time.perf_counter()
+        _ranks(module, lift + ["--save-root", root, "--model-parallel",
+                               str(model)], world)
+        got = _save_digests(os.path.join(root, "lift"))
+        if "backend gloo" not in got["log"]:
+            raise AssertionError(f"{name}: not on gloo")
+        out[name] = {"gaps": _held_to(name, got, ref, adam=True),
+                     "command_s": time.perf_counter() - t0}
+    # The DP run's 1.save resumes in one process.
+    dp_root = os.path.join(work, "bilinear_dp_2")
+    run_cli(train_bilinear.main, lift + ["--save-root", dp_root])
+    with open(os.path.join(dp_root, "lift", "debug.log")) as f:
+        text = f.read()
+    if "Resumed from epoch 1" not in text or not os.path.exists(
+            os.path.join(dp_root, "lift", "parameter", "2.save")):
+        raise AssertionError("the DP 1.save did not resume in one process")
+    log("  the DP run's 1.save resumed in one process (2.save written)")
+    # One rank on NCCL.
+    nccl_root = os.path.join(work, "nccl")
+    _ranks(module, lift + ["--save-root", nccl_root], 1)
+    got = _save_digests(os.path.join(nccl_root, "lift"))
+    if "backend nccl" not in got["log"]:
+        raise AssertionError("the one-rank run did not take NCCL")
+    out["bilinear_nccl_1"] = {"gaps": _held_to("bilinear_nccl_1", got, ref,
+                                                adam=True)}
+
+    # Times: two epochs of the learnability bins, the second's ms per step.
+    learn = os.path.join(work, "learn_h36m")
+    for name, world, model in (("dp_2", 2, 1), ("tp_1x2", 2, 2)):
+        root = os.path.join(work, "time_" + name)
+        _ranks(module, ["--data-dir", learn, "--epochs-per-run", "2",
+                        "--comment", "t", "--save-root", root,
+                        "--model-parallel", str(model)], world)
+        with open(os.path.join(root, "t", "debug.log")) as f:
+            out[name + "_ms_per_step"] = _epoch_step_ms(f.read())
+    # One process: the last epoch of the learnability run (phase 15b).
+    with open(os.path.join(work, "save", "learn", "debug.log")) as f:
+        out["one_process_ms_per_step"] = _epoch_step_ms(f.read())
+    log(f"  lifting train step, batch 64, f32, ms per step of a 64-step "
+        f"epoch on {card}: one process "
+        f"{out['one_process_ms_per_step']:.3f}, DP 2 ranks "
+        f"{out['dp_2_ms_per_step']:.3f}, TP 1x2 "
+        f"{out['tp_1x2_ms_per_step']:.3f} (two ranks share one card over "
+        "gloo: not a scaling figure)")
+
+    # The detector: one full-width standard step, 2 ranks x 4 rows.
+    mpii = os.path.join(work, "dp_mpii")
+    write_mpii_dataset(mpii, n_train_images=8, n_test_images=1,
+                       learnable=True, seed=SEED)
+    hg = ["--data-dir", mpii, "--batch-size", "8", "--epochs-per-run", "1",
+          "--steps-per-dispatch", "1", "--comment", "hg", "--seed",
+          str(SEED)]
+    one_root = os.path.join(work, "hg_one")
+    t0 = time.perf_counter()
+    run_cli(train_hourglass.main, hg + ["--save-root", one_root])
+    one_s = time.perf_counter() - t0
+    ref = _save_digests(os.path.join(one_root, "hg"))
+    root = os.path.join(work, "hg_dp")
+    t0 = time.perf_counter()
+    _ranks("bilinear_tpu_torch.cli.train_hourglass",
+           hg + ["--save-root", root], 2)
+    dp_s = time.perf_counter() - t0
+    got = _save_digests(os.path.join(root, "hg"))
+    out["hourglass_dp_2"] = {"gaps": _held_to("hourglass DP 2 ranks, full "
+                                              "width, standard", got,
+                                              ref, adam=False),
+                             "one_process_cli_s": one_s,
+                             "two_rank_command_s": dp_s}
+    errs = _ranks("bilinear_tpu_torch.cli.train_hourglass",
+                  hg + ["--save-root", os.path.join(work, "hg_fused"),
+                        "--fused-blocks", "true"], 2, expect_ok=False)
+    if not all("NotImplementedError" in e and "ROADMAP" in e for e in errs):
+        raise AssertionError("fused blocks under DP did not raise")
+    log("  train_hourglass --fused-blocks true over 2 ranks raised "
+        "NotImplementedError naming ROADMAP.md on both ranks")
+    return out
+
+
+def _mesh(n=MESH_SHARDS):
+    return ["cuda:0"] * n
+
+
+def drive_mesh_serving(work):
+    """LiftingServer and End2EndServer over a local mesh of this card
+    twice, against the unsharded servers; K1/K2, K3-eval and K6/K7
+    launches per call; times. Returns (record, launches by kernel)."""
+    import numpy as np
+    import torch
+    from bilinear_tpu_torch.models.end2end import End2End
+    from bilinear_tpu_torch.ops import lifting as pl
+    from bilinear_tpu_torch.ops import lifting_int8 as pq
+    from bilinear_tpu_torch.serving import End2EndServer, LiftingServer
+    from bilinear_tpu_torch.serving_http import PoseHTTPServer
+    from bilinear_tpu_torch.utils import weights as wt
+    from bilinear_tpu_torch.utils.weights import bilinear_to_jax
+
+    out = {"lifting": {}, "end2end": {}}
+    launches = {}
+    params, stats = bilinear_to_jax(random_state_dict(SEED))
+    ident = (np.zeros(32), np.ones(32), np.zeros(48), np.ones(48))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 151)
+    x = torch.randn((511, 32), generator=gen, device="cuda")
+    big = torch.randn((65536, 32), generator=gen, device="cuda")
+    for mode, quantize, kernel in (("bf16", None, "lifting_bf16"),
+                                   ("int8", "int8", "lifting_int8_dynamic"),
+                                   ("int8-static", "int8-static",
+                                    "lifting_int8_static")):
+        kw = dict(dtype=torch.bfloat16, quantize=quantize)
+        flat = LiftingServer(params, stats, *ident, device="cuda", **kw)
+        mesh = LiftingServer(params, stats, *ident, mesh=_mesh(), **kw)
+        mesh.lift_normalized(x)
+        pl.LAUNCHES = pq.LAUNCHES = 0
+        got = mesh.lift_normalized(x)
+        torch.cuda.synchronize()
+        n_launch = pl.LAUNCHES if quantize is None else pq.LAUNCHES
+        launches[kernel] = n_launch
+        pad = torch.cat([x, x.new_zeros((1, 32))])
+        blocks = torch.cat([flat.lift_normalized(b) for b in pad.chunk(2)])
+        per_block = bool(torch.equal(got, blocks[:511]))
+        whole = bool(torch.equal(got, flat.lift_normalized(x)))
+        t_mesh = cuda_ms(lambda: mesh.lift_normalized(big), 10)
+        t_flat = cuda_ms(lambda: flat.lift_normalized(big), 10)
+        log(f"  LiftingServer {mode} over {MESH_SHARDS} shards of cuda:0, "
+            f"511 rows: {n_launch} launches; equal to the unsharded server "
+            f"on each shard's rows: {per_block}, on the whole batch: "
+            f"{whole}; lift_normalized at 65536 rows {t_mesh:.4f} ms "
+            f"sharded, {t_flat:.4f} unsharded")
+        if n_launch != MESH_SHARDS or not per_block or \
+                (quantize is None and not whole):
+            raise AssertionError(f"mesh lifting {mode}")
+        out["lifting"][mode] = {"launches_per_call": n_launch,
+                                "bit_equal_per_shard": per_block,
+                                "bit_equal_whole_batch": whole,
+                                "ms_65536_sharded": t_mesh,
+                                "ms_65536_unsharded": t_flat}
+
+    model = End2End(generator=torch.Generator().manual_seed(SEED + 152))
+    variables = dict(zip(("params", "batch_stats"),
+                         wt.end2end_to_jax(model.state_dict(), "torch7")))
+    frames = _pose_frames(16, SEED + 153)
+    for label, quantize, model_kw in (("bf16_fused", None, {"fused": True}),
+                                      ("int8", "int8", {})):
+        kw = dict(variant="torch7", dtype=torch.bfloat16,
+                  batch_sizes=(2, 4, 8, 16), model_kw=model_kw,
+                  quantize=quantize)
+        flat = End2EndServer(variables, *ident, device="cuda", **kw)
+        mesh = End2EndServer(variables, *ident, mesh=_mesh(), **kw)
+        rec = {}
+        for n in (8, 16):
+            mesh.predict(frames[:n])
+            _zero_res_counts()
+            _zero_int8_counts()
+            p2, p3 = mesh.predict(frames[:n])
+            torch.cuda.synchronize()
+            res, q = _res_counts(), _int8_counts()
+            q2 = np.concatenate([flat.predict(b)[0] for b in
+                                 np.split(frames[:n], MESH_SHARDS)])
+            q3 = np.concatenate([flat.predict(b)[1] for b in
+                                 np.split(frames[:n], MESH_SHARDS)])
+            w2, w3 = flat.predict(frames[:n])
+            per_block = bool(np.array_equal(p2, q2) and
+                             np.array_equal(p3, q3))
+            g2, g3 = _pose_gap(p2, w2), _pose_gap(p3, w3)
+            whole = bool(np.array_equal(p2, w2) and np.array_equal(p3, w3))
+            rec[n] = {"resmodule_fwd_eval": res["resmodule_fwd_eval"],
+                      "int8_quantize": q["int8_quantize"],
+                      "int8_conv": q["int8_conv"],
+                      "bit_equal_per_shard": per_block,
+                      "bit_equal_whole_batch": whole,
+                      "pose2d_gap_px_median_max": g2,
+                      "pose3d_gap_mm_median_max": g3}
+            log(f"  End2EndServer {label} over {MESH_SHARDS} shards, {n} "
+                f"frames: K3 eval {res['resmodule_fwd_eval']}, K6 "
+                f"{q['int8_quantize']}, K7 {q['int8_conv']} launches; equal "
+                f"to the unsharded server on each shard's frames: "
+                f"{per_block}; against its whole batch: bit-equal {whole}, "
+                f"pose2d median/max {g2[0]:.2e}/{g2[1]:.2e} px, pose3d "
+                f"{g3[0]:.2e}/{g3[1]:.2e} mm (gate {POSE_SELF_GATE})")
+            want = (107 * MESH_SHARDS, 0, 0) if quantize is None else \
+                (0, 321 * MESH_SHARDS, 321 * MESH_SHARDS)
+            if (res["resmodule_fwd_eval"], q["int8_quantize"],
+                    q["int8_conv"]) != want or not per_block or \
+                    max(g2[1], g3[1]) > POSE_SELF_GATE:
+                raise AssertionError(f"mesh End2End {label} at {n}")
+            if quantize is None:
+                launches["resmodule_fwd_eval"] = launches.get(
+                    "resmodule_fwd_eval", 0) + res["resmodule_fwd_eval"]
+            else:
+                for k in ("int8_quantize", "int8_conv"):
+                    launches[k] = launches.get(k, 0) + q[k]
+        rec["pose_http_p50_ms"] = _pose_p50(PoseHTTPServer(
+            end2end=mesh, max_delay_ms=0))
+        log(f"  /v1/pose wall p50, {label}, {MESH_SHARDS} shards of cuda:0, "
+            "u8, one request at a time: " + ", ".join(
+                f"{n} frames {v:.2f} ms"
+                for n, v in rec["pose_http_p50_ms"].items()))
+        out["end2end"][label] = rec
+    return out, launches
+
+
+def _stack_res_modules(model):
+    """(ResModules of the stem, of one stack) of a MainModel."""
+    from bilinear_tpu_torch.models.hourglass_torch7 import ResModule
+
+    def count(mods):
+        return sum(isinstance(m, ResModule) for mm in mods
+                   for m in mm.modules())
+
+    return count([model.beforeHourglass]), count(model.stack_modules(0))
+
+
+def drive_pipeline():
+    """pipeline_forward at full width over ["cuda:0"] * S, (S, M) in
+    PP_CASES, batch PP_BATCH: fused bf16 against MainModel(fused=True)
+    (phase 3b's K3 eval gate; bit-equality reported) with its K3-eval
+    launches; int8 against the int8 MainModel with its K6/K7 launches;
+    pipeline_end2end against End2End; one make_pp_train_step at (2, 2)
+    against the one-process step accumulated over the same microbatches;
+    forward times. Returns (record, launches by kernel)."""
+    import torch
+    from bilinear_tpu_torch.models.end2end import End2End
+    from bilinear_tpu_torch.models.hourglass_torch7 import MainModel
+    from bilinear_tpu_torch.parallel import pp
+
+    out = {"fused_bf16": {}, "int8": {}}
+    launches = {"resmodule_fwd_eval": 0, "int8_quantize": 0, "int8_conv": 0}
+    gen = torch.Generator().manual_seed(SEED + 161)
+    fused = MainModel(fused=True, dtype=torch.bfloat16,
+                      generator=gen).cuda().eval()
+    q8 = MainModel(quantize="int8", dtype=torch.bfloat16).cuda().eval()
+    q8.load_state_dict(fused.state_dict())
+    stem_res, stack_res = _stack_res_modules(fused)
+    images = torch.rand((PP_BATCH, 256, 256, 3),
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(SEED + 162), device="cuda")
+    with torch.no_grad():
+        ref = fused(images)[-1]
+        ref_q = q8(images)[-1]
+    gates = RES_GATES[("K3", "bf16")]
+    for s, m in PP_CASES:
+        for label, model, want_ref in (("fused_bf16", fused, ref),
+                                       ("int8", q8, ref_q)):
+            fn = pp.make_pipeline_fn(model, _mesh(s), microbatches=m)
+            fn(images)
+            _zero_res_counts()
+            _zero_int8_counts()
+            got = fn(images)
+            torch.cuda.synchronize()
+            res, q = _res_counts(), _int8_counts()
+            equal = bool(torch.equal(got, want_ref))
+            mx, mean = gate_close(f"PP {label} (S, M) = ({s}, {m})", got,
+                                  want_ref, *gates)
+            t_pp = cuda_ms(lambda: fn(images), PP_TIME_ITERS)
+            with torch.no_grad():
+                t_one = cuda_ms(lambda: model(images), PP_TIME_ITERS)
+            if label == "fused_bf16":
+                n = res["resmodule_fwd_eval"]
+                want_n = stem_res + stack_res * model.n_stacks * m
+                launches["resmodule_fwd_eval"] += n
+                counts = {"resmodule_fwd_eval": n}
+                ok = n == want_n and q["int8_conv"] == 0
+            else:
+                want_n = 3 * (stem_res + stack_res * model.n_stacks * m)
+                for k in ("int8_quantize", "int8_conv"):
+                    launches[k] += q[k]
+                counts = dict(q)
+                # K6/K7 and the float ops between them act per sample:
+                # a microbatch's rows are the whole batch's bits.
+                ok = q["int8_quantize"] == q["int8_conv"] == want_n and \
+                    res["resmodule_fwd_eval"] == 0 and equal
+            log(f"  PP {label} (S, M) = ({s}, {m}): launches {counts} "
+                f"(want {want_n} = the stem's once, the stacks' once per "
+                f"microbatch); bit-equal to MainModel on the whole batch: "
+                f"{equal}; forward {t_pp:.2f} ms against MainModel's "
+                f"{t_one:.2f} ms")
+            if not ok:
+                raise AssertionError(f"PP {label} ({s}, {m}) launches "
+                                     f"{counts}, want {want_n}")
+            out[label][f"{s}x{m}"] = {
+                "launches": counts, "bit_equal": equal, "max_abs": mx,
+                "mean_abs": mean, "ms": t_pp, "main_model_ms": t_one}
+
+    e2e = End2End(fused=True, dtype=torch.bfloat16,
+                  generator=torch.Generator().manual_seed(SEED + 163)) \
+        .cuda().eval()
+    centers = torch.full((PP_BATCH, 2), 128.0, device="cuda")
+    scales = torch.full((PP_BATCH,), 1.28, device="cuda")
+    mean_p = torch.zeros(32, device="cuda")
+    std_p = torch.ones(32, device="cuda")
+    p2, p3 = pp.pipeline_end2end(e2e, images, centers, scales, mean_p,
+                                 std_p, _mesh(2), microbatches=2)
+    with torch.no_grad():
+        _, q2, q3 = e2e(images, centers, scales, mean_p, std_p)
+    g2 = _pose_gap(p2.cpu().numpy(), q2.cpu().numpy())
+    g3 = _pose_gap(p3.reshape(-1, 16, 3).float().cpu().numpy(),
+                   q3.reshape(-1, 16, 3).float().cpu().numpy())
+    log(f"  pipeline_end2end (2, 2) against End2End, fused bf16: pose2d "
+        f"median/max {g2[0]:.2e}/{g2[1]:.2e} px, normalized 3D "
+        f"{g3[0]:.2e}/{g3[1]:.2e} (gate {POSE_SELF_GATE}); bit-equal "
+        f"{bool(torch.equal(p2, q2) and torch.equal(p3, q3))}")
+    if max(g2[1], g3[1]) > POSE_SELF_GATE:
+        raise AssertionError("pipeline_end2end")
+    out["end2end"] = {"pose2d_gap_px": g2, "pose3d_gap": g3}
+
+    out["train_step_2x2"] = pp_train_parity(images)
+    return out, launches
+
+
+def pp_train_parity(images):
+    """One make_pp_train_step at (S, M) = (2, 2), full width, f32, the
+    standard model, against the one-process step with gradients
+    accumulated over the same two microbatches: loss rel 1e-5; clipped
+    gradients per leaf within 1e-3 of the leaf's largest value at the
+    median over leaves (phase 7's measure); parameters where |g| > 3e-5 at
+    JAX's amplified gate (rtol 2e-3, atol 2e-4; RMSprop's first step is 10
+    lr sign(g))."""
+    import numpy as np
+    import torch
+    from bilinear_tpu_torch.core.optim import hourglass_optimizer
+    from bilinear_tpu_torch.models.hourglass_torch7 import MainModel
+    from bilinear_tpu_torch.parallel import pp
+    from bilinear_tpu_torch.train.hourglass import heatmap_loss
+
+    gen = torch.Generator().manual_seed(SEED + 171)
+    a = MainModel(generator=gen).cuda()
+    b = MainModel().cuda()
+    b.load_state_dict(a.state_dict())
+    targets = torch.rand((PP_BATCH, 16, 64, 64),
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(SEED + 172), device="cuda")
+    step = pp.make_pp_train_step(a, _mesh(2), microbatches=2)
+    loss = float(step(images, targets))
+    opt = hourglass_optimizer(b.parameters())
+    b.train()
+    opt.zero_grad()
+    total = 0.0
+    for xm, tm in zip(images.chunk(2), targets.chunk(2)):
+        lm = heatmap_loss(b(xm), tm) / 2
+        lm.backward()
+        total += float(lm.detach())
+    opt.step()
+    ga = dict(a.named_parameters())
+    rel, bad = [], 0
+    checked = 0
+    sb = b.state_dict()
+    for k, p in b.named_parameters():
+        if p.grad is None:
+            continue
+        scale = float(p.grad.abs().max())
+        if scale > 1e-6:  # a conv bias before a BN is noise on both sides
+            rel.append(float((ga[k].grad - p.grad).abs().max()) / scale)
+        m = p.grad.abs() > 3e-5
+        got, want = ga[k].detach()[m], sb[k][m]
+        checked += int(m.sum())
+        bad += int(((got - want).abs() > 2e-4 + 2e-3 * want.abs()).sum())
+    med, worst = float(np.median(rel)), float(np.max(rel))
+    log(f"  PP train step (2, 2), full width, f32: loss {loss:.6f} against "
+        f"the accumulated one-process step's {total:.6f} (rel "
+        f"{_rel(loss, total):.2e}, gate 1e-5); clipped gradients per leaf, "
+        f"|d| / max|g|: median {med:.2e} (gate 1e-3), max {worst:.2e}; "
+        f"parameters where |g| > 3e-5: {bad} of {checked} outside rtol "
+        "2e-3 / atol 2e-4")
+    if _rel(loss, total) > 1e-5 or med > 1e-3 or bad:
+        raise AssertionError("PP train step parity")
+    return {"loss": loss, "accumulated_loss": total, "grad_median": med,
+            "grad_max": worst, "params_outside": bad}
+
+
+def drive_phase15(card):
+    """Phase 15: camera and bins, DP/TP training, mesh serving, PP.
+    Returns (record, launches by kernel and path)."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_15_")
+    t0 = time.perf_counter()
+
+    def step(text):
+        log(f"{text} (phase 15 at {time.perf_counter() - t0:.1f} s)")
+
+    try:
+        calib = write_calibration(os.path.join(work, "calibration"))
+        step(f"phase 15a: the camera on {card}")
+        rec = {"camera": check_camera(calib)}
+        step("phase 15b: bins, and a lifter that learns from them")
+        rec["learnability"], k1_learn = drive_learnability(work, calib)
+        step(f"phase 15c: DP and TP training, ranks sharing {card}")
+        rec["parallel_training"] = drive_parallel_training(work, calib,
+                                                           card)
+        step(f"phase 15d: mesh-sharded serving on {card}")
+        rec["mesh_serving"], mesh_launches = drive_mesh_serving(work)
+        step(f"phase 15e: pipeline parallelism at full width on {card}")
+        rec["pipeline"], pp_launches = drive_pipeline()
+        step("phase 15: done")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = {"lifting_bf16": {"phase15_serving_the_learned_lifter":
+                                 k1_learn}}
+    for k, n in mesh_launches.items():
+        launches.setdefault(k, {})["phase15_mesh_serving"] = n
+    for k, n in pp_launches.items():
+        launches.setdefault(k, {})["phase15_pipeline_forward"] = n
+    return rec, launches
+
+
+def phase15_alone() -> int:
+    """Phases 1, 2 and 15 only: a quick loop on phase 15 (``python3 -c
+    "import chip_smoke; chip_smoke.phase15_alone()"``)."""
+    import torch
+    from bilinear_tpu_torch.ops import _build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    secs = _build.build_all(["lifting", "lifting_int8", "resmodule",
+                             "int8_conv"])
+    log(f"card: {card}; built in {secs:.1f} s")
+    t0 = time.perf_counter()
+    rec, launches = drive_phase15(card)
+    log(json.dumps({"phase15": rec, "launches": launches}))
+    log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 # ------------------------------------------------------------------ main
 
 # K6/K7 replace no Pallas kernel: the JAX functions they stand for are XLA.
@@ -4368,6 +5218,10 @@ def _run_after_phase5(card, keep, errs, launches, table, end_to_end):
         aot_result = drive_aot(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    # phase 15: camera and bins, DP/TP training, mesh serving, PP
+    log("phase 15: camera and bin generation, DP/TP training, mesh-sharded "
+        "serving, pipeline parallelism")
+    p15, p15_launches = drive_phase15(card)
 
     by_path = {name: {"phase4_serving": launches[name]}
                for name in SOURCES if not name.startswith("resmodule")}
@@ -4385,6 +5239,9 @@ def _run_after_phase5(card, keep, errs, launches, table, end_to_end):
                                  e2e_eval_launches[name],
                              "phase12_end2end_serving":
                                  e2e_serve_launches[name]}
+    for name, paths in p15_launches.items():
+        if name in by_path:
+            by_path[name].update(paths)
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         if name.startswith("resmodule"):
@@ -4439,9 +5296,12 @@ def _run_after_phase5(card, keep, errs, launches, table, end_to_end):
         k = "k6" if name == "int8_quantize" else "k7"
         entry = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": int8_launches[name],
-            "launches_by_path": {"phase13_int8_serving":
-                                 int8_launches[name]},
+            "replaces": replaces,
+            "launches": int8_launches[name] + sum(
+                p15_launches.get(name, {}).values()),
+            "launches_by_path": dict({"phase13_int8_serving":
+                                      int8_launches[name]},
+                                     **p15_launches.get(name, {})),
             "max_abs_err": errs[name], "shape_bhwcok": list(INT8_MAIN_SHAPE),
             "ms": main[f"{k}_ms"], "plain_ms": main[f"{k}_plain_ms"],
             "bound_ms": main[f"{k}_bound_ms"],
@@ -4465,6 +5325,7 @@ def _run_after_phase5(card, keep, errs, launches, table, end_to_end):
     log(json.dumps({"end2end": e2e_result}))
     log(json.dumps({"int8": int8_result}))
     log(json.dumps({"aot": aot_result}))
+    log(json.dumps({"phase15": p15}))
     return {"kernels": kernels, "card": card}
 
 

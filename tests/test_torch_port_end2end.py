@@ -314,8 +314,8 @@ def test_warm_and_refusals(run_dir, h36m, tmp_path):
             End2EndServer.from_run_dir(run_dir, train, model_kw=SIZE)
     with pytest.raises(ValueError, match="unsupported quantize"):
         _server(run_dir, train, quantize="int8-static")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        _server(run_dir, train, mesh=object())
+    with pytest.raises(ValueError, match="do not divide the mesh's data"):
+        _server(run_dir, train, batch_sizes=(1, 2), mesh=["cpu"] * 2)
 
 
 def test_coerce_frames_matches_the_device_rescale():

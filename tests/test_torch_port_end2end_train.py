@@ -59,6 +59,7 @@ from bilinear_tpu_torch.data.h36m_images import H36MImageRecords
 from bilinear_tpu_torch.data.pipeline import MPIIHostPipeline
 from bilinear_tpu_torch.data.synthetic import write_h36m_dataset
 from bilinear_tpu_torch.io import checkpoint as pckpt
+from bilinear_tpu_torch.parallel.mesh import Mesh
 from bilinear_tpu_torch.train import end2end as te
 from bilinear_tpu_torch.train import hourglass as th
 from bilinear_tpu_torch.utils import weights as wt
@@ -572,7 +573,8 @@ def test_sample_augment_streams():
                        torch.rand(8, generator=b.dropout))
     assert a.dropout.device.type == "cpu"
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        te.End2EndTrainer(mesh=object(), device="cpu")
+        te.End2EndTrainer(mesh=Mesh(data=2, model=1), device="cpu",
+                          model_kw={"fused": True})
 
 
 # ------------------------------------------------------------------ CLIs

@@ -77,7 +77,12 @@ def test_port_modules_are_listed():
                      "bilinear_tpu_torch.ops.int8",
                      "bilinear_tpu_torch.io.aot",
                      "bilinear_tpu_torch.cli.export_aot",
-                     "bilinear_tpu_torch.cli.export_torch"):
+                     "bilinear_tpu_torch.cli.export_torch",
+                     "bilinear_tpu_torch.data.camera",
+                     "bilinear_tpu_torch.data.h36m_generate",
+                     "bilinear_tpu_torch.parallel.mesh",
+                     "bilinear_tpu_torch.parallel.tp",
+                     "bilinear_tpu_torch.parallel.pp"):
         assert expected in names
 
 

@@ -108,8 +108,8 @@ def test_empty_run_dir_and_bad_arguments(setup, tmp_path):
     with pytest.raises(ValueError):
         LiftingServer.from_run_dir(run_dir, _train(d, True),
                                    quantize="bogus", device="cpu")
-    with pytest.raises(NotImplementedError):
-        LiftingServer.from_run_dir(run_dir, _train(d, True), mesh=object(),
+    with pytest.raises(ValueError, match="at least one device"):
+        LiftingServer.from_run_dir(run_dir, _train(d, True), mesh=[],
                                    device="cpu")
 
 

@@ -349,12 +349,15 @@ def test_config_mirrors_jax():
     assert cfg.lr_decay.period == 100_000 and cfg.protocol == "GT"
 
 
-@pytest.mark.parametrize("flag", [["--profile", "true"],
-                                  ["--debug-nans", "true"],
-                                  ["--coordinator", "localhost:1"]],
-                         ids=["profile", "debug-nans", "coordinator"])
-def test_train_cli_refuses_what_is_not_ported(flag):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("flag,error", [
+    (["--profile", "true"], NotImplementedError),
+    (["--debug-nans", "true"], NotImplementedError),
+    # --coordinator is ported; a tensor-parallel run without a process
+    # group is what the CLI refuses now.
+    (["--model-parallel", "2"], ValueError)],
+    ids=["profile", "debug-nans", "coordinator"])
+def test_train_cli_refuses_what_is_not_ported(flag, error):
+    with pytest.raises(error):
         train_bilinear.main(flag + ["--device", "cpu"])
 
 
