@@ -38,8 +38,6 @@ def main(argv=None) -> None:
     extra.add_argument("--h36m-dir", default="data/Human3.6M")
     extra.add_argument("--protocol-out", default="SH")
     args, _ = extra.parse_known_args(argv)
-    if cfg.cache_canvases:
-        raise NotImplementedError("--cache-canvases is not ported yet")
     device = resolve_device(cfg.device or None)
     logger, log_dir, _ = get_logger(cfg.comment, cfg.save_root)
     parameter_dir = os.path.join(log_dir, "parameter")
@@ -52,7 +50,8 @@ def main(argv=None) -> None:
     written = convert_gt_to_sh(state.model, args.h36m_dir,
                                protocol_out=args.protocol_out,
                                batch_size=cfg.batch_size, canvas=cfg.canvas,
-                               transport=cfg.transport)
+                               transport=cfg.transport,
+                               cache_canvases=cfg.cache_canvases)
     for task, path in written.items():
         logger.info("%s -> %s", task, path)
 

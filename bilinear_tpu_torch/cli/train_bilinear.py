@@ -11,8 +11,13 @@ in ``{save_root}/{comment}/parameter`` (either package's), and writes one
 checkpoint per epoch in the JAX package's payload layout (then prunes, as
 ``--keep-checkpoints`` / ``--keep-every`` say), the per-step ``BI/loss``
 scalars and ``debug.log``. The trainer runs on the card; ``--device cpu``
-runs the plain PyTorch path and is meant for tests only. ``--profile``,
-``--debug-nans`` and graceful preemption are not ported yet.
+runs the plain PyTorch path and is meant for tests only. ``--profile
+true`` writes a ``torch.profiler`` trace of the run under
+``{save_root}/{comment}/plugins/profile/`` (``utils/profiling.py``);
+``--debug-nans true`` checks every module's output and every backward node
+(``utils/debug.py``); SIGTERM or SIGINT finishes the epoch, checkpoints it
+and exits 0 (``utils/preempt.py``; over ranks, one signalled rank stops
+them all after that epoch).
 
 Multi-process: ``--coordinator host:port --num-processes N --process-id i``
 on every process, and ``--local-processes L`` when the ranks span hosts,
@@ -27,6 +32,7 @@ the JAX package, resumes it); the others wait for it.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
@@ -42,6 +48,10 @@ from bilinear_tpu_torch.io.tensorboard import TBWriter
 from bilinear_tpu_torch.parallel.mesh import backend, is_primary, \
     shutdown_distributed, start_run
 from bilinear_tpu_torch.train.bilinear import BilinearTrainer
+from bilinear_tpu_torch.utils.debug import debug_mode
+from bilinear_tpu_torch.utils.preempt import GracefulShutdown, \
+    global_requested
+from bilinear_tpu_torch.utils.profiling import trace
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -49,10 +59,6 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 def main(argv=None) -> None:
     disable_tf32()
     cfg = parse_config(BilinearConfig(), argv)
-    if cfg.profile:
-        raise NotImplementedError("--profile is not ported yet")
-    if cfg.debug_nans:
-        raise NotImplementedError("--debug-nans is not ported yet")
     mesh, device = start_run(cfg, model=cfg.model_parallel)
     primary = is_primary(mesh)
     logger, log_dir, _ = get_logger(cfg.comment, cfg.save_root,
@@ -83,11 +89,13 @@ def main(argv=None) -> None:
                     state.step)
 
     writer = TBWriter(log_dir, enabled=primary)
+    shutdown = GracefulShutdown(logger)
     epochs_done = 0
+    preempted = False
     t_epoch = time.perf_counter()
 
     def on_epoch_end(epoch: int, st, losses) -> bool:
-        nonlocal epochs_done, t_epoch
+        nonlocal epochs_done, t_epoch, preempted
         epochs_done += 1
         loss_arr = losses.float().cpu().numpy()  # waits for the epoch
         secs = time.perf_counter() - t_epoch
@@ -106,16 +114,31 @@ def main(argv=None) -> None:
         logger.info("Epoch %d saved (loss: %f, %d steps in %.4f s)", epoch,
                     float(loss_arr[-1]), len(loss_arr), secs)
         t_epoch = time.perf_counter()
-        return False
+        # Truthy stops after this epoch; the ranks agree on it first, or
+        # the ones not signalled would wait in the next epoch's
+        # collectives.
+        shutdown.log_pending()
+        preempted = global_requested(shutdown.requested)
+        return preempted
 
     t0 = time.time()
-    trainer.fit(state, x, y, epochs=cfg.epochs_per_run, seed=cfg.seed + 1,
-                start_epoch=start_epoch, on_epoch_end=on_epoch_end)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    profile_ctx = trace(log_dir) if cfg.profile and primary \
+        else contextlib.nullcontext()
+    nan_ctx = debug_mode(state.model) if cfg.debug_nans \
+        else contextlib.nullcontext()
+    with profile_ctx, nan_ctx, shutdown:
+        trainer.fit(state, x, y, epochs=cfg.epochs_per_run,
+                    seed=cfg.seed + 1, start_epoch=start_epoch,
+                    on_epoch_end=on_epoch_end)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     dt = time.time() - t0
     logger.info("%d epochs in %.1fs (%.0f poses/sec)", epochs_done, dt,
                 epochs_done * len(train) / dt)
+    if preempted:
+        logger.info("Preempted after epoch %d/%d; checkpoint saved, exiting "
+                    "0", start_epoch + epochs_done,
+                    start_epoch + cfg.epochs_per_run)
     writer.close()
     if mesh is not None:
         shutdown_distributed()

@@ -21,8 +21,12 @@ Unlike the JAX CLI, the config's ``--n-stacks/--features/--depth/
 --n-modules`` and ``--fused-blocks`` reach the model (the JAX CLI drops
 them). ``--fused-blocks true`` with ``--variant torch7`` runs the
 detector's ResModules through kernels K3/K4. ``--device cpu`` runs the
-plain PyTorch path and is meant for tests only. ``--debug-nans``,
-``--cache-canvases`` and graceful preemption are not ported.
+plain PyTorch path and is meant for tests only. ``--debug-nans`` checks
+every module's output and every backward node (``utils/debug.py``);
+``--cache-canvases`` (with the default ``--transport u8``) decodes each
+frame once into ``{data_dir}/canvas_cache/e2e_train``; SIGTERM or SIGINT
+finishes the epoch, checkpoints it and exits 0 (``utils/preempt.py``; over
+ranks, one signalled rank stops them all after that epoch).
 
 Multi-process data parallelism: ``--coordinator host:port --num-processes
 N --process-id i`` on every process, as for ``train_hourglass``: every
@@ -32,6 +36,7 @@ statistics in both halves); rank 0 alone logs and writes ``{epoch}.save``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 
@@ -50,6 +55,9 @@ from bilinear_tpu_torch.parallel.mesh import backend, is_primary, \
     shutdown_distributed, start_run
 from bilinear_tpu_torch.train.end2end import End2EndTrainer, sample_augment
 from bilinear_tpu_torch.utils import weights as wt
+from bilinear_tpu_torch.utils.debug import debug_mode
+from bilinear_tpu_torch.utils.preempt import GracefulShutdown, \
+    global_requested
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -60,8 +68,6 @@ def e2e_config(argv=None):
     cfg = parse_config(HourglassFTConfig(), argv)
     if cfg.comment == "Hourglass FT":
         cfg.comment = "End2End"
-    if cfg.cache_canvases:
-        raise NotImplementedError("--cache-canvases is not ported yet")
     variant = "torch7" if cfg.variant == "torch7" else "preact"
     model_kw = dict(n_stacks=cfg.n_stacks, features=cfg.features,
                     depth=cfg.depth, n_modules=cfg.n_modules,
@@ -105,8 +111,6 @@ def main(argv=None) -> None:
     extra = argparse.ArgumentParser()
     extra.add_argument("--lambda-3d", type=float, default=1.0)
     args, _ = extra.parse_known_args(argv)
-    if cfg.debug_nans:
-        raise NotImplementedError("--debug-nans is not ported yet")
     mesh, device = start_run(cfg)
     primary = is_primary(mesh)
     logger, log_dir, _ = get_logger(cfg.comment, cfg.save_root,
@@ -121,9 +125,11 @@ def main(argv=None) -> None:
         raise SystemExit(
             f"train split has {len(records)} samples < batch size "
             f"{cfg.batch_size}: drop_last would yield zero steps per epoch")
-    pipeline = MPIIHostPipeline(records, cfg.batch_size, canvas=cfg.canvas,
-                                shuffle=True, seed=cfg.seed, drop_last=True,
-                                transport=cfg.transport)
+    pipeline = MPIIHostPipeline(
+        records, cfg.batch_size, canvas=cfg.canvas, shuffle=True,
+        seed=cfg.seed, drop_last=True, transport=cfg.transport,
+        cache_dir=os.path.join(cfg.data_dir, "canvas_cache", "e2e_train")
+        if cfg.cache_canvases and cfg.transport == "u8" else None)
     trainer = End2EndTrainer(
         variant=variant, batch_size=cfg.batch_size,
         learning_rate=cfg.learning_rate, lambda_3d=args.lambda_3d,
@@ -143,9 +149,30 @@ def main(argv=None) -> None:
     stats = tuple(torch.as_tensor(a, dtype=torch.float32, device=device)
                   for a in (train.mean_part, train.std_part))
     writer = TBWriter(log_dir, enabled=primary)
-    for epoch in range(start_epoch + 1, start_epoch + cfg.epochs_per_run + 1):
-        t0 = time.perf_counter()
-        n = 0
+    shutdown = GracefulShutdown(logger)
+    with shutdown:
+        for epoch in range(start_epoch + 1,
+                           start_epoch + cfg.epochs_per_run + 1):
+            _epoch(cfg, epoch, trainer, state, pipeline, train, stats, mesh,
+                   primary, parameter_dir, writer, logger, device)
+            shutdown.log_pending()
+            if global_requested(shutdown.requested):
+                logger.info("Preempted after epoch %d; checkpoint saved, "
+                            "exiting 0", epoch)
+                break
+    writer.close()
+    if mesh is not None:
+        shutdown_distributed()
+
+
+def _epoch(cfg, epoch, trainer, state, pipeline, train, stats, mesh,
+           primary, parameter_dir, writer, logger, device) -> None:
+    """One epoch: train (under ``--debug-nans``'s checks when asked),
+    checkpoint, log."""
+    t0 = time.perf_counter()
+    n = 0
+    with debug_mode(state.model) if cfg.debug_nans else \
+            contextlib.nullcontext():
         for batch in pipeline.epoch(epoch):
             b = trainer.batch_tensors(batch, train.s, train.centers,
                                       train.scales)
@@ -155,22 +182,19 @@ def main(argv=None) -> None:
                                                         augment)
             n += b["images"].shape[0]
         loss, hm_loss, loss_3d = float(loss), float(hm_loss), float(loss_3d)
-        img_s = n / (time.perf_counter() - t0)
-        if primary:
-            save_checkpoint(parameter_dir, epoch, *state.trees(),
-                            step=state.step)
-            prune_checkpoints(parameter_dir, cfg.keep_checkpoints,
-                              cfg.keep_every)
-        if mesh is not None:
-            mesh.barrier()
-        writer.scalar("E2E/loss", loss, state.step)
-        writer.scalar("E2E/heatmap", hm_loss, state.step)
-        writer.scalar("E2E/3d", loss_3d, state.step)
-        logger.info("Epoch %d saved (loss %f = hm %f + 3d %f, epoch %.1f "
-                    "img/s)", epoch, loss, hm_loss, loss_3d, img_s)
-    writer.close()
+    img_s = n / (time.perf_counter() - t0)
+    if primary:
+        save_checkpoint(parameter_dir, epoch, *state.trees(),
+                        step=state.step)
+        prune_checkpoints(parameter_dir, cfg.keep_checkpoints,
+                          cfg.keep_every)
     if mesh is not None:
-        shutdown_distributed()
+        mesh.barrier()
+    writer.scalar("E2E/loss", loss, state.step)
+    writer.scalar("E2E/heatmap", hm_loss, state.step)
+    writer.scalar("E2E/3d", loss_3d, state.step)
+    logger.info("Epoch %d saved (loss %f = hm %f + 3d %f, epoch %.1f "
+                "img/s)", epoch, loss, hm_loss, loss_3d, img_s)
 
 
 if __name__ == "__main__":

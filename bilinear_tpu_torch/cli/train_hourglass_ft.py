@@ -13,13 +13,17 @@ MSE, clip 1.0, RMSprop 2.5e-4, 100 epochs per invocation. Writes
 ``{save_root}/{comment}/parameter/{epoch}.save`` (the JAX package's layout,
 so either package resumes it), prunes, resumes from the newest epoch, and
 writes ``FT/loss`` scalars and ``debug.log``. ``--device cpu`` runs the
-plain PyTorch path and is meant for tests only. ``--debug-nans`` and
-graceful preemption are not ported. ``--coordinator host:port
+plain PyTorch path and is meant for tests only. ``--debug-nans`` checks
+every module's output and every backward node (``utils/debug.py``);
+``--cache-canvases`` decodes each frame once into
+``{data_dir}/canvas_cache/ft_train``; SIGTERM or SIGINT finishes the
+epoch, checkpoints it and exits 0 (``utils/preempt.py``). ``--coordinator host:port
 --num-processes N --process-id i`` trains data-parallel over N processes,
 as ``train_hourglass`` does (rank 0 alone logs and saves).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
@@ -38,6 +42,9 @@ from bilinear_tpu_torch.parallel.mesh import backend, is_primary, \
     shutdown_distributed, start_run
 from bilinear_tpu_torch.ops.joints import FROM_H36M_TO_MPII
 from bilinear_tpu_torch.train.hourglass import HourglassTrainer
+from bilinear_tpu_torch.utils.debug import debug_mode
+from bilinear_tpu_torch.utils.preempt import GracefulShutdown, \
+    global_requested
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -45,10 +52,6 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 def main(argv=None) -> None:
     disable_tf32()
     cfg = parse_config(HourglassFTConfig(), argv)
-    if cfg.debug_nans:
-        raise NotImplementedError("--debug-nans is not ported yet")
-    if cfg.cache_canvases:
-        raise NotImplementedError("--cache-canvases is not ported yet")
     mesh, device = start_run(cfg)
     primary = is_primary(mesh)
     logger, log_dir, _ = get_logger(cfg.comment, cfg.save_root,
@@ -63,9 +66,11 @@ def main(argv=None) -> None:
 
     records = H36MImageRecords(load_h36m(cfg.data_dir, "GT")[Task.Train],
                                cfg.data_dir)
-    pipeline = MPIIHostPipeline(records, cfg.batch_size, canvas=cfg.canvas,
-                                shuffle=True, seed=cfg.seed,
-                                transport=cfg.transport)
+    pipeline = MPIIHostPipeline(
+        records, cfg.batch_size, canvas=cfg.canvas, shuffle=True,
+        seed=cfg.seed, transport=cfg.transport,
+        cache_dir=os.path.join(cfg.data_dir, "canvas_cache", "ft_train")
+        if cfg.cache_canvases else None)
     trainer = HourglassTrainer(
         variant=cfg.variant, learning_rate=cfg.learning_rate,
         dtype=DTYPES[cfg.dtype], n_stacks=cfg.n_stacks, features=cfg.features,
@@ -79,23 +84,33 @@ def main(argv=None) -> None:
                     state.step)
 
     writer = TBWriter(log_dir, enabled=primary)
-    for epoch in range(start_epoch + 1, start_epoch + cfg.epochs_per_run + 1):
-        t0 = time.perf_counter()
-        state, loss = trainer.fit_epoch(
-            state, pipeline, epoch, cfg.seed + 1, log_every=100,
-            logger=logger, group=cfg.steps_per_dispatch)
-        loss = float(loss)  # waits for the epoch's work
-        img_s = len(records) / (time.perf_counter() - t0)
-        if primary:
-            save_checkpoint(parameter_dir, epoch, *state.trees(),
-                            step=state.step)
-            prune_checkpoints(parameter_dir, cfg.keep_checkpoints,
-                              cfg.keep_every)
-        if mesh is not None:
-            mesh.barrier()
-        writer.scalar("FT/loss", loss, state.step)
-        logger.info("Epoch %d saved (loss: %f, epoch %.1f img/s)", epoch,
-                    loss, img_s)
+    shutdown = GracefulShutdown(logger)
+    with shutdown:
+        for epoch in range(start_epoch + 1,
+                           start_epoch + cfg.epochs_per_run + 1):
+            t0 = time.perf_counter()
+            with debug_mode(state.model) if cfg.debug_nans else \
+                    contextlib.nullcontext():
+                state, loss = trainer.fit_epoch(
+                    state, pipeline, epoch, cfg.seed + 1, log_every=100,
+                    logger=logger, group=cfg.steps_per_dispatch)
+                loss = float(loss)  # waits for the epoch's work
+            img_s = len(records) / (time.perf_counter() - t0)
+            if primary:
+                save_checkpoint(parameter_dir, epoch, *state.trees(),
+                                step=state.step)
+                prune_checkpoints(parameter_dir, cfg.keep_checkpoints,
+                                  cfg.keep_every)
+            if mesh is not None:
+                mesh.barrier()
+            writer.scalar("FT/loss", loss, state.step)
+            logger.info("Epoch %d saved (loss: %f, epoch %.1f img/s)",
+                        epoch, loss, img_s)
+            shutdown.log_pending()
+            if global_requested(shutdown.requested):
+                logger.info("Preempted after epoch %d; checkpoint saved, "
+                            "exiting 0", epoch)
+                break
     writer.close()
     if mesh is not None:
         shutdown_distributed()

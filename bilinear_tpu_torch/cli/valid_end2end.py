@@ -53,9 +53,11 @@ def main(argv=None) -> None:
 
     splits = load_h36m(cfg.data_dir, "GT")
     train, valid = splits[Task.Train], splits[Task.Valid]
-    pipeline = MPIIHostPipeline(H36MImageRecords(valid, cfg.data_dir),
-                                cfg.batch_size, canvas=cfg.canvas, pad=True,
-                                transport=cfg.transport)
+    pipeline = MPIIHostPipeline(
+        H36MImageRecords(valid, cfg.data_dir), cfg.batch_size,
+        canvas=cfg.canvas, pad=True, transport=cfg.transport,
+        cache_dir=os.path.join(cfg.data_dir, "canvas_cache", "e2e_valid")
+        if cfg.cache_canvases and cfg.transport == "u8" else None)
     trainer = End2EndTrainer(variant=variant, batch_size=cfg.batch_size,
                              dtype=DTYPES[cfg.dtype], model_kw=model_kw,
                              device=device)

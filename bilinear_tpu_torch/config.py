@@ -10,8 +10,7 @@ port's).
 The XLA compile cache and the platform override have no counterpart here,
 and the JAX configs' unused fields (prefetch, total_runs, the detector's
 profile) are left out; unknown flags are ignored, as in the JAX package.
-``profile`` and ``debug_nans`` are kept where a CLI refuses them ("not
-ported yet"). ``coordinator``/``num_processes``/``process_id`` start a
+``coordinator``/``num_processes``/``process_id`` start a
 multi-process run (``parallel/mesh.py::start_run``). ``device``,
 ``local_processes`` and ``model_parallel`` are the port's own: ``device``
 empty for the GPU (no CPU fallback; rank i of a multi-process run takes
@@ -52,10 +51,10 @@ class BilinearConfig:
     epochs_per_run: int = 10  # train_bilinear.py:56
     seed: int = 0
     dtype: str = "float32"  # "bfloat16": bf16 Linears, f32 BN and loss
-    profile: bool = False  # not ported yet
+    profile: bool = False  # a torch.profiler trace under the run dir
     keep_checkpoints: int = 0
     keep_every: int = 0
-    debug_nans: bool = False  # not ported yet
+    debug_nans: bool = False  # non-finite checks (utils/debug.py)
     coordinator: str = ""  # host:port of rank 0 (multi-process)
     num_processes: int = 1
     process_id: int = 0
@@ -78,7 +77,7 @@ class HourglassConfig:
     steps_per_dispatch: int = 4  # steps per group (run in order)
     transport: str = "u8"  # host canvas format: 'u8' or 'f32'
     canvas: int = 512
-    cache_canvases: bool = False  # not ported yet
+    cache_canvases: bool = False  # decode each JPEG once into a u8 memmap
     n_stacks: int = 8
     features: int = 256
     depth: int = 4
@@ -86,7 +85,7 @@ class HourglassConfig:
     fused_blocks: bool = False  # ResModules through kernels K3/K4 (torch7)
     keep_checkpoints: int = 0
     keep_every: int = 0
-    debug_nans: bool = False  # not ported yet
+    debug_nans: bool = False  # non-finite checks (utils/debug.py)
     coordinator: str = ""  # host:port of rank 0 (multi-process)
     num_processes: int = 1
     process_id: int = 0

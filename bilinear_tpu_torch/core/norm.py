@@ -46,6 +46,8 @@ import torch.distributed as dist
 from torch import nn
 from torch.nn.modules.batchnorm import _BatchNorm
 
+from bilinear_tpu_torch.core.remat import recomputing
+
 
 class DataShard:
     """This rank's rows ``[offset, offset + rows)`` of a global batch of
@@ -115,7 +117,11 @@ def update_running_stats(bn: _BatchNorm, batch_mean: torch.Tensor,
     and for the unbiased variance ``var * n / (n - 1)``, with ``f =
     momentum`` or, for ``momentum=None``, ``1 / count`` in f32 (as the JAX
     package computes it), a tensor on the counter's device: reading the
-    counter on the host would wait for the card at every BN."""
+    counter on the host would wait for the card at every BN. Nothing
+    changes while a rematerialised block is recomputed (``core/remat.py``):
+    its forward has updated them already."""
+    if recomputing():
+        return
     unbiased = batch_var * (n / max(n - 1, 1))
     bn.num_batches_tracked += 1
     if bn.momentum is None:

@@ -58,6 +58,16 @@
 //     them; the weight gradients are split-N partial products reduced in a
 //     fixed order by one launch for all of them, which writes each gradient
 //     in its parameter's own layout.
+// Under data parallelism the BN statistics are the global batch's, as
+// inside JAX's GSPMD program, but a C entry cannot call torch.distributed:
+// a train forward or a backward then runs as four stages of the same entry
+// (Stage, the STAGE slot). Each of stages 0-2 ends with this rank's row of
+// one BN reduction (the forward's (mean, M2, count) per channel, the
+// backward's (sum gy * hhat, sum gy)); the caller gathers every rank's row
+// and the next stage starts by merging them in rank order (rank_merge_k:
+// Chan's formula, then the running update once with the global count;
+// rank_sum_k), the same bits on every rank. The rows are 2 C + 1 floats:
+// the exchanges cost host round trips, not bandwidth.
 // bf16 products run on wgmma (m64nNk16, f32 accumulators, operands in
 // 128-byte swizzled shared-memory tiles or, for the 3x3, A in registers)
 // from a ring of cp.async stages filled up to three K slabs ahead: two
@@ -1198,16 +1208,29 @@ __device__ __forceinline__ void chan_merge(float& n, float& mean, float& m2,
   n = tot;
 }
 
+// r = omf * r + f * batch for the mean and the variance unbiased by
+// `unbias`, and one more batch on *count (by one thread).
+__device__ __forceinline__ void update_running(int c, float mean, float var,
+                                               float* run_mean, float* run_var,
+                                               long long* count, float omf,
+                                               float f, float unbias) {
+  run_mean[c] = __fadd_rn(__fmul_rn(omf, run_mean[c]), __fmul_rn(f, mean));
+  run_var[c] = __fadd_rn(__fmul_rn(omf, run_var[c]),
+                         __fmul_rn(f, __fmul_rn(var, unbias)));
+  if (count && c == 0) *count += 1;
+}
+
 // Merges the tiles' (mean, M2) in a fixed order (32 groups of consecutive
 // tiles, each merged in order, then the groups in order) into the batch mean
 // and biased variance; with run_mean given, also updates the running
-// statistics in place, r = omf * r + f * batch (the variance unbiased by
-// `unbias`), and adds one to *count. Grid: C / 32.
+// statistics in place (update_running). With xch given (a rank's share of
+// a staged call) writes the rank's row instead: xch[c] = mean, xch[C + c] =
+// M2, xch[2 C] = the row count, for rank_merge_k. Grid: C / 32.
 __global__ void __launch_bounds__(FIN_THREADS)
 stats_finish_k(const float* __restrict__ part, int tiles, int M, int C,
                float* mean_out, float* var_out, float* run_mean,
                float* run_var, long long* count, float omf, float f,
-               float unbias) {
+               float unbias, float* xch) {
   __shared__ float sn[GROUPS][32], sm[GROUPS][32], s2[GROUPS][32];
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int c = blockIdx.x * 32 + tx;
@@ -1225,22 +1248,53 @@ stats_finish_k(const float* __restrict__ part, int tiles, int M, int C,
   if (ty != 0) return;
   for (int i = 1; i < GROUPS; ++i)
     chan_merge(n, mean, m2, sn[i][tx], sm[i][tx], s2[i][tx]);
+  if (xch) {
+    xch[c] = mean;
+    xch[C + c] = m2;
+    if (c == 0) xch[2 * C] = n;
+    return;
+  }
   float var = __fdiv_rn(m2, (float)M);
   mean_out[c] = mean;
   var_out[c] = var;
-  if (run_mean) {
-    run_mean[c] = __fadd_rn(__fmul_rn(omf, run_mean[c]), __fmul_rn(f, mean));
-    run_var[c] = __fadd_rn(__fmul_rn(omf, run_var[c]),
-                           __fmul_rn(f, __fmul_rn(var, unbias)));
-    if (count && blockIdx.x == 0 && tx == 0) *count += 1;
+  if (run_mean)
+    update_running(c, mean, var, run_mean, run_var, count, omf, f, unbias);
+}
+
+// A staged call's BN statistics over the data group: the ranks' rows of
+// stats_finish_k (gath[r * stride ...], in rank order) merged by Chan's
+// formula in that order, the same bits on every rank, into the global mean
+// and biased variance; the running statistics as stats_finish_k. The merge
+// starts from the first rank that holds rows (a rank of none sends a row of
+// count 0, which chan_merge skips). With one rank the result is that rank's
+// finish, bit for bit. Grid: C / 32 x 32.
+__global__ void rank_merge_k(const float* __restrict__ gath, int world,
+                             int stride, int C, float* mean_out,
+                             float* var_out, float* run_mean, float* run_var,
+                             long long* count, float omf, float f,
+                             float unbias) {
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  int r0 = 0;
+  while (r0 + 1 < world && gath[(size_t)r0 * stride + 2 * C] == 0.0f) ++r0;
+  const float* p0 = gath + (size_t)r0 * stride;
+  float n = p0[2 * C], mean = p0[c], m2 = p0[C + c];
+  for (int r = r0 + 1; r < world; ++r) {
+    const float* p = gath + (size_t)r * stride;
+    chan_merge(n, mean, m2, p[2 * C], p[c], p[C + c]);
   }
+  float var = __fdiv_rn(m2, n);
+  mean_out[c] = mean;
+  var_out[c] = var;
+  if (run_mean)
+    update_running(c, mean, var, run_mean, run_var, count, omf, f, unbias);
 }
 
 // o1[c], o2[c] = the sums over tiles of part[tile][0][c], part[tile][1][c],
-// in the same fixed order. Grid: C / 32.
+// in the same fixed order; with xch given also xch[c], xch[C + c] (a rank's
+// row of a staged backward). Grid: C / 32.
 __global__ void __launch_bounds__(FIN_THREADS)
 pair_finish_k(const float* __restrict__ part, int tiles, int C, float* o1,
-              float* o2) {
+              float* o2, float* xch) {
   __shared__ float s1[GROUPS][32], s2[GROUPS][32];
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int c = blockIdx.x * 32 + tx;
@@ -1259,6 +1313,25 @@ pair_finish_k(const float* __restrict__ part, int tiles, int C, float* o1,
   for (int i = 1; i < GROUPS; ++i) {
     a += s1[i][tx];
     b += s2[i][tx];
+  }
+  o1[c] = a;
+  o2[c] = b;
+  if (xch) {
+    xch[c] = a;
+    xch[C + c] = b;
+  }
+}
+
+// The ranks' rows of pair_finish_k summed in rank order (from rank 0's own
+// value, so one rank gives its row's bits): o1[c] = sum_r gath[r][c], o2[c]
+// = sum_r gath[r][C + c]. Grid: C / 32 x 32.
+__global__ void rank_sum_k(const float* __restrict__ gath, int world,
+                           int stride, int C, float* o1, float* o2) {
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  float a = gath[c], b = gath[C + c];
+  for (int r = 1; r < world; ++r) {
+    a = __fadd_rn(a, gath[(size_t)r * stride + c]);
+    b = __fadd_rn(b, gath[(size_t)r * stride + C + c]);
   }
   o1[c] = a;
   o2[c] = b;
@@ -1540,6 +1613,11 @@ void gemm(const ALoad<T>& a, const BOp<T>& b, int M, int N, int K,
 // has `otiles` tiles: about two waves of blocks, at most 32 splits, each a
 // multiple of 64 rows.
 inline void wgrad_split(int M, int otiles, int* splits, int* rps) {
+  if (M <= 0) {  // no rows: no partial, the gradient is zero
+    *splits = 0;
+    *rps = 64;
+    return;
+  }
   int want = (2 * 132 + otiles - 1) / otiles;
   if (want > 32) want = 32;
   if (want < 1) want = 1;
@@ -1591,11 +1669,11 @@ template <typename T>
 void bnbwd(const float* gy, const void* h, int M, int C, const float* m,
            const float* v, const float* g, const float* dg, const float* dbe,
            int round_gy, const float* addf, const void* addt, void* out,
-           cudaStream_t s) {
+           float nf, cudaStream_t s) {
   size_t total = (size_t)M * C;
   bn_bwd_k<T><<<(unsigned)((total / 8 + 255) / 256), 256, 0, s>>>(
       gy, static_cast<const T*>(h), m, v, g, dg, dbe, round_gy, addf,
-      static_cast<const T*>(addt), static_cast<T*>(out), total, C, (float)M);
+      static_cast<const T*>(addt), static_cast<T*>(out), total, C, nf);
 }
 
 // Scratch: a bump allocator over the caller's buffer, 256-byte aligned.
@@ -1621,6 +1699,25 @@ struct Shape {
   int M() const { return B * H * W; }
 };
 
+// A staged call: one of the four stages of a train forward or a backward
+// whose BN reductions span a data group. Each of stages 0-2 ends by writing
+// this rank's row of one BN reduction to xch; the caller gathers every
+// rank's row into gath (rank order, `stride` floats apart) and the next
+// stage starts by merging them (forward: Chan's merge of (mean, M2, count),
+// rank_merge_k; backward: the sums, rank_sum_k). Everything a stage leaves
+// for the next stays in the call's scratch. which = -1 is the whole call in
+// one entry, as before. A rank of no rows (M = 0) launches no GEMM: its
+// stages write rows of count 0 (forward) or of zeros (backward) and take
+// part in every merge, and its parameter gradients are zero.
+struct Stage {
+  int which = -1;
+  float* xch = nullptr;
+  const float* gath = nullptr;
+  int world = 1, stride = 0;
+  float n_global = 0.0f;  // rows of the global batch (backward)
+  bool now(int k) const { return which < 0 || which == k; }
+};
+
 struct FwdParams {
   Weight w1, w2, w3, skw;  // skw.p null for the identity skip
   const float *b1, *b2, *b3, *skb;
@@ -1629,11 +1726,11 @@ struct FwdParams {
 
 // ---- the forward (K3) -----------------------------------------------------
 
-// With x null only sizes the scratch.
+// With scratch null only sizes the scratch.
 template <typename T>
 size_t forward(bool train, const Shape& sh, const void* x, const FwdParams& p,
                float* const* st, const Running& run, void* out, char* scratch,
-               cudaStream_t s) {
+               cudaStream_t s, const Stage& stg = Stage{}) {
   const int M = sh.M(), ci = sh.ci, ch = sh.ch, co = sh.co;
   const int tiles = tiles_of(M);
   Bump mem{scratch};
@@ -1645,32 +1742,46 @@ size_t forward(bool train, const Shape& sh, const void* x, const FwdParams& p,
   T* k2 = mem.take<T>(9 * ch * ch);
   T* k3 = mem.take<T>(ch * co);
   T* ksk = mem.take<T>(ci * co);
-  if (!x) return mem.used;
+  if (!scratch) return mem.used;
+  const bool has_rows = M > 0;
   Packer<T> pack;
   BOp<T> w1 = pack.fwd(p.w1, 1, ci, ch, k1);
   BOp<T> w2 = pack.fwd(p.w2, 9, ch, ch, k2);
   BOp<T> w3 = pack.fwd(p.w3, 1, ch, co, k3);
   BOp<T> wsk = p.skw.p ? pack.fwd(p.skw, 1, ci, co, ksk) : BOp<T>{};
-  pack.run(s);
+  if (stg.now(0) && has_rows) pack.run(s);
   float *m1 = st[0], *v1 = st[1], *m2 = st[2], *v2 = st[3], *m3 = st[4],
         *v3 = st[5];
+  // BN i's statistics from the partials of its input: finished here, or,
+  // staged, this rank's row at the end of stage i and the ranks' merge at
+  // the start of stage i + 1.
   auto finish = [&](int i, int C) {
-    stats_finish_k<<<C / 32, FIN_THREADS, 0, s>>>(
-        part, tiles, M, C, st[2 * i], st[2 * i + 1], run.mean[i], run.var[i],
-        run.count[i], run.omf, run.f, run.unbias);
+    if (!train) return;
+    const bool staged = stg.which >= 0;
+    if (stg.now(i))
+      stats_finish_k<<<C / 32, FIN_THREADS, 0, s>>>(
+          part, tiles, M, C, st[2 * i], st[2 * i + 1], run.mean[i],
+          run.var[i], run.count[i], run.omf, run.f, run.unbias,
+          staged ? stg.xch : nullptr);
+    if (staged && stg.which == i + 1)
+      rank_merge_k<<<C / 32, 32, 0, s>>>(
+          stg.gath, stg.world, stg.stride, C, st[2 * i], st[2 * i + 1],
+          run.mean[i], run.var[i], run.count[i], run.omf, run.f, run.unbias);
   };
-  if (train) {
+  if (train && stg.now(0) && has_rows)
     stats_partial_k<T><<<dim3(ci / 32, tiles), THREADS, 0, s>>>(
         static_cast<const T*>(x), M, ci, part);
-    finish(0, ci);
-  }
-  gemm<T, A_BN, E_BIAS>(rows<T>(x, ci, sh.H, sh.W, m1, v1, p.g1, p.be1), w1, M,
-                        ch, ci, bias_epi<T>(p.b1, nullptr, h1, part), s);
-  if (train) finish(1, ch);
-  gemm<T, A_CONV_BN, E_BIAS>(rows<T>(h1, ch, sh.H, sh.W, m2, v2, p.g2, p.be2),
-                             w2, M, ch, 9 * ch,
-                             bias_epi<T>(p.b2, nullptr, h2, part), s);
-  if (train) finish(2, ch);
+  finish(0, ci);
+  if (stg.now(1) && has_rows)
+    gemm<T, A_BN, E_BIAS>(rows<T>(x, ci, sh.H, sh.W, m1, v1, p.g1, p.be1), w1,
+                          M, ch, ci, bias_epi<T>(p.b1, nullptr, h1, part), s);
+  finish(1, ch);
+  if (stg.now(2) && has_rows)
+    gemm<T, A_CONV_BN, E_BIAS>(
+        rows<T>(h1, ch, sh.H, sh.W, m2, v2, p.g2, p.be2), w2, M, ch, 9 * ch,
+        bias_epi<T>(p.b2, nullptr, h2, part), s);
+  finish(2, ch);
+  if (!stg.now(3) || !has_rows) return mem.used;
   ALoad<T> a3 = rows<T>(h2, ch, sh.H, sh.W, m3, v3, p.g3, p.be3);
   if (p.skw.p) {
     ALoad<T> ax = rows<T>(x, ci);
@@ -1695,16 +1806,18 @@ struct Grads {
 template <typename T>
 size_t backward(const Shape& sh, const void* x, const void* gout,
                 const FwdParams& p, const float* const* st, void* gx,
-                const Grads& d, char* scratch, cudaStream_t s) {
+                const Grads& d, char* scratch, cudaStream_t s,
+                const Stage& stg = Stage{}) {
   constexpr bool BF = sizeof(T) == 2;
   const int M = sh.M(), ci = sh.ci, ch = sh.ch, co = sh.co;
   const int tiles = tiles_of(M);
   const bool skip = p.skw.p != nullptr;
-  auto psize = [&](int K, int N) {
+  auto nsplits = [&](int K, int N) {
     int splits, rps;
     wgrad_split(M, wgrad_tiles(BF, K, N), &splits, &rps);
-    return (size_t)splits * K * N;
+    return splits;
   };
+  auto psize = [&](int K, int N) { return (size_t)nsplits(K, N) * K * N; };
   Bump mem{scratch};
   T* h1 = mem.take<T>((size_t)M * ch);
   T* h2 = mem.take<T>((size_t)M * ch);
@@ -1721,13 +1834,15 @@ size_t backward(const Shape& sh, const void* x, const void* gout,
   float* pb1 = mem.take<float>(32 * ch);
   float* pb2 = mem.take<float>(32 * ch);
   float* pb3 = mem.take<float>(32 * co);
+  float* gsum = mem.take<float>(2 * max(ci, ch));
   T* k1 = mem.take<T>(ci * ch);
   T* k2 = mem.take<T>(9 * ch * ch);
   T* k1t = mem.take<T>(ci * ch);
   T* k2t = mem.take<T>(9 * ch * ch);
   T* k3t = mem.take<T>(ch * co);
   T* kskt = mem.take<T>(ci * co);
-  if (!x) return mem.used;
+  if (!scratch) return mem.used;
+  const bool has_rows = M > 0;
   Packer<T> pack;
   BOp<T> w1 = pack.fwd(p.w1, 1, ci, ch, k1);
   BOp<T> w2 = pack.fwd(p.w2, 9, ch, ch, k2);
@@ -1735,7 +1850,7 @@ size_t backward(const Shape& sh, const void* x, const void* gout,
   BOp<T> w2t = pack.bwd(p.w2, 9, ch, ch, k2t);
   BOp<T> w3t = pack.bwd(p.w3, 1, ch, co, k3t);
   BOp<T> wskt = skip ? pack.bwd(p.skw, 1, ci, co, kskt) : BOp<T>{};
-  pack.run(s);
+  if (stg.now(0) && has_rows) pack.run(s);
   const float *m1 = st[0], *v1 = st[1], *m2 = st[2], *v2 = st[3], *m3 = st[4],
               *v3 = st[5];
   ALoad<T> a1 = rows<T>(x, ci, sh.H, sh.W, m1, v1, p.g1, p.be1);
@@ -1752,55 +1867,96 @@ size_t backward(const Shape& sh, const void* x, const void* gout,
     seg(part, nparts, 1, N, 1, Weight{out, 0, 0, 1});
   };
 
-  // recompute h1, h2
-  gemm<T, A_BN, E_BIAS>(a1, w1, M, ch, ci,
-                        bias_epi<T>(p.b1, nullptr, h1, nullptr), s);
-  gemm<T, A_CONV_BN, E_BIAS>(a2, w2, M, ch, 9 * ch,
-                             bias_epi<T>(p.b2, nullptr, h2, nullptr), s);
-  // p5: db3 (= dskip_b), dw3, gy3 and the bn3 reductions, dskip_w
-  int n3 = wgrad<A_BN>(a3, gout, M, ch, co, pw3, pb3, s);
+  const bool staged = stg.which >= 0;
+  const float nf = staged ? stg.n_global : (float)M;
+  // The BN reduction (sum gy * hhat, sum gy) of pass k: this rank's share
+  // is the parameter gradient (dg, dbe), which the data group sums later
+  // with every other gradient; staged, the row at the end of stage k goes
+  // to the caller, and stage k + 1 forms the data gradient from the ranks'
+  // sums.
+  auto reduce = [&](int k, int C, float* dg, float* dbe) {
+    if (stg.now(k))
+      pair_finish_k<<<C / 32, FIN_THREADS, 0, s>>>(red, tiles, C, dg, dbe,
+                                                    staged ? stg.xch : nullptr);
+  };
+  auto global = [&](int k, int C, const float* dg, const float* dbe,
+                    const float** gg, const float** gb) {
+    *gg = dg;
+    *gb = dbe;
+    if (!staged) return;
+    *gg = gsum;
+    *gb = gsum + C;
+    if (stg.which == k + 1)
+      rank_sum_k<<<C / 32, 32, 0, s>>>(stg.gath, stg.world, stg.stride, C,
+                                       gsum, gsum + C);
+  };
+  const float *sg, *sb;
+  const int n3 = nsplits(ch, co), n2 = nsplits(9 * ch, ch),
+            n1 = nsplits(ci, ch), nsk = nsplits(ci, co);
   seg(pw3, n3, ch, co, ch, d.w3);
   vec(pb3, n3, co, d.b3);
   if (skip) {
     vec(pb3, n3, co, d.skb);
-    int nsk = wgrad<A_PLAIN>(rows<T>(x, ci), gout, M, ci, co, psk, nullptr, s);
     seg(psk, nsk, ci, co, ci, d.skw);
   }
-  gemm<T, A_PLAIN, E_GATE>(rows<T>(gout, co), w3t, M, ch, co,
-                           gate_epi<T>(h2, m3, v3, p.g3, p.be3, gyc, red), s);
-  pair_finish_k<<<ch / 32, FIN_THREADS, 0, s>>>(red, tiles, ch, d.g3, d.be3);
-  // p6: g_h2
-  bnbwd<T>(gyc, h2, M, ch, m3, v3, p.g3, d.g3, d.be3, 0, nullptr, nullptr,
-           gh2, s);
-  // p7: db2, dw2 (the implicit im2col of a2 against g_h2)
-  int n2 = wgrad<A_CONV_BN>(a2, gh2, M, 9 * ch, ch, pw2, pb2, s);
   seg(pw2, n2, 9 * ch, ch, ch, d.w2);
   vec(pb2, n2, ch, d.b2);
-  // p8: g_a2 -> gy2 (f32, reusing gyc) and the bn2 reductions
-  gemm<T, A_CONV_NEG, E_GATE>(rows<T>(gh2, ch, sh.H, sh.W), w2t, M, ch,
-                              9 * ch,
-                              gate_epi<T>(h1, m2, v2, p.g2, p.be2, gyc, red),
-                              s);
-  pair_finish_k<<<ch / 32, FIN_THREADS, 0, s>>>(red, tiles, ch, d.g2, d.be2);
-  // p9: g_h1 from gy2 as stored in the working type
-  bnbwd<T>(gyc, h1, M, ch, m2, v2, p.g2, d.g2, d.be2, 1, nullptr, nullptr,
-           gh1, s);
-  // p10: db1, dw1, gy1 and the bn1 reductions
-  int n1 = wgrad<A_BN>(a1, gh1, M, ci, ch, pw1, pb1, s);
   seg(pw1, n1, ci, ch, ci, d.w1);
   vec(pb1, n1, ch, d.b1);
-  gemm<T, A_PLAIN, E_GATE>(rows<T>(gh1, ch), w1t, M, ci, ch,
-                           gate_epi<T>(x, m1, v1, p.g1, p.be1, gy1, red), s);
-  pair_finish_k<<<ci / 32, FIN_THREADS, 0, s>>>(red, tiles, ci, d.g1, d.be1);
-  // p11: g_x = bn1 backward + the skip's data gradient
-  if (skip)
-    gemm<T, A_PLAIN, E_GATE>(
-        rows<T>(gout, co), wskt, M, ci, co,
-        gate_epi<T>(nullptr, nullptr, nullptr, nullptr, nullptr, skd, nullptr),
-        s);
-  bnbwd<T>(gy1, x, M, ci, m1, v1, p.g1, d.g1, d.be1, 0, skd,
-           skip ? nullptr : gout, gx, s);
-  // every split reduction of this backward
+
+  if (stg.now(0) && has_rows) {
+    // recompute h1, h2
+    gemm<T, A_BN, E_BIAS>(a1, w1, M, ch, ci,
+                          bias_epi<T>(p.b1, nullptr, h1, nullptr), s);
+    gemm<T, A_CONV_BN, E_BIAS>(a2, w2, M, ch, 9 * ch,
+                               bias_epi<T>(p.b2, nullptr, h2, nullptr), s);
+    // p5: db3 (= dskip_b), dw3, gy3 and the bn3 reductions, dskip_w
+    wgrad<A_BN>(a3, gout, M, ch, co, pw3, pb3, s);
+    if (skip) wgrad<A_PLAIN>(rows<T>(x, ci), gout, M, ci, co, psk, nullptr, s);
+    gemm<T, A_PLAIN, E_GATE>(rows<T>(gout, co), w3t, M, ch, co,
+                             gate_epi<T>(h2, m3, v3, p.g3, p.be3, gyc, red),
+                             s);
+  }
+  reduce(0, ch, d.g3, d.be3);
+  global(0, ch, d.g3, d.be3, &sg, &sb);
+  if (stg.now(1) && has_rows) {
+    // p6: g_h2
+    bnbwd<T>(gyc, h2, M, ch, m3, v3, p.g3, sg, sb, 0, nullptr, nullptr, gh2,
+             nf, s);
+    // p7: db2, dw2 (the implicit im2col of a2 against g_h2)
+    wgrad<A_CONV_BN>(a2, gh2, M, 9 * ch, ch, pw2, pb2, s);
+    // p8: g_a2 -> gy2 (f32, reusing gyc) and the bn2 reductions
+    gemm<T, A_CONV_NEG, E_GATE>(rows<T>(gh2, ch, sh.H, sh.W), w2t, M, ch,
+                                9 * ch,
+                                gate_epi<T>(h1, m2, v2, p.g2, p.be2, gyc, red),
+                                s);
+  }
+  reduce(1, ch, d.g2, d.be2);
+  global(1, ch, d.g2, d.be2, &sg, &sb);
+  if (stg.now(2) && has_rows) {
+    // p9: g_h1 from gy2 as stored in the working type
+    bnbwd<T>(gyc, h1, M, ch, m2, v2, p.g2, sg, sb, 1, nullptr, nullptr, gh1,
+             nf, s);
+    // p10: db1, dw1, gy1 and the bn1 reductions
+    wgrad<A_BN>(a1, gh1, M, ci, ch, pw1, pb1, s);
+    gemm<T, A_PLAIN, E_GATE>(rows<T>(gh1, ch), w1t, M, ci, ch,
+                             gate_epi<T>(x, m1, v1, p.g1, p.be1, gy1, red), s);
+  }
+  reduce(2, ci, d.g1, d.be1);
+  global(2, ci, d.g1, d.be1, &sg, &sb);
+  if (!stg.now(3)) return mem.used;
+  if (has_rows) {
+    // p11: g_x = bn1 backward + the skip's data gradient
+    if (skip)
+      gemm<T, A_PLAIN, E_GATE>(
+          rows<T>(gout, co), wskt, M, ci, co,
+          gate_epi<T>(nullptr, nullptr, nullptr, nullptr, nullptr, skd,
+                      nullptr),
+          s);
+    bnbwd<T>(gy1, x, M, ci, m1, v1, p.g1, sg, sb, 0, skd,
+             skip ? nullptr : gout, gx, nf, s);
+  }
+  // every split reduction (no partials: zero gradients) of this backward
   finish_grads_k<<<dim3(128, nseg), 256, 0, s>>>(segs);
   return mem.used;
 }
@@ -1809,7 +1965,11 @@ size_t backward(const Shape& sh, const void* x, const void* gout,
 
 // ---------------------------------------------------------------------------
 // C entries. Arguments come as one array of 64-bit integers (sizes, strides
-// in elements, and addresses; the slots are named below) and one of doubles. Rows are NHWC (B*H*W, C)
+// in elements, and addresses; the slots are named below) and one of doubles.
+// A train forward or a backward whose BN reductions span a data group is
+// four calls of the same entry, STAGE 0 to 3, with the same arguments and
+// scratch; between two, the caller gathers every rank's XCH row (XSTRIDE
+// floats) into GATH in rank order (rm::Stage). Rows are NHWC (B*H*W, C)
 // row-major in the working type (is_bf16: 1 for bf16, 0 for f32). Every
 // parameter, statistic and parameter gradient is f32. A 1x1 weight is the
 // logical (in, out) matrix at (address, stride along in, stride along out);
@@ -1846,7 +2006,9 @@ rm::Weight weight9(const long long* a) {
   DO(RUN_MEAN1) DO(RUN_MEAN2) DO(RUN_MEAN3)                                  \
   DO(RUN_VAR1) DO(RUN_VAR2) DO(RUN_VAR3)                                     \
   DO(RUN_COUNT1) DO(RUN_COUNT2) DO(RUN_COUNT3)                               \
-  DO(OUT) DO(SCRATCH) DO(STREAM)
+  DO(OUT) DO(SCRATCH) DO(STREAM)                                             \
+  /* a staged call (rm::Stage): STAGE -1 for the whole call */               \
+  DO(STAGE) DO(XCH) DO(GATH) DO(WORLD) DO(XSTRIDE)
 
 #define RM_BWD_SLOTS(DO)                                                     \
   DO(BF16) DO(B) DO(H) DO(W) DO(CI) DO(CH) DO(CO) DO(X) DO(GOUT)             \
@@ -1862,7 +2024,8 @@ rm::Weight weight9(const long long* a) {
   DO(DW3) DO(DW3_SI) DO(DW3_SO) DO(DB3)                                      \
   DO(DG1) DO(DBE1) DO(DG2) DO(DBE2) DO(DG3) DO(DBE3)                         \
   DO(DSKW) DO(DSKW_SI) DO(DSKW_SO) DO(DSKB)                                  \
-  DO(SCRATCH) DO(STREAM)
+  DO(SCRATCH) DO(STREAM)                                                     \
+  DO(STAGE) DO(XCH) DO(GATH) DO(WORLD) DO(XSTRIDE) DO(N_GLOBAL)
 
 #define RM_ENUM_F(name) F_##name,
 #define RM_ENUM_B(name) B_##name,
@@ -1888,6 +2051,16 @@ rm::FwdParams fwd_params(const long long* a, int w1, int b1, int w2, int b2,
   p.g3 = ptr<const float>(a[g1 + 4]);
   p.be3 = ptr<const float>(a[g1 + 5]);
   return p;
+}
+
+rm::Stage stage_of(const long long* a, int first) {
+  rm::Stage g;
+  g.which = (int)a[first];
+  g.xch = ptr<float>(a[first + 1]);
+  g.gath = ptr<const float>(a[first + 2]);
+  g.world = (int)a[first + 3];
+  g.stride = (int)a[first + 4];
+  return g;
 }
 
 }  // namespace
@@ -1944,10 +2117,14 @@ extern "C" int resmodule_forward(const long long* a, const double* f) {
   const void* x = ptr<const void>(a[F_X]);
   void* out = ptr<void>(a[F_OUT]);
   char* scratch = ptr<char>(a[F_SCRATCH]);
+  const rm::Stage stg = stage_of(a, F_STAGE);
+  if (stg.which >= 0 && !a[F_TRAIN]) return (int)cudaErrorInvalidValue;
   if (a[F_BF16])
-    rm::forward<rm::bf16>(a[F_TRAIN] != 0, sh, x, p, st, run, out, scratch, s);
+    rm::forward<rm::bf16>(a[F_TRAIN] != 0, sh, x, p, st, run, out, scratch, s,
+                          stg);
   else
-    rm::forward<float>(a[F_TRAIN] != 0, sh, x, p, st, run, out, scratch, s);
+    rm::forward<float>(a[F_TRAIN] != 0, sh, x, p, st, run, out, scratch, s,
+                       stg);
   return rm::call_status();
 }
 
@@ -1978,9 +2155,11 @@ extern "C" int resmodule_backward(const long long* a) {
   const void* gout = ptr<const void>(a[B_GOUT]);
   void* gx = ptr<void>(a[B_GX]);
   char* scratch = ptr<char>(a[B_SCRATCH]);
+  rm::Stage stg = stage_of(a, B_STAGE);
+  stg.n_global = (float)a[B_N_GLOBAL];
   if (a[B_BF16])
-    rm::backward<rm::bf16>(sh, x, gout, p, st, gx, d, scratch, s);
+    rm::backward<rm::bf16>(sh, x, gout, p, st, gx, d, scratch, s, stg);
   else
-    rm::backward<float>(sh, x, gout, p, st, gx, d, scratch, s);
+    rm::backward<float>(sh, x, gout, p, st, gx, d, scratch, s, stg);
   return rm::call_status();
 }

@@ -1,20 +1,25 @@
 """Host-side image pipeline: decode -> region pre-crop -> static canvas (the
-port's copy of ``bilinear_tpu/data/pipeline.py``, its PIL/numpy branch).
+port's copy of ``bilinear_tpu/data/pipeline.py``).
 
 - Host (this module): JPEG decode and a uint8 region pre-crop onto a
   fixed-size canvas, downscaling with PIL BILINEAR only when the
   (augmented, rotated) crop region cannot fit. Annotation coordinates are
-  remapped into canvas space.
+  remapped into canvas space. The region copy is the native packer's
+  (``native/fastpack.cpp``, built at first use); ``pack_region_np`` is its
+  plain numpy version, the same arithmetic.
 - Device: everything geometric and photometric (crop + rotate, flip, colour
   jitter, heatmaps) runs batched in ``train/hourglass.py::preprocess_batch``.
 
-A thread prefetcher overlaps decode with device work. The JAX package's
-native ``fastpack`` copy of the region and its on-disk canvas cache are not
-ported (ROADMAP.md); this branch gives the same values.
+A thread prefetcher overlaps decode with device work. ``cache_dir``
+decodes every record once into an on-disk uint8 canvas memmap plus an
+``.npz`` of the canvas-space annotations, in the JAX package's layout
+(``canvas{C}_n{n}_v2.u8`` / ``.npz``), so either package reads a cache the
+other wrote.
 """
 from __future__ import annotations
 
 import math
+import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -24,6 +29,7 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 from PIL import Image
 
+from bilinear_tpu_torch import native
 from bilinear_tpu_torch.data.mpii import MPIIAnnotations, MPIIRecord
 
 # Margin covering scale jitter (x2^0.5) and rotation (x sqrt(2)) around the
@@ -79,22 +85,34 @@ def record_to_canvas(
     if src_u8.ndim == 2:
         src_u8 = np.stack([src_u8] * 3, axis=-1)
 
-    dt = np.uint8 if as_u8 else np.float32
-    region = np.zeros((canvas, canvas, 3), dt)
-    src = src_u8 if as_u8 else src_u8.astype(np.float32) / 255.0
-    sy0, sx0 = max(0, ul[1]), max(0, ul[0])
-    sy1 = min(image.height, ul[1] + canvas)
-    sx1 = min(image.width, ul[0] + canvas)
-    dy0, dx0 = sy0 - ul[1], sx0 - ul[0]
-    if sy1 > sy0 and sx1 > sx0:
-        region[dy0 : dy0 + (sy1 - sy0), dx0 : dx0 + (sx1 - sx0)] = src[
-            sy0:sy1, sx0:sx1
-        ]
+    pack = native.pack_canvas_u8 if as_u8 else native.pack_canvas_f32
+    region = pack(src_u8, canvas, int(ul[0]), int(ul[1]))
 
     offset = ul.astype(np.float64)
     return region, (center - offset).astype(np.float32), float(scale), (
         keypoints - offset
     ).astype(np.float32), head
+
+
+def pack_region_np(src_u8: np.ndarray, canvas: int, ul_x: int, ul_y: int,
+                   as_u8: bool = False) -> np.ndarray:
+    """The native packer's plain numpy version: the (canvas, canvas, 3)
+    region of ``src_u8`` starting at (ul_x, ul_y), zero outside the source;
+    uint8, or float32 as x * (1 / 255) in float32 (the packer's
+    arithmetic)."""
+    dt = np.uint8 if as_u8 else np.float32
+    region = np.zeros((canvas, canvas, src_u8.shape[2]), dt)
+    src = src_u8 if as_u8 else \
+        src_u8.astype(np.float32) * (np.float32(1.0) / np.float32(255.0))
+    h, w = src_u8.shape[:2]
+    sy0, sx0 = max(0, ul_y), max(0, ul_x)
+    sy1, sx1 = min(h, ul_y + canvas), min(w, ul_x + canvas)
+    dy0, dx0 = sy0 - ul_y, sx0 - ul_x
+    if sy1 > sy0 and sx1 > sx0:
+        region[dy0 : dy0 + (sy1 - sy0), dx0 : dx0 + (sx1 - sx0)] = src[
+            sy0:sy1, sx0:sx1
+        ]
+    return region
 
 
 class MPIIHostPipeline:
@@ -111,12 +129,15 @@ class MPIIHostPipeline:
         pad: bool = False,
         transport: str = "f32",  # 'u8' ships uint8 canvases (4x less
         # host->device traffic; device rescales to [0,1] in crop_batch)
-        cache_dir: Optional[str] = None,  # not ported: must be None
+        cache_dir: Optional[str] = None,  # materialize decoded u8 canvases
+        # to a memmap on first use; later epochs skip JPEG decode entirely.
+        # Augmentation is on the card, so cached canvases stay augmented
+        # per epoch. Requires transport='u8'. C*C*3 bytes per record.
     ):
         assert transport in ("f32", "u8"), transport
-        if cache_dir is not None:
-            raise NotImplementedError(
-                "the canvas cache is not ported yet; see ROADMAP.md")
+        if cache_dir is not None and transport != "u8":
+            raise ValueError("the canvas cache stores uint8; use "
+                             "transport='u8'")
         self.annotations = annotations
         self.batch_size = batch_size
         self.canvas = canvas
@@ -131,19 +152,105 @@ class MPIIHostPipeline:
         # core, so intra-batch samples load in parallel (replaces the
         # reference's 8 worker processes, without pickling).
         self.transport = transport
+        self.cache_dir = cache_dir
+        self._cache = None  # (images memmap, meta dict) once materialized
         self._pool: Optional[ThreadPoolExecutor] = None
         self.decode_threads = 8
+        self.decoded = 0  # records decoded from their JPEG (tests, smoke)
 
     def _get_pool(self) -> ThreadPoolExecutor:
         if self._pool is None:
             self._pool = ThreadPoolExecutor(max_workers=self.decode_threads)
         return self._pool
 
+    def _decode(self, index: int, as_u8: bool):
+        rec = self.annotations.record(index)
+        with Image.open(self.annotations.image_path(rec)) as img:
+            img = img.convert("RGB")
+            out = record_to_canvas(img, rec, self.canvas, as_u8=as_u8)
+        self.decoded += 1
+        return rec, out
+
+    # ------------------------------------------------------------- cache
+    def materialize(self) -> None:
+        """Decode every record once into an on-disk uint8 canvas memmap
+        (plus an .npz of the canvas-space annotations); later epochs read
+        slices of it. The JAX package's files: tag
+        ``canvas{C}_n{n}_v2`` (v2: heads in canvas space), written under
+        per-process temporary names and published with ``os.replace``, so
+        two processes sharing a cache directory never see half a file."""
+        if self._cache is not None or self.cache_dir is None:
+            return
+        os.makedirs(self.cache_dir, exist_ok=True)
+        n = len(self.annotations)
+        tag = f"canvas{self.canvas}_n{n}_v2"
+        img_path = os.path.join(self.cache_dir, f"{tag}.u8")
+        meta_path = os.path.join(self.cache_dir, f"{tag}.npz")
+        shape = (n, self.canvas, self.canvas, 3)
+        if not (os.path.exists(img_path) and os.path.exists(meta_path)):
+            tmp_suffix = f".tmp.{os.getpid()}"
+            mm = np.lib.format.open_memmap(
+                img_path + tmp_suffix, mode="w+", dtype=np.uint8, shape=shape
+            )
+            centers = np.zeros((n, 2), np.float32)
+            scales = np.ones(n, np.float32)
+            keypoints = np.full((n, 16, 2), np.nan, np.float32)
+            valid = np.zeros((n, 16), bool)
+            heads = np.ones(n, np.float32)
+
+            def load_one(index):
+                rec, (region, c, s, kp, head) = self._decode(index, True)
+                mm[index] = region
+                centers[index] = c
+                scales[index] = s
+                keypoints[index] = kp
+                valid[index] = rec.valid
+                heads[index] = head
+
+            list(self._get_pool().map(load_one, range(n)))
+            mm.flush()
+            del mm
+            np.savez(
+                meta_path + tmp_suffix + ".npz", centers=centers,
+                scales=scales, keypoints=keypoints, valid=valid, heads=heads,
+            )
+            os.replace(meta_path + tmp_suffix + ".npz", meta_path)
+            os.replace(img_path + tmp_suffix, img_path)
+        images = np.load(img_path, mmap_mode="r")
+        meta = dict(np.load(meta_path))
+        self._cache = (images, meta)
+
+    def _load_cached(self, indices: Sequence[int]) -> CanvasBatch:
+        images_mm, meta = self._cache
+        B = self.batch_size if self.pad else len(indices)
+        idx = np.asarray(indices, np.int64)
+        images = np.zeros((B, self.canvas, self.canvas, 3), np.uint8)
+        images[: len(idx)] = images_mm[idx]
+
+        def take(key, fill, dtype):
+            out = np.full((B,) + meta[key].shape[1:], fill, dtype)
+            out[: len(idx)] = meta[key][idx]
+            return out
+
+        return CanvasBatch(
+            images,
+            take("centers", 0.0, np.float32),
+            take("scales", 1.0, np.float32),
+            take("keypoints", np.nan, np.float32),
+            take("valid", False, bool),
+            take("heads", 1.0, np.float32),
+            np.concatenate([idx, np.full(B - len(idx), -1, np.int64)]),
+            pad=B - len(idx),
+        )
+
     def __len__(self) -> int:
         n = len(self.annotations)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _load(self, indices: Sequence[int]) -> CanvasBatch:
+        if self.cache_dir is not None:
+            self.materialize()
+            return self._load_cached(indices)
         B = self.batch_size if self.pad else len(indices)
         u8 = self.transport == "u8"
         images = np.zeros(
@@ -158,12 +265,7 @@ class MPIIHostPipeline:
 
         def load_one(slot_index):
             slot, index = slot_index
-            rec = self.annotations.record(index)
-            with Image.open(self.annotations.image_path(rec)) as img:
-                img = img.convert("RGB")
-                region, c, s, kp, head = record_to_canvas(
-                    img, rec, self.canvas, as_u8=u8
-                )
+            rec, (region, c, s, kp, head) = self._decode(index, u8)
             images[slot] = region
             centers[slot] = c
             scales[slot] = s

@@ -35,10 +35,12 @@ from bilinear_tpu_torch.train.hourglass import batch_tensors
 @torch.no_grad()
 def convert_gt_to_sh(model: torch.nn.Module, data_dir: str,
                      protocol_out: str = "SH", batch_size: int = 16,
-                     canvas: int = 512, transport: str = "u8"
-                     ) -> Dict[str, str]:
+                     canvas: int = 512, transport: str = "u8",
+                     cache_canvases: bool = False) -> Dict[str, str]:
     """Write ``{task}_{protocol_out}.bin`` for both splits; returns {task:
-    path}. The model's train/eval mode is restored afterwards."""
+    path}. The model's train/eval mode is restored afterwards.
+    ``cache_canvases`` (u8 transport) decodes each split's frames once into
+    ``{data_dir}/canvas_cache/sh_{task}``, as the JAX package does."""
     splits = load_h36m(data_dir, "GT")
     dev = next(model.parameters()).device
     was_training = model.training
@@ -48,8 +50,11 @@ def convert_gt_to_sh(model: torch.nn.Module, data_dir: str,
         for task in tasks:
             split = splits[task]
             records = H36MImageRecords(split, data_dir)
-            pipeline = MPIIHostPipeline(records, batch_size, canvas=canvas,
-                                        pad=True, transport=transport)
+            pipeline = MPIIHostPipeline(
+                records, batch_size, canvas=canvas, pad=True,
+                transport=transport,
+                cache_dir=os.path.join(data_dir, "canvas_cache", f"sh_{task}")
+                if cache_canvases and transport == "u8" else None)
             detections = np.zeros((len(split), 16, 2), np.float32)
             for batch in pipeline.epoch(0):
                 pose_hm = export_heatmap_poses(

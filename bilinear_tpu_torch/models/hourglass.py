@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bilinear_tpu_torch.core import remat
 from bilinear_tpu_torch.core.norm import BatchNorm2d
 from bilinear_tpu_torch.ops import int8
 
@@ -188,6 +189,9 @@ class StackedHourglass(nn.Module):
         if quantize not in int8.MODES:
             raise ValueError(f"unsupported quantize mode {quantize!r}")
         self.n_stacks, self.dtype = n_stacks, dtype
+        # Train-mode forwards under autograd recompute the stem's and each
+        # stack's activations in the backward (core/remat.py).
+        self.remat = False
         q = quantize
         self.feature_extraction = nn.Sequential(
             nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False),
@@ -211,20 +215,29 @@ class StackedHourglass(nn.Module):
             for _ in range(n_stacks))
         init_weights(self, generator)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def stem(self, images: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         x = images.permute(0, 3, 1, 2).to(dt).contiguous(memory_format=CL)
         fe = self.feature_extraction
         h = conv_in(fe[0], x, dt)
-        h = fe[4](fe[3](_pool(fe[1](h))))
+        return fe[4](fe[3](_pool(fe[1](h))))
+
+    def stack(self, i: int, h: torch.Tensor):
+        """Stack ``i``: (its heatmaps (B, H/4, W/4, J), the next input)."""
+        prev = h
+        h = self.prev_heatmap[i](self.hourglass[i](h))
+        skip = self.skip_intermediate[i](h)
+        pred = self.heatmap_intermediate[i](h)
+        h = self.after_heatmap[i](pred) + skip + prev
+        return pred.to(_wide(self.dtype)).permute(0, 2, 3, 1), h
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        call = remat.runner(self)
+        h = call(self.stem, images)
         heatmaps = []
         for i in range(self.n_stacks):
-            prev = h
-            h = self.prev_heatmap[i](self.hourglass[i](h))
-            skip = self.skip_intermediate[i](h)
-            pred = self.heatmap_intermediate[i](h)
-            h = self.after_heatmap[i](pred) + skip + prev
-            heatmaps.append(pred.to(_wide(dt)).permute(0, 2, 3, 1))
+            out, h = call(self.stack, i, h)
+            heatmaps.append(out)
         return torch.stack(heatmaps, dim=0)  # (S, B, H/4, W/4, J)
 
 

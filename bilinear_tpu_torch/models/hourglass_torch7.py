@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bilinear_tpu_torch.core import remat
 from bilinear_tpu_torch.core.norm import BatchNorm2d, active_shard, \
     update_running_stats
 from bilinear_tpu_torch.ops import int8
@@ -79,7 +80,18 @@ def bn_in(bn: BatchNorm2d, x: torch.Tensor, dtype) -> torch.Tensor:
     (the global batch's statistics)."""
     x = x.to(torch.promote_types(torch.float32, dtype))
     own = not x.is_cuda or (bn.training and active_shard(bn) is not None)
-    return (bn(x) if own else nn.BatchNorm2d.forward(bn, x)).to(dtype)
+    if own:
+        return bn(x).to(dtype)
+    if not (bn.training and remat.recomputing()):
+        return nn.BatchNorm2d.forward(bn, x).to(dtype)
+    # A recomputation (core/remat.py): torch's BN updates its buffers
+    # itself, so they are put back.
+    kept = [t.clone() for t in bn.buffers()]
+    y = nn.BatchNorm2d.forward(bn, x)
+    with torch.no_grad():
+        for t, v in zip(bn.buffers(), kept):
+            t.copy_(v)
+    return y.to(dtype)
 
 
 class ResModule(nn.Module):
@@ -144,21 +156,29 @@ class ResModule(nn.Module):
         """The block through K3/K4. In training the three BNs' running
         statistics are updated in place inside ``res_block_train`` (by the
         kernels on the card); only the cumulative average
-        (``momentum=None``) is updated here."""
+        (``momentum=None``) is updated here. Under a data group of more
+        than one rank (the BNs' ``DataShard``) the block's BN reductions
+        span the group (``ops/resmodule.py``: the staged K3/K4); a
+        recomputation (``core/remat.py``) updates no running statistic."""
         s = tuple(self.resSeq)
         bns = (s[0], s[3], s[6])
         p = self.res_params()
         rows = x.permute(0, 2, 3, 1)  # NHWC view of channels_last memory
         if self.training:
+            shard = active_shard(bns[0])
+            exchange = None if shard is None else \
+                rk.group_exchange(shard.group, shard.total)
             momentum = bns[0].momentum
-            running = None if momentum is None else rk.RunningStats(
-                tuple(bn.running_mean for bn in bns),
-                tuple(bn.running_var for bn in bns),
-                tuple(bn.num_batches_tracked for bn in bns), momentum)
+            running = None if momentum is None or remat.recomputing() \
+                else rk.RunningStats(
+                    tuple(bn.running_mean for bn in bns),
+                    tuple(bn.running_var for bn in bns),
+                    tuple(bn.num_batches_tracked for bn in bns), momentum)
             out, st = rk.res_block_train(rows, p, dtype=self.dtype,
-                                         running=running)
-            if running is None:
-                n = rows.shape[0] * rows.shape[1] * rows.shape[2]
+                                         running=running, exchange=exchange)
+            if momentum is None:
+                n = (rows.shape[0] if shard is None else shard.total) \
+                    * rows.shape[1] * rows.shape[2]
                 for bn, (m, v) in zip(bns, ((st.m1, st.v1), (st.m2, st.v2),
                                             (st.m3, st.v3))):
                     update_running_stats(bn, m, v, n)
@@ -217,6 +237,9 @@ class MainModel(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.n_stacks, self.dtype = n_stacks, dtype
+        # Train-mode forwards under autograd recompute the stem's and each
+        # stack's activations in the backward (core/remat.py).
+        self.remat = False
         kw = dict(momentum=momentum, dtype=dtype, fused=fused,
                   quantize=quantize)
         self.beforeHourglass = nn.Sequential(
@@ -275,10 +298,11 @@ class MainModel(nn.Module):
         return mods
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        inter = self.stem(images)
+        call = remat.runner(self)
+        inter = call(self.stem, images)
         heatmaps = []
         for i in range(self.n_stacks):
-            out, inter = self.stack(i, inter)
+            out, inter = call(self.stack, i, inter)
             heatmaps.append(out)
         return torch.stack(heatmaps, dim=0)  # (S, B, H/4, W/4, J)
 

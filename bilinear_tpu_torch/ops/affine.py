@@ -1,6 +1,13 @@
-"""Batched crop + rotate + resize (counterpart of ``crop_batch`` and
-``hflip`` in ``bilinear_tpu/ops/affine.py``; plain torch ops, as they are
-XLA, not Pallas, in the JAX package).
+"""Batched crop + rotate + resize (counterpart of ``crop_image``,
+``crop_batch_gather``, ``crop_batch`` and ``hflip`` in
+``bilinear_tpu/ops/affine.py``; plain torch ops, as they are XLA, not
+Pallas, in the JAX package).
+
+``crop_image`` / ``crop_batch_gather`` evaluate the affine map at every
+output pixel and gather bilinearly, zero outside the source (JAX's
+``map_coordinates(order=1, mode="constant")``): the semantics oracle of the
+batched crop, kept for tests. ``crop_batch`` is the path the trainers and
+servers take:
 
 The reference's PIL chain (integer box crop -> pad -> rotate -> centre crop
 -> resize) is one affine map from output to source pixels. It factors into
@@ -17,6 +24,73 @@ from __future__ import annotations
 import torch
 
 _EXPAND_RATIO = 1.5  # covers |rotation| <= 60 deg
+
+
+def _dst_to_src_coords(center_xy: torch.Tensor, scale, rotate_deg,
+                       res: int):
+    """(ys, xs) source coordinates of the (res, res) output pixels: PIL's
+    resize of the integer-truncated box, then its rotation (content CCW by
+    ``rotate_deg``) about the box centre."""
+    dev = center_xy.device
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=dev)
+    rotate_deg = torch.as_tensor(rotate_deg, dtype=torch.float32, device=dev)
+    half = 100.0 * scale
+    ul = torch.trunc(center_xy - half)
+    br = torch.trunc(center_xy + half)
+    box = br - ul
+    d = torch.arange(res, dtype=torch.float32, device=dev)
+    xb = ((d[None, :] + 0.5) * (box[0] / res) - 0.5).expand(res, res)
+    yb = ((d[:, None] + 0.5) * (box[1] / res) - 0.5).expand(res, res)
+    cx = (box[0] - 1.0) / 2.0
+    cy = (box[1] - 1.0) / 2.0
+    theta = torch.deg2rad(rotate_deg)
+    cos, sin = torch.cos(theta), torch.sin(theta)
+    dxb, dyb = xb - cx, yb - cy
+    xs = cx + cos * dxb - sin * dyb
+    ys = cy + sin * dxb + cos * dyb
+    return ys + ul[1], xs + ul[0]
+
+
+def _bilinear_zero(image: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor):
+    """(H, W, C) sampled at (ys, xs): the four neighbours' values (zero
+    outside the image) weighted by the fractions, summed in JAX's order
+    ((y0, x0), (y0, x1), (y1, x0), (y1, x1))."""
+    h, w = image.shape[:2]
+    y0, x0 = torch.floor(ys), torch.floor(xs)
+    fy, fx = ys - y0, xs - x0
+    iy, ix = y0.long(), x0.long()
+    out = None
+    for dy, wy in ((0, 1.0 - fy), (1, fy)):
+        for dx, wx in ((0, 1.0 - fx), (1, fx)):
+            yi, xi = iy + dy, ix + dx
+            valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+            v = image[yi.clamp(0, h - 1), xi.clamp(0, w - 1)]
+            v = torch.where(valid[..., None], v, torch.zeros_like(v))
+            term = (wy * wx)[..., None] * v
+            out = term if out is None else out + term
+    return out
+
+
+def crop_image(image: torch.Tensor, center_xy, scale, rotate_deg=0.0,
+               res: int = 256) -> torch.Tensor:
+    """(H, W, C) float -> (res, res, C), zero outside the source."""
+    image = image.float()
+    center = torch.as_tensor(center_xy, dtype=torch.float32,
+                             device=image.device)
+    ys, xs = _dst_to_src_coords(center, scale, rotate_deg, res)
+    return _bilinear_zero(image, ys, xs)
+
+
+def crop_batch_gather(images: torch.Tensor, centers_xy: torch.Tensor,
+                      scales: torch.Tensor, rotates_deg: torch.Tensor,
+                      res: int = 256) -> torch.Tensor:
+    """``crop_image`` of every sample: (B, H, W, C) -> (B, res, res, C) f32;
+    uint8 input is scaled to [0, 1] first. Exact everywhere, one gather per
+    pixel: the semantics oracle of ``crop_batch``."""
+    if images.dtype == torch.uint8:
+        images = images.float() / 255.0
+    return torch.stack([crop_image(im, c, s, r, res) for im, c, s, r in
+                        zip(images, centers_xy, scales, rotates_deg)])
 
 
 def _tent_matrix(start, pitch, in_size: int, out_size: int):

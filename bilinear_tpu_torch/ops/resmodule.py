@@ -21,16 +21,33 @@ arithmetic in f32 on values already rounded to ``dtype``; products of
 ``dtype`` and then its bias, rounded to ``dtype``, is added in ``dtype``;
 the skip product and the block's last conv are rounded separately and
 summed in ``dtype``. In the backward, g_h2, g_y2 and g_h1 are rounded to
-``dtype``; every parameter gradient is f32.
+``dtype``; every parameter gradient is f32. The plain versions also take
+``dtype=torch.float64`` (everything in float64; the kernels do not).
+
+Data parallelism. JAX's fused block inside a GSPMD program sees the global
+batch, so its BN statistics are the global batch's. Here a rank holds its
+rows only, and ``exchange=`` (a ``RankExchange`` over the data group) makes
+each of the three BN reductions global: the forward's (count, mean, M2) per
+channel and the backward's (sum gy * hhat, sum gy) are gathered from every
+rank and merged in rank order (Chan's formula for the statistics, a sum for
+the backward's reductions), the same bits on every rank. A C entry cannot
+call ``torch.distributed``, so on the card a staged call runs the entry
+four times (``STAGES``), gathering between the stages. The running
+statistics are updated once, with the global count; dgamma and dbeta stay
+this rank's share (the trainer sums every parameter gradient over the
+group), and only the data gradient uses the global sums. Without an
+exchange (one rank, or no mesh) the call is the one-entry call.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from bilinear_tpu_torch.ops import _build
+from bilinear_tpu_torch.utils import debug
 
 EPS = 1e-5
 TAPS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
@@ -41,6 +58,11 @@ TAPS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
 LAUNCHES_FWD_TRAIN = 0
 LAUNCHES_FWD_EVAL = 0
 LAUNCHES_BWD = 0
+# Stage entries of staged calls (a train forward or a backward under a data
+# group): four per call, each also counted once above.
+LAUNCHES_FWD_STAGES = 0
+LAUNCHES_BWD_STAGES = 0
+STAGES = 4
 
 # Tiling constants shared with csrc/resmodule.cu.
 _CHANNEL_MULTIPLE = 64   # every channel count (GEMM column tile)
@@ -79,6 +101,30 @@ class BatchStats(NamedTuple):
     v3: torch.Tensor
 
 
+class RankExchange(NamedTuple):
+    """The data group a fused block's BN reductions span: ``gather`` maps
+    this rank's row (a 1-d tensor) to every rank's row, stacked in rank
+    order, the same on every rank; ``rows`` is the global batch's row
+    count (B, not B*H*W)."""
+
+    gather: Callable[[torch.Tensor], torch.Tensor]
+    rows: int
+
+
+def group_exchange(group, rows: int) -> RankExchange:
+    """A ``RankExchange`` over a ``torch.distributed`` group: each rank
+    writes its row into its slot of a zeroed (world, len) buffer and the
+    buffer is all-reduced (a sum with zeros is exact in any order, and
+    every backend takes an all-reduce of a CUDA tensor)."""
+    def gather(row: torch.Tensor) -> torch.Tensor:
+        buf = row.new_zeros((dist.get_world_size(group), row.numel()))
+        buf[dist.get_rank(group)] = row
+        dist.all_reduce(buf, group=group)
+        return buf
+
+    return RankExchange(gather, int(rows))
+
+
 class RunningStats(NamedTuple):
     """The three BNs' running means, running variances and
     ``num_batches_tracked`` counters (f32, f32, int64), updated in place by
@@ -96,8 +142,13 @@ class RunningStats(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
+def _wide(dtype):
+    """The type the plain versions compute in: f32, or float64."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def _rd(t: torch.Tensor, dtype) -> torch.Tensor:
-    return t.to(dtype).float()
+    return t.to(dtype).to(_wide(dtype))
 
 
 def _tap_masks(n: int, h: int, w: int, device, sign: int = 1):
@@ -173,7 +224,8 @@ def _bn(h, g, be, m, v):
 
 def _conv3x3(a2, w2, masks, w: int):
     """Sum over taps of the masked, shifted rows times w2[t], f32."""
-    acc = torch.zeros((a2.shape[0], w2.shape[-1]), device=a2.device)
+    acc = torch.zeros((a2.shape[0], w2.shape[-1]), device=a2.device,
+                      dtype=a2.dtype)
     for t, (dy, dx) in enumerate(TAPS):
         shifted = torch.roll(a2, -(dy * w + dx), dims=0)
         acc = acc + torch.where(masks[t], shifted, 0.0) @ w2[t]
@@ -181,8 +233,10 @@ def _conv3x3(a2, w2, masks, w: int):
 
 
 def _prep(p: ResParams, dtype):
-    """Weights rounded to the working type, the rest f32."""
-    f = {k: (None if v is None else v.float()) for k, v in p._asdict().items()}
+    """Weights rounded to the working type, the rest f32 (float64)."""
+    wide = _wide(dtype)
+    f = {k: (None if v is None else v.to(wide))
+         for k, v in p._asdict().items()}
     for k in ("w1", "w2", "w3", "skip_w"):
         if f[k] is not None:
             f[k] = _rd(f[k], dtype)
@@ -190,31 +244,91 @@ def _prep(p: ResParams, dtype):
 
 
 def _bias(b, dtype):
-    return _rd(b.float(), dtype)
+    return _rd(b.to(_wide(dtype)), dtype)
+
+
+def merge_rank_stats(rows: torch.Tensor, c: int):
+    """The ranks' (mean (c,), M2 (c,), count) rows, stacked in rank order,
+    merged by Chan's formula in that order from the first rank that holds
+    rows (``rank_merge_k``'s arithmetic; a rank of no rows is skipped):
+    (mean, biased variance, count)."""
+    n = mean = m2 = None
+    for r in range(rows.shape[0]):
+        nb, mb, m2b = rows[r, 2 * c], rows[r, :c], rows[r, c:2 * c]
+        if float(nb) == 0.0:
+            continue
+        if n is None:
+            n, mean, m2 = nb, mb, m2b
+            continue
+        tot = n + nb
+        d = mb - mean
+        f = nb / tot
+        mean = mean + d * f
+        m2 = (m2 + m2b) + (d * d) * (n * f)
+        n = tot
+    return mean, m2 / n, n
+
+
+def sum_rank_rows(rows: torch.Tensor, c: int):
+    """The ranks' (a (c,), b (c,)) rows summed in rank order from rank 0's
+    (``rank_sum_k``'s order)."""
+    a, b = rows[0, :c], rows[0, c:2 * c]
+    for r in range(1, rows.shape[0]):
+        a = a + rows[r, :c]
+        b = b + rows[r, c:2 * c]
+    return a, b
+
+
+def _global_stats(h: torch.Tensor, exchange: RankExchange):
+    """The global batch's (mean, biased variance) of ``h``'s columns: this
+    rank's (mean, M2, count) exchanged and merged in rank order (a rank of
+    no rows sends zeros)."""
+    m = h.mean(dim=0) if h.shape[0] else h.new_zeros(h.shape[1])
+    m2 = (h - m).square().sum(dim=0)
+    row = torch.cat([m, m2, h.new_tensor([float(h.shape[0])])])
+    mean, var, _ = merge_rank_stats(exchange.gather(row), h.shape[1])
+    return mean, var
+
+
+def _global_sums(a: torch.Tensor, b: torch.Tensor,
+                 exchange: Optional[RankExchange]):
+    """The data group's sums of this rank's reductions ``a``, ``b``
+    (themselves without an exchange)."""
+    if exchange is None:
+        return a, b
+    return sum_rank_rows(exchange.gather(torch.cat([a, b])), a.shape[0])
 
 
 def res_block_ref(x4d: torch.Tensor, p: ResParams, *, train: bool,
                   stats: Optional[BatchStats] = None,
-                  dtype=torch.bfloat16) -> Tuple[torch.Tensor, BatchStats]:
+                  dtype=torch.bfloat16,
+                  exchange: Optional[RankExchange] = None
+                  ) -> Tuple[torch.Tensor, BatchStats]:
     """(B, H, W, Ci) -> ((B, H, W, Co) in ``dtype``, batch stats f32). In
-    train mode the stats come from the batch; in eval mode pass the running
-    statistics."""
+    train mode the stats come from the batch (the global batch's over
+    ``exchange``); in eval mode pass the running statistics."""
     b, h, w, ci = x4d.shape
     n = b * h * w
+    wide = _wide(dtype)
     p = _prep(p, dtype)
     x = _rd(x4d.reshape(n, ci), dtype)
     masks = _tap_masks(n, h, w, x.device)
 
-    m1, v1 = _stats(x) if train else (stats.m1.float(), stats.v1.float())
+    def batch(t, m, v):
+        if not train:
+            return m.to(wide), v.to(wide)
+        return _stats(t) if exchange is None else _global_stats(t, exchange)
+
+    m1, v1 = batch(x, *(stats[:2] if stats else (None, None)))
     a1 = _rd(torch.relu(_bn(x, p.g1, p.be1, m1, v1)[1]), dtype)
     h1 = _rd(_rd(a1 @ p.w1, dtype) + _bias(p.b1, dtype), dtype)
 
-    m2, v2 = _stats(h1) if train else (stats.m2.float(), stats.v2.float())
+    m2, v2 = batch(h1, *(stats[2:4] if stats else (None, None)))
     a2 = _rd(torch.relu(_bn(h1, p.g2, p.be2, m2, v2)[1]), dtype)
     h2 = _rd(_rd(_conv3x3(a2, p.w2, masks, w), dtype) + _bias(p.b2, dtype),
              dtype)
 
-    m3, v3 = _stats(h2) if train else (stats.m3.float(), stats.v3.float())
+    m3, v3 = batch(h2, *(stats[4:] if stats else (None, None)))
     a3 = _rd(torch.relu(_bn(h2, p.g3, p.be3, m3, v3)[1]), dtype)
     h3 = _rd(_rd(a3 @ p.w3, dtype) + _bias(p.b3, dtype), dtype)
 
@@ -222,24 +336,28 @@ def res_block_ref(x4d: torch.Tensor, p: ResParams, *, train: bool,
         skip = _rd(_rd(x @ p.skip_w, dtype) + _bias(p.skip_b, dtype), dtype)
     else:
         skip = x
-    out = (skip + h3).to(dtype).reshape(b, h, w, -1)
+    out = (skip + h3).to(dtype).reshape(b, h, w, h3.shape[1])
     return out, BatchStats(m1, v1, m2, v2, m3, v3)
 
 
 def res_block_bwd_ref(x4d: torch.Tensor, g_out4d: torch.Tensor,
                       p: ResParams, stats: BatchStats, *,
-                      dtype=torch.bfloat16) -> Tuple[torch.Tensor, ResParams]:
+                      dtype=torch.bfloat16,
+                      exchange: Optional[RankExchange] = None
+                      ) -> Tuple[torch.Tensor, ResParams]:
     """K4's arithmetic, formula by formula (``_bwd_kernel_body_chunked``):
     returns (g_x (B, H, W, Ci) in ``dtype``, gradients as ResParams, f32).
-    Not autograd, so that it rounds g_h2, g_y2 and g_h1 where K4 does."""
+    Not autograd, so that it rounds g_h2, g_y2 and g_h1 where K4 does.
+    Over ``exchange`` each BN's data gradient takes the group's sums and
+    the global count; the returned gradients are this rank's share."""
     b, h, w, ci = x4d.shape
     n = b * h * w
-    nf = float(n)
+    nf = float(n if exchange is None else exchange.rows * h * w)
     p = _prep(p, dtype)
-    m1, v1, m2, v2, m3, v3 = (s.float() for s in stats)
+    m1, v1, m2, v2, m3, v3 = (s.to(_wide(dtype)) for s in stats)
     rs1, rs2, rs3 = (torch.rsqrt(v + EPS) for v in (v1, v2, v3))
     x = _rd(x4d.reshape(n, ci), dtype)
-    g = _rd(g_out4d.reshape(n, -1), dtype)
+    g = _rd(g_out4d.reshape(n, g_out4d.shape[-1]), dtype)
     fwd_masks = _tap_masks(n, h, w, x.device)
     bwd_masks = _tap_masks(n, h, w, x.device, sign=-1)
 
@@ -262,8 +380,9 @@ def res_block_bwd_ref(x4d: torch.Tensor, g_out4d: torch.Tensor,
     dskip_w = x.t() @ g if p.skip_w is not None else None
 
     # g_h2
-    gh2 = _rd((rs3 / nf) * (nf * (gy3 * p.g3) - p.g3 * dbe3
-                            - hhat3 * (p.g3 * dg3)), dtype)
+    sg3, sb3 = _global_sums(dg3, dbe3, exchange)
+    gh2 = _rd((rs3 / nf) * (nf * (gy3 * p.g3) - p.g3 * sb3
+                            - hhat3 * (p.g3 * sg3)), dtype)
 
     # conv2 weight grads
     db2 = gh2.sum(0)
@@ -282,8 +401,9 @@ def res_block_bwd_ref(x4d: torch.Tensor, g_out4d: torch.Tensor,
     dg2, dbe2 = (gy2 * hhat2).sum(0), gy2.sum(0)
 
     # g_h1 (from g_y2 as stored in the working type)
-    gh1 = _rd((rs2 / nf) * (nf * (_rd(gy2, dtype) * p.g2) - p.g2 * dbe2
-                            - hhat2 * (p.g2 * dg2)), dtype)
+    sg2, sb2 = _global_sums(dg2, dbe2, exchange)
+    gh1 = _rd((rs2 / nf) * (nf * (_rd(gy2, dtype) * p.g2) - p.g2 * sb2
+                            - hhat2 * (p.g2 * sg2)), dtype)
 
     # conv1 grads, bn1 reductions
     db1 = gh1.sum(0)
@@ -292,8 +412,9 @@ def res_block_bwd_ref(x4d: torch.Tensor, g_out4d: torch.Tensor,
     dg1, dbe1 = (gy1 * hhat1).sum(0), gy1.sum(0)
 
     # g_x
-    gx = (rs1 / nf) * (nf * (gy1 * p.g1) - p.g1 * dbe1
-                       - hhat1 * (p.g1 * dg1))
+    sg1, sb1 = _global_sums(dg1, dbe1, exchange)
+    gx = (rs1 / nf) * (nf * (gy1 * p.g1) - p.g1 * sb1
+                       - hhat1 * (p.g1 * sg1))
     gx = gx + (g @ p.skip_w.t() if p.skip_w is not None else g)
     grads = ResParams(
         w1=dw1, b1=db1, w2=dw2, b2=db2, w3=dw3, b3=db3,
@@ -441,9 +562,39 @@ def _stat_args(stats: BatchStats, shape, dev) -> dict:
         stats, (ci, ci, ch, ch, ch, ch), BatchStats._fields)}
 
 
+def _stage_slots(exchange: Optional[RankExchange], shape, dev):
+    """The staged slots of a call without an exchange (one entry), else
+    (slots, this rank's row buffer)."""
+    if exchange is None:
+        return dict(stage=-1, xch=0, gath=0, world=1, xstride=0), None
+    _, _, _, ci, ch, _ = shape
+    row = torch.zeros(2 * max(ci, ch) + 1, device=dev)
+    return dict(stage=0, xch=row.data_ptr(), gath=0, world=1,
+                xstride=row.numel()), row
+
+
+def _run_staged(entry, names, vals: dict, row, exchange, *extra):
+    """The four stages of a staged call, every rank's row gathered between
+    them (on the call's stream, so a stage reads what the last one wrote);
+    ``vals`` is updated in place. Returns the first non-zero code, else 0."""
+    for k in range(STAGES):
+        vals["stage"] = k
+        rc = entry(_slot_array(names, vals), *extra)
+        if rc or k + 1 == STAGES:
+            return rc
+        rows = exchange.gather(row).contiguous()
+        if rows.dtype is not torch.float32 or rows.dim() != 2 or \
+                rows.shape[1] != row.numel():
+            raise ValueError(f"the exchange must return (world, "
+                             f"{row.numel()}) f32 rows, got {rows.dtype} "
+                             f"{tuple(rows.shape)}")
+        vals.update(gath=rows.data_ptr(), world=rows.shape[0])
+
+
 def _fwd_cuda(x4d, p: ResParams, train: bool, stats: Optional[BatchStats],
-              dtype, running: Optional[RunningStats] = None):
-    global LAUNCHES_FWD_TRAIN, LAUNCHES_FWD_EVAL
+              dtype, running: Optional[RunningStats] = None,
+              exchange: Optional[RankExchange] = None):
+    global LAUNCHES_FWD_TRAIN, LAUNCHES_FWD_EVAL, LAUNCHES_FWD_STAGES
     shape = _check_cuda(x4d, p, dtype)
     b, h, w, ci, ch, co = shape
     dev = x4d.device
@@ -475,19 +626,31 @@ def _fwd_cuda(x4d, p: ResParams, train: bool, stats: Optional[BatchStats],
                 raise ValueError("num_batches_tracked must be one int64 on "
                                  f"{dev}")
             run[f"run_count{i + 1}"] = t.data_ptr()
+        n_all = n if exchange is None else exchange.rows * h * w
         floats = (ctypes.c_double * 2)(float(running.momentum),
-                                       n / max(n - 1, 1))
+                                       n_all / max(n_all - 1, 1))
+    if exchange is not None and not train:
+        raise ValueError("only a train forward spans a data group")
+    if train and exchange is None and b == 0:
+        raise ValueError("a train forward of no rows needs a data group")
     out = torch.empty((b, h, w, co), device=dev, dtype=dtype)
     scratch = _scratch(lib, int(train), bf, shape, dev)
+    staged, row = _stage_slots(exchange, shape, dev)
     vals = dict(
-        q, **_stat_args(st, shape, dev), **run,
+        q, **_stat_args(st, shape, dev), **run, **staged,
         bf16=bf, train=int(train), b=b, h=h, w=w, ci=ci, ch=ch, co=co,
         x=x.data_ptr(), b3=_vec(p.b3, co, dev, "b3"),
         skb=0 if p.skip_b is None else _vec(p.skip_b, co, dev, "skip_b"),
         out=out.data_ptr(), scratch=scratch.data_ptr(),
         stream=torch.cuda.current_stream(dev).cuda_stream)
     with torch.cuda.device(dev):
-        rc = lib.resmodule_forward(_slot_array(lib.fwd_slots, vals), floats)
+        if exchange is None:
+            rc = lib.resmodule_forward(_slot_array(lib.fwd_slots, vals),
+                                       floats)
+        else:
+            rc = _run_staged(lib.resmodule_forward, lib.fwd_slots, vals,
+                             row, exchange, floats)
+            LAUNCHES_FWD_STAGES += STAGES
     _build.check(rc, "resmodule_forward")
     if train:
         LAUNCHES_FWD_TRAIN += 1
@@ -511,8 +674,9 @@ def _param_strides(t: torch.Tensor) -> Tuple[int, ...]:
     return t.stride()
 
 
-def _bwd_cuda(x4d, g_out4d, p: ResParams, stats: BatchStats, dtype):
-    global LAUNCHES_BWD
+def _bwd_cuda(x4d, g_out4d, p: ResParams, stats: BatchStats, dtype,
+              exchange: Optional[RankExchange] = None):
+    global LAUNCHES_BWD, LAUNCHES_BWD_STAGES
     shape = _check_cuda(x4d, p, dtype)
     b, h, w, ci, ch, co = shape
     dev = x4d.device
@@ -521,6 +685,8 @@ def _bwd_cuda(x4d, g_out4d, p: ResParams, stats: BatchStats, dtype):
     if g.shape != (b, h, w, co):
         raise ValueError(f"g_out {tuple(g.shape)} for output "
                          f"{(b, h, w, co)}")
+    if exchange is None and b == 0:
+        raise ValueError("a backward of no rows needs a data group")
     lib = _lib()
     bf = int(dtype == torch.bfloat16)
     q = _param_args(p, shape, dev)
@@ -536,8 +702,10 @@ def _bwd_cuda(x4d, g_out4d, p: ResParams, stats: BatchStats, dtype):
     grads = ResParams(*parts, *(() if skip else (None, None)))
     gx = torch.empty((b, h, w, ci), device=dev, dtype=dtype)
     scratch = _scratch(lib, 2, bf, shape, dev)
+    staged, row = _stage_slots(exchange, shape, dev)
     vals = dict(
-        q, **_stat_args(stats, shape, dev),
+        q, **_stat_args(stats, shape, dev), **staged,
+        n_global=b * h * w if exchange is None else exchange.rows * h * w,
         bf16=bf, b=b, h=h, w=w, ci=ci, ch=ch, co=co,
         x=x.data_ptr(), gout=g.data_ptr(), gx=gx.data_ptr(),
         scratch=scratch.data_ptr(),
@@ -551,7 +719,12 @@ def _bwd_cuda(x4d, g_out4d, p: ResParams, stats: BatchStats, dtype):
         else:
             vals[slot] = 0 if t is None else t.data_ptr()
     with torch.cuda.device(dev):
-        rc = lib.resmodule_backward(_slot_array(lib.bwd_slots, vals))
+        if exchange is None:
+            rc = lib.resmodule_backward(_slot_array(lib.bwd_slots, vals))
+        else:
+            rc = _run_staged(lib.resmodule_backward, lib.bwd_slots, vals,
+                             row, exchange)
+            LAUNCHES_BWD_STAGES += STAGES
     _build.check(rc, "resmodule_backward")
     LAUNCHES_BWD += 1
     return gx, grads
@@ -570,16 +743,21 @@ class _ResBlockTrain(torch.autograd.Function):
     outputs carry no gradient."""
 
     @staticmethod
-    def forward(ctx, x4d, dtype, running, *params):
+    def forward(ctx, x4d, dtype, running, exchange, *params):
         p = ResParams(*params)
         if x4d.device.type == "cpu":
-            out, st = res_block_ref(x4d, p, train=True, dtype=dtype)
+            out, st = res_block_ref(x4d, p, train=True, dtype=dtype,
+                                    exchange=exchange)
             if running is not None:
                 b, h, w, _ = x4d.shape
-                update_running_ref(running, st, b * h * w)
+                rows = b if exchange is None else exchange.rows
+                update_running_ref(running, st, rows * h * w)
         else:
-            out, st = _fwd_cuda(x4d, p, True, None, dtype, running)
+            out, st = _fwd_cuda(x4d, p, True, None, dtype, running, exchange)
         ctx.dtype = dtype
+        ctx.exchange = exchange
+        ctx.where = debug.where()
+        debug.check((out, *st), f"K3's outputs in {ctx.where}")
         ctx.has_skip = p.skip_w is not None
         ctx.save_for_backward(x4d, *(t for t in params if t is not None),
                               *st)
@@ -596,15 +774,19 @@ class _ResBlockTrain(torch.autograd.Function):
         st = BatchStats(*saved[1 + n_p:])
         g_out = g_out.contiguous()
         if x4d.device.type == "cpu":
-            gx, grads = res_block_bwd_ref(x4d, g_out, p, st, dtype=ctx.dtype)
+            gx, grads = res_block_bwd_ref(x4d, g_out, p, st, dtype=ctx.dtype,
+                                          exchange=ctx.exchange)
         else:
-            gx, grads = _bwd_cuda(x4d, g_out, p, st, ctx.dtype)
-        return (gx, None, None, *grads)
+            gx, grads = _bwd_cuda(x4d, g_out, p, st, ctx.dtype, ctx.exchange)
+        debug.check((gx, *grads), f"K4's outputs (g_x, gradients) in "
+                                  f"{ctx.where}")
+        return (gx, None, None, None, *grads)
 
 
 def res_block_train(x4d: torch.Tensor, p: ResParams, *,
                     dtype=torch.bfloat16,
-                    running: Optional[RunningStats] = None
+                    running: Optional[RunningStats] = None,
+                    exchange: Optional[RankExchange] = None
                     ) -> Tuple[torch.Tensor, BatchStats]:
     """Fused train-mode forward, differentiable: (B, H, W, Ci) ->
     ((B, H, W, Co), BatchStats). ``x4d`` is cast to ``dtype`` before the
@@ -616,10 +798,14 @@ def res_block_train(x4d: torch.Tensor, p: ResParams, *,
     the card the kernel that finishes each BN's statistics writes them. The
     JAX package returns new statistics instead (``core/norm.py`` there).
     ``running.momentum`` must be a number: the cumulative average
-    (``momentum=None``) stays with ``core.norm.update_running_stats``."""
+    (``momentum=None``) stays with ``core.norm.update_running_stats``.
+
+    ``exchange``: the data group the BN reductions span (module
+    docstring); the statistics returned are then the global batch's, and
+    ``running`` is updated with the global count."""
     if running is not None and running.momentum is None:
         raise ValueError("running.momentum must be a number")
-    res = _ResBlockTrain.apply(x4d.to(dtype), dtype, running, *p)
+    res = _ResBlockTrain.apply(x4d.to(dtype), dtype, running, exchange, *p)
     return res[0], BatchStats(*res[1:])
 
 

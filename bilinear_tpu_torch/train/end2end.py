@@ -29,7 +29,8 @@ run through kernels K3/K4 on the card.
 (``train/hourglass.py``): global-batch draws sliced to the rank's rows,
 global BN statistics in both halves, the lifter's dropout masks drawn for
 the global batch, the loss weighted by the global count, gradients summed
-over the ranks; fused blocks with more than one data rank raise.
+over the ranks; fused blocks span the data group through the staged
+K3/K4.
 """
 from __future__ import annotations
 
@@ -90,7 +91,7 @@ class End2EndTrainer:
         """``model_kw``: End2End's detector overrides (``n_stacks``,
         ``features``, ``depth``, ``n_modules``, ``fused``). ``device``:
         None is the card, and raises when there is none."""
-        self.mesh = th.check_mesh(mesh, bool((model_kw or {}).get("fused")))
+        self.mesh = th.check_mesh(mesh)
         self.shard = None if self.mesh is None else \
             DataShard(self.mesh.data_group)
         self.variant = variant

@@ -24,8 +24,14 @@ ranks: every rank reads the same batches and augmentation draws (drawn for
 the global batch), keeps its row block of both, normalises with the global
 batch's BN statistics (``core/norm.py::global_batch_norm``), takes its
 share of the global loss, and sums the gradients over the ranks, so a
-step is the one-process step. Fused blocks with more than one data rank
-raise: K3 computes and applies the BN statistics inside one call.
+step is the one-process step. Fused blocks do the same through the staged
+K3/K4 (``ops/resmodule.py``: each block's three BN reductions merged over
+the data group between the kernels' stages).
+
+``remat=True`` recomputes the stem's and every stack's activations in the
+backward (``core/remat.py``; JAX wraps its forward in ``jax.checkpoint``):
+the step's numbers are the plain step's, and the running statistics are
+updated once.
 """
 from __future__ import annotations
 
@@ -150,23 +156,17 @@ def heatmap_loss(out: torch.Tensor, targets: torch.Tensor,
     sq = (out - tgt[None]).square()
     if total is None:
         return sq.mean(dim=(1, 2, 3, 4)).sum()
-    return sq.sum(dim=(1, 2, 3, 4)).sum() / (total * out[0, 0].numel())
+    return sq.sum(dim=(1, 2, 3, 4)).sum() / (total * out.shape[2:].numel())
 
 
-def check_mesh(mesh, fused: bool):
-    """The mesh a detector trainer takes: None for one rank; a data group
-    of more than one rank refuses fused blocks."""
+def check_mesh(mesh):
+    """The mesh a detector trainer takes: None for one rank; the detectors
+    have no tensor parallelism."""
     if mesh is None or mesh.world == 1:
         return None
     if mesh.model > 1:
         raise ValueError("the detectors have no tensor parallelism; use a "
                          "mesh with model=1")
-    if fused:
-        raise NotImplementedError(
-            "fused blocks (K3/K4) under data parallelism are not ported "
-            "yet: K3 computes and applies the BN statistics in one call, "
-            "and the global batch's statistics need its partial sums "
-            "reduced between its passes; see ROADMAP.md")
     return mesh
 
 
@@ -244,12 +244,10 @@ class HourglassTrainer:
                  features=None, depth=None, fused_blocks: bool = False,
                  n_modules=None, device=None, joint_remap=None,
                  flip_prob: float = 0.4):
-        self.mesh = check_mesh(mesh, fused_blocks)
+        self.mesh = check_mesh(mesh)
         self.shard = None if self.mesh is None else \
             DataShard(self.mesh.data_group)
-        if remat:
-            raise NotImplementedError("remat is not ported yet; see "
-                                      "ROADMAP.md")
+        self.remat = remat
         self.variant = variant
         self.learning_rate = learning_rate
         self.dtype = dtype
@@ -268,6 +266,7 @@ class HourglassTrainer:
         model = make_model(self.variant, self.dtype, generator=gen,
                            **self.model_kw).to(self.device)
         model.train()
+        model.remat = self.remat
         set_data_shard(model, self.shard)
         return TrainState(model, hourglass_optimizer(model.parameters(),
                                                      self.learning_rate))

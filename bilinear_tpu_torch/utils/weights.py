@@ -134,6 +134,54 @@ def bilinear_opt_from_jax(optimizer: Mapping[str, Any]):
             bilinear_params_from_jax(adam["nu"]))
 
 
+def bilinear_optimizer_from_torch(opt_state_dict: Mapping[str, Any]):
+    """``torch.optim.Adam.state_dict()`` of the reference's BilinearUnit ->
+    (count, exp_avg, exp_avg_sq), the moments keyed by parameter name
+    (empty before the first step). The integer ids follow
+    ``model.parameters()`` order, ``bilinear_param_paths``'s; torch keeps a
+    step per parameter and the reference steps them together, so any one
+    is the shared count (JAX's ``bilinear_optimizer_from_torch``)."""
+    keys = [key for key, _, _ in bilinear_param_paths()]
+    ids = [i for group in opt_state_dict["param_groups"]
+           for i in group["params"]]
+    if len(ids) != len(keys):
+        raise ValueError(f"an Adam state of {len(ids)} parameters for the "
+                         f"{len(keys)} of BilinearUnit")
+    count, exp_avg, exp_avg_sq = 0, {}, {}
+    for pid, key in zip(ids, keys):
+        entry = opt_state_dict["state"].get(pid, {})
+        if not entry:
+            continue
+        count = int(np.asarray(_numpy(entry["step"])))
+        exp_avg[key] = _tensor(_numpy(entry["exp_avg"]))
+        exp_avg_sq[key] = _tensor(_numpy(entry["exp_avg_sq"]))
+    return count, exp_avg, exp_avg_sq
+
+
+def reference_bilinear_payload(ckpt: Mapping[str, Any]) -> Dict[str, Any]:
+    """The reference's torch ``{epoch}.save`` dict (``{'epoch', 'step',
+    'state', 'optimizer'}``, its train_bilinear.py:96-104) -> a ``.save``
+    payload of the JAX layout, Adam's moments and count included."""
+    params, stats = bilinear_to_jax(ckpt["state"])
+    count, exp_avg, exp_avg_sq = bilinear_optimizer_from_torch(
+        ckpt["optimizer"])
+    return {"epoch": int(ckpt["epoch"]), "step": int(ckpt["step"]),
+            "state": {"params": params, "batch_stats": stats},
+            "optimizer": bilinear_opt_to_jax(count, exp_avg, exp_avg_sq)
+            if exp_avg else {}}
+
+
+def load_reference_bilinear_checkpoint(path: str, state):
+    """Load the reference's torch ``{epoch}.save`` at ``path`` into a
+    ``train/bilinear.py::TrainState`` in place: weights, BN statistics,
+    Adam's moments and count, and the step (JAX's
+    ``load_reference_bilinear_checkpoint``). Returns (state, epoch)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    payload = reference_bilinear_payload(ckpt)
+    state.restore(payload)
+    return state, payload["epoch"]
+
+
 # ---------------------------------------------------------------------------
 # The torch7 hourglass detector (the port's copy of the hourglass_torch7
 # halves of bilinear_tpu/utils/torch_compat.py, between the JAX tree and

@@ -147,15 +147,37 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    DP (2 ranks), TP (1 x 2) and DP x TP (2 x 2) and a full-width standard
    train_hourglass DP step (2 x 4 rows), every rank a process started
    through the CLI's --coordinator flags on this card (gloo), each against
-   one process; a one-rank NCCL run; --fused-blocks true over 2 ranks must
-   raise; LiftingServer(mesh=["cuda:0"] * 2) in bf16, int8 and int8-static
+   one process; a one-rank NCCL run (--fused-blocks true over 2 ranks is
+   phase 16's run); LiftingServer(mesh=["cuda:0"] * 2) in bf16, int8 and int8-static
    and End2EndServer(mesh=...) fused bf16 and int8 against the unsharded
    servers (launches per call, bit-equality per shard); pipeline_forward
    fused and int8 at (S, M) in {(2, 2), (2, 4), (4, 4), (8, 8)} with its
    launches, pipeline_end2end against End2End, one make_pp_train_step at
    (2, 2) against the accumulated one-process step; times of each.
+16. Fused blocks under data parallelism, remat, --debug-nans, preemption,
+   --profile, the canvas cache, doctor: the staged K3/K4 (four stage
+   entries per call, each BN reduction merged over the ranks between them)
+   against the unstaged call bit for bit with one rank and against the
+   plain versions with two ranks as threads (a skipped exchange must fail
+   that gate); cli.train_hourglass --fused-blocks true at full width over
+   2 ranks sharing the card (gloo), bf16 and f32, against one process at
+   phase 15's gates, 107 K3-train and K4 launches per step per rank, each
+   of four stage entries, step ms; a one-rank NCCL run; every staged call
+   with its first exchange skipped must fail the gate; a fused End2End
+   step over 2 ranks against one process; HourglassTrainer(remat=True) at
+   batch 8, fused bf16 (bit for bit) and standard f32 (within two plain
+   steps' spread) against a plain step, peak memory lower, K3 launched
+   twice per block; --debug-nans: a clean step passes and an inf planted
+   in a fused block's weight stops the run naming the block; SIGTERM in
+   epoch 1 of a train_hourglass process (exit 0, 1.save, resumed to
+   2.save) and to rank 1 of 2 (both stop after epoch 1); train_bilinear
+   --profile true (a trace with CUDA kernels); the canvas cache on phase
+   6's tree (run before that tree is removed: cached batches equal
+   uncached ones bit for bit, no JPEG decoded in epoch 2, the CLI's
+   --cache-canvases); cli.doctor (exit 0, every probe, its matmul and
+   transfer figures).
 
-Phases run in the order 1-5, 9, 6-8, 10-15. The line before the last is the kernels' JSON record; the last line is
+Phases run in the order 1-5, 9, 6-8, 10-14, 16g, 15, 16. The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or bilinear_tpu.
 """
 import json
@@ -752,6 +774,220 @@ def check_resmodule():
     if failed:
         raise AssertionError(f"{len(failed)} resmodule cases out of "
                              f"tolerance:\n" + "\n".join(failed))
+    return errs
+
+
+# Staged K3/K4 (phase 16): the shapes a data-parallel step gives each rank
+# (2 ranks x 4 rows of the full-width detector's batch 8: the stem block,
+# the hourglass body at its largest and smallest) and two uneven splits.
+STAGED_SHAPES = (
+    (8, 128, 128, 64, 128),
+    (8, 64, 64, 256, 256),
+    (8, 4, 4, 256, 256),
+    (5, 8, 8, 256, 256),     # shards of 2 and 3 rows
+    (3, 8, 8, 128, 256),     # 1 and 2 rows, 1x1 skip
+)
+
+
+class ThreadRanks:
+    """``world`` ranks as threads of this process on one card: an exchange
+    whose gather meets the other threads at a barrier and stacks their rows
+    in rank order (every stage kernel that wrote a row was enqueued on the
+    card's one stream before the barrier). ``skip`` names an exchange (0,
+    1, 2: the forward's BNs; 3, 4, 5: the backward's) that returns the
+    rank's own row alone: a planted fault, rank-local statistics."""
+
+    def __init__(self, world, skip=None):
+        self.world, self.skip = world, skip
+        self.barrier = threading.Barrier(world)
+        self.rows = [None] * world
+
+    def exchange(self, rank, total):
+        from bilinear_tpu_torch.ops.resmodule import RankExchange
+        import torch
+
+        calls = [0]
+
+        def gather(row):
+            k, calls[0] = calls[0], calls[0] + 1
+            if k == self.skip:
+                return row[None]
+            self.rows[rank] = row
+            self.barrier.wait()
+            out = torch.stack(self.rows)
+            self.barrier.wait()
+            return out
+
+        return RankExchange(gather, total)
+
+    def run(self, fn):
+        """fn(rank) in one thread per rank; their results in rank order."""
+        out, errs = [None] * self.world, []
+
+        def body(r):
+            try:
+                out[r] = fn(r)
+            except BaseException as e:  # re-raised below
+                errs.append(e)
+                self.barrier.abort()
+
+        threads = [threading.Thread(target=body, args=(r,))
+                   for r in range(self.world)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errs:
+            raise errs[0]
+        return out
+
+
+def _running_copy(stats, dev):
+    import torch
+    from bilinear_tpu_torch.ops import resmodule as rm
+
+    return rm.RunningStats(
+        tuple(t.clone() for t in stats[0::2]),
+        tuple(t.clone() for t in stats[1::2]),
+        tuple(torch.zeros((), dtype=torch.int64, device=dev)
+              for _ in range(3)), 0.1)
+
+
+def staged_ranks(x, g, p, dtype, ranks, stats, blocks=None):
+    """The staged K3 train forward (with a running update) and K4 over
+    ``ranks.world`` row blocks of (x, g) (``blocks``, else equal ones),
+    each block a thread: (out and g_x joined, the batch statistics of rank
+    0, running statistics of rank 0, the parameter gradients summed over
+    the ranks in rank order, the per-rank batch statistics)."""
+    import torch
+    from bilinear_tpu_torch.ops import resmodule as rm
+
+    b = x.shape[0]
+    blocks = blocks or [((r * b) // ranks.world, ((r + 1) * b) // ranks.world)
+                        for r in range(ranks.world)]
+
+    def one(r):
+        lo, hi = blocks[r]
+        ex = ranks.exchange(r, b)
+        run = _running_copy(stats, x.device)
+        out, st = rm._fwd_cuda(x[lo:hi], p, True, None, dtype, run, ex)
+        gx, gp = rm._bwd_cuda(x[lo:hi], g[lo:hi], p, st, dtype, ex)
+        torch.cuda.synchronize()
+        return out, st, run, gx, gp
+
+    res = ranks.run(one)
+    grads = [None if t is None else sum(r[4][i] for r in res)
+             for i, t in enumerate(res[0][4])]
+    return (torch.cat([r[0] for r in res]), res[0][1], res[0][2],
+            torch.cat([r[3] for r in res]), rm.ResParams(*grads),
+            [r[1] for r in res])
+
+
+def check_staged_resmodule():
+    """The staged K3/K4 (phase 16). One rank: the four stage entries give
+    the unstaged call's bits (output, batch and running statistics, g_x,
+    every gradient), and so do two ranks of which the first holds no row
+    (it launches no GEMM, sends rows of count 0 and of zeros, and its
+    statistics, running statistics and zero gradients are still the
+    unstaged call's). Two ranks as threads on the card: every rank holds
+    the same statistics bit for bit, and the joined output and g_x, the
+    statistics, the running statistics and the gradients summed over the
+    ranks are held against the plain versions on the whole batch at
+    RES_GATES. A planted fault, the first exchange skipped (rank-local
+    statistics for the first BN), must fail that gate. Returns {kernel:
+    max |d|}."""
+    import torch
+    from bilinear_tpu_torch.ops import resmodule as rm
+
+    dev = torch.device("cuda")
+    errs = {"resmodule_fwd_train": 0.0, "resmodule_bwd": 0.0}
+    one_rank = empty_rank = 0
+    for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for i, shape in enumerate(STAGED_SHAPES):
+            x, g, p, stats = res_case(shape, SEED + 70 + i, dev)
+            x, g = x.to(dtype), g.to(dtype)
+            tag = f"{kind} {shape}"
+            b = shape[0]
+            # One rank: staged against unstaged, bit for bit.
+            ra, rb = _running_copy(stats, dev), _running_copy(stats, dev)
+            alone = rm.RankExchange(lambda row: row[None], b)
+            out_a, st_a = rm._fwd_cuda(x, p, True, None, dtype, ra)
+            out_b, st_b = rm._fwd_cuda(x, p, True, None, dtype, rb, alone)
+            gx_a, gp_a = rm._bwd_cuda(x, g, p, st_a, dtype)
+            gx_b, gp_b = rm._bwd_cuda(x, g, p, st_a, dtype, alone)
+            torch.cuda.synchronize()
+            pairs = [(out_a, out_b), (gx_a, gx_b)] + list(zip(st_a, st_b)) \
+                + list(zip(ra.mean + ra.var + ra.count,
+                           rb.mean + rb.var + rb.count)) \
+                + [(u, v) for u, v in zip(gp_a, gp_b) if u is not None]
+            if not all(torch.equal(u, v) for u, v in pairs):
+                raise AssertionError(f"staged K3/K4 {tag}, one rank: not the "
+                                     f"unstaged call's bits")
+            one_rank += 1
+            # Two ranks, the first holding no row: the unstaged call's bits.
+            out_e, st_e, run_e, gx_e, gp_e, per_rank = staged_ranks(
+                x, g, p, dtype, ThreadRanks(2), stats,
+                blocks=[(0, 0), (0, b)])
+            pairs = [(out_a, out_e), (gx_a, gx_e)] + list(zip(st_a, st_e)) \
+                + list(zip(st_a, per_rank[1])) \
+                + list(zip(ra.mean + ra.var + ra.count,
+                           run_e.mean + run_e.var + run_e.count)) \
+                + [(u, v) for u, v in zip(gp_a, gp_e) if u is not None]
+            if not all(torch.equal(u, v) for u, v in pairs):
+                raise AssertionError(f"staged K3/K4 {tag}, an empty rank 0: "
+                                     f"not the unstaged call's bits")
+            empty_rank += 1
+            # Two ranks against the plain versions on the whole batch.
+            out, st, run, gx, gp, per_rank = staged_ranks(
+                x, g, p, dtype, ThreadRanks(2), stats)
+            if not all(torch.equal(u, v) for u, v in zip(per_rank[0],
+                                                         per_rank[1])):
+                raise AssertionError(f"staged K3 {tag}: the ranks' "
+                                     f"statistics differ")
+            ref, ref_st = rm.res_block_ref(x, p, train=True, dtype=dtype)
+            rgx, rgp = rm.res_block_bwd_ref(x, g, p, ref_st, dtype=dtype)
+            want = _running_copy(stats, dev)
+            rm.update_running_ref(want, ref_st, b * shape[1] * shape[2])
+            gate = RES_GATES["K3", kind]
+            e = gate_close(f"staged K3 2 ranks {tag} out", out, ref,
+                           *gate)[0]
+            for name, u, v in zip(rm.BatchStats._fields, st, ref_st):
+                e = max(e, gate_close(f"staged K3 2 ranks {tag} {name}", u,
+                                      v, *gate)[0])
+            for j, (u, v) in enumerate(zip(run.mean + run.var,
+                                           want.mean + want.var)):
+                e = max(e, gate_close(f"staged K3 2 ranks {tag} running "
+                                      f"{j}", u, v, *gate)[0])
+            if [int(c) for c in run.count] != [1, 1, 1]:
+                raise AssertionError(f"staged K3 {tag}: counts {run.count}")
+            errs["resmodule_fwd_train"] = max(errs["resmodule_fwd_train"], e)
+            gate = RES_GATES["K4", kind]
+            e = gate_close(f"staged K4 2 ranks {tag} g_x", gx, rgx, *gate)[0]
+            for name, u, v in zip(rm.ResParams._fields, gp, rgp):
+                if v is not None:
+                    e = max(e, gate_close(
+                        f"staged K4 2 ranks {tag} d{name} (sum of ranks)", u,
+                        v, *gate,
+                        scale_of=rgp.b3 if name in ("b1", "b2") else None)[0])
+            errs["resmodule_bwd"] = max(errs["resmodule_bwd"], e)
+            if i == 1:  # the planted fault at the hourglass body's shape
+                out_f, st_f = staged_ranks(x, g, p, dtype,
+                                           ThreadRanks(2, skip=0),
+                                           stats)[:2]
+                try:
+                    gate_close(f"planted fault {tag}: m1 without its "
+                               f"exchange", st_f.m1, ref_st.m1,
+                               *RES_GATES["K3", kind])
+                except AssertionError:
+                    log(f"  planted fault {tag} (first exchange skipped): "
+                        "failed the gate, as it must")
+                else:
+                    raise AssertionError("a staged K3 without its first "
+                                         "exchange passed the gate")
+            del x, g, p, stats, out, st, run, gx, gp, ref, ref_st, rgx, rgp
+            torch.cuda.empty_cache()
+    log(f"  staged K3/K4: {one_rank} one-rank cases and {empty_rank} "
+        f"cases with an empty rank 0 the unstaged call's bits")
     return errs
 
 
@@ -4446,14 +4682,37 @@ def check_learnable_markers(tree):
             "jpeg_mean_abs_max": jpeg}
 
 
+_PORTS_GIVEN = set()
+
+
 def _free_port():
+    """A free localhost port for a process group's coordinator, below the
+    kernel's ephemeral range: a rank's coordinator listens seconds after
+    this call, while the ranks of other legs open connections, and an
+    ephemeral port could be handed to one of those meanwhile. Never the
+    same port twice in one process."""
+    import random
     import socket
 
-    s = socket.socket()
-    s.bind(("localhost", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    rng = random.Random()
+    while True:
+        port = rng.randrange(max(1024, low - 10000), low)
+        if port in _PORTS_GIVEN:
+            continue
+        s = socket.socket()
+        try:
+            s.bind(("localhost", port))
+        except OSError:
+            continue
+        finally:
+            s.close()
+        _PORTS_GIVEN.add(port)
+        return port
 
 
 def _ranks(module, argv, world, expect_ok=True, timeout=900):
@@ -4476,9 +4735,10 @@ def _ranks(module, argv, world, expect_ok=True, timeout=900):
     return errs
 
 
-def _save_digests(run_dir):
-    """A run's 1.save (its trees, as ``payload``), last logged loss,
-    digests (sum |params|, sum |BN means|), parameter files and log."""
+def _save_digests(run_dir, end2end=False):
+    """A run's 1.save (its trees, as ``payload``), epoch 1's logged loss,
+    digests (sum |params|, sum |BN means|), parameter files and log
+    (train_end2end's: its line reads ``saved (loss X = hm ...``)."""
     import numpy as np
     from bilinear_tpu_torch.io.checkpoint import load_checkpoint
 
@@ -4491,7 +4751,13 @@ def _save_digests(run_dir):
                 if k.endswith("/mean"))
     with open(os.path.join(run_dir, "debug.log")) as f:
         text = f.read()
-    loss = _log_value(text, "saved (loss:", "loss: ")[-1]
+    # epoch 1's loss, the step whose 1.save is compared
+    if end2end:
+        loss = [float(ln.split("saved (loss ")[1].split(" ")[0])
+                for ln in text.splitlines()
+                if "Epoch 1 saved (loss " in ln][0]
+    else:
+        loss = _log_value(text, "Epoch 1 saved (loss:", "loss: ")[0]
     return {"loss": loss, "params_abs_sum": params, "bn_mean_abs_sum": means,
             "payload": payload, "files": sorted(os.listdir(pdir)),
             "log": text}
@@ -4535,7 +4801,24 @@ def _rel(a, b):
     return abs(a - b) / max(abs(b), 1e-30)
 
 
-def _held_to(name, got, ref, adam):
+def _square_avg_rels(got, ref):
+    """Per tensor |g_a - g_b| / |g_b| of |g| = 10 sqrt(square_avg) (one
+    RMSprop step), sorted, every conv bias but the heatmap heads' left out
+    (a train-mode BN removes its shift); and the count of tensors."""
+    import numpy as np
+
+    g_abs, r_abs = ({k: np.sqrt(v) for k, v in
+                     _flat(run["payload"]["optimizer"]["1"]["square_avg"])
+                     .items()} for run in (got, ref))
+    gated = [k for k in r_abs if not (k.endswith("/bias") and
+                                      k[:-4] + "kernel" in r_abs
+                                      and not re.match(r"htmap_\d+/", k))]
+    return sorted((float(np.linalg.norm(g_abs[k] - r_abs[k])
+                         / max(np.linalg.norm(r_abs[k]), 1e-30)), k)
+                  for k in gated), len(r_abs)
+
+
+def _held_to(name, got, ref, adam, files=("1.save",)):
     """A multi-rank run against the one-process run on the card, leaf by
     leaf. Gated: loss and digests within DIST_STEP_REL, and the
     gradients. The lifter's (Adam's mu, of the leaves above GRAD_FLOOR of
@@ -4571,28 +4854,20 @@ def _held_to(name, got, ref, adam):
         reported["params_leaf_worst"] = list(_leaf_gap(gp, rp)[:2])
         compared = f"{len(_flat(ro['mu'])) - noise} of {len(_flat(ro['mu']))}"
     else:
-        g_abs, r_abs = ({k: np.sqrt(v) for k, v in
-                         _flat(o["square_avg"]).items()} for o in (go, ro))
-        gated = [k for k in r_abs if not (k.endswith("/bias") and
-                                          k[:-4] + "kernel" in r_abs
-                                          and not re.match(r"htmap_\d+/",
-                                                           k))]
-        rel = sorted((float(np.linalg.norm(g_abs[k] - r_abs[k])
-                            / max(np.linalg.norm(r_abs[k]), 1e-30)), k)
-                     for k in gated)
+        rel, n_all = _square_avg_rels(got, ref)
         q = _quantiles(rel)
         gaps["grad_rel_median"], gaps["grad_rel_p90"] = q[0.5], q[0.9]
         gates["grad_rel_median"], gates["grad_rel_p90"] = PARITY_F32[1:]
         gaps["bn_stats_leaf"], gates["bn_stats_leaf"] = stats, DIST_STEP_REL
         reported["grad_rel_max"] = list(rel[-1])
-        compared = f"{len(gated)} of {len(r_abs)}"
+        compared = f"{len(rel)} of {n_all}"
     log(f"  {name}: loss {got['loss']:.6f} (one process {ref['loss']:.6f}); "
         "gaps " + ", ".join(f"{k} {v:.2e} (gate {gates[k]})"
                             for k, v in gaps.items())
         + "; reported: " + ", ".join(f"{k} {v:.2e} at {at}"
                                      for k, (v, at) in reported.items())
         + f"; {compared} gradient tensors compared; files {got['files']}")
-    if got["files"] != ["1.save"] or any(gaps[k] > gates[k] for k in gaps):
+    if got["files"] != list(files) or any(gaps[k] > gates[k] for k in gaps):
         raise AssertionError(f"{name}: {gaps} (gates {gates}), "
                              f"{got['files']}")
     return dict(gaps, gates=gates, reported=reported)
@@ -4611,8 +4886,7 @@ def drive_parallel_training(work, calib, card):
     the card): train_bilinear DP (2 ranks), TP (data 1 x model 2) and
     DP x TP (2 x 2) for one epoch of DP_ROWS rows, each against one
     process; a full-width standard train_hourglass step over 2 ranks (4
-    rows each) against one process; train_hourglass --fused-blocks true
-    over 2 ranks must fail; a one-rank NCCL train_bilinear; the DP run's
+    rows each) against one process; a one-rank NCCL train_bilinear; the DP run's
     1.save resumed by one process; ms per step with two ranks sharing the
     card."""
     from bilinear_tpu_torch.cli import train_bilinear, train_hourglass
@@ -4698,13 +4972,7 @@ def drive_parallel_training(work, calib, card):
                                               ref, adam=False),
                              "one_process_cli_s": one_s,
                              "two_rank_command_s": dp_s}
-    errs = _ranks("bilinear_tpu_torch.cli.train_hourglass",
-                  hg + ["--save-root", os.path.join(work, "hg_fused"),
-                        "--fused-blocks", "true"], 2, expect_ok=False)
-    if not all("NotImplementedError" in e and "ROADMAP" in e for e in errs):
-        raise AssertionError("fused blocks under DP did not raise")
-    log("  train_hourglass --fused-blocks true over 2 ranks raised "
-        "NotImplementedError naming ROADMAP.md on both ranks")
+    # --fused-blocks true over the same ranks is phase 16's run.
     return out
 
 
@@ -5054,6 +5322,740 @@ def phase15_alone() -> int:
     return 0
 
 
+# ------------------------------------------------------------ phase 16
+
+P16_TRAIN_IMAGES = 8  # 7 train records: one step of 3 + 4 rows per epoch
+P16_PREEMPT_STACKS = 2  # the preemption legs' depth cut (width is full)
+
+
+def _stage_counts():
+    from bilinear_tpu_torch.ops import resmodule as rm
+
+    return {"resmodule_fwd_stages": rm.LAUNCHES_FWD_STAGES,
+            "resmodule_bwd_stages": rm.LAUNCHES_BWD_STAGES}
+
+
+def _zero_stage_counts():
+    from bilinear_tpu_torch.ops import resmodule as rm
+
+    rm.LAUNCHES_FWD_STAGES = rm.LAUNCHES_BWD_STAGES = 0
+
+
+class _StepTimer:
+    """Wraps ``HourglassTrainer.train_step`` while active: each step's ms
+    (synchronised before and after)."""
+
+    def __init__(self):
+        self.ms = []
+
+    def __enter__(self):
+        import torch
+        from bilinear_tpu_torch.train import hourglass as th
+
+        self._real = real = th.HourglassTrainer.train_step
+        ms = self.ms
+
+        def timed(trainer, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(trainer, *a, **k)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        th.HourglassTrainer.train_step = timed
+        return self
+
+    def __exit__(self, *exc):
+        from bilinear_tpu_torch.train import hourglass as th
+
+        th.HourglassTrainer.train_step = self._real
+        return False
+
+
+def rank_main() -> int:
+    """One rank (or the one process) of a phase-16 subprocess leg: ``python3
+    -c "import chip_smoke, sys; sys.exit(chip_smoke.rank_main())" CLI
+    ARGS...``, CLI a module of bilinear_tpu_torch.cli. Its environment
+    plants what a leg asks for: SMOKE_SKIP_EXCHANGE (the first exchange of
+    every staged K3 call returns this rank's row alone: rank-local
+    statistics for the block's first BN), SMOKE_SIGNAL_RANK (that rank
+    sends itself SIGTERM inside epoch 1). Prints one line ``SMOKE_COUNTS
+    {json}`` on stderr: the K3/K4 launches and stage entries, and each
+    step's ms."""
+    import importlib
+    import signal
+
+    import torch
+    from bilinear_tpu_torch.ops import resmodule as rk
+    from bilinear_tpu_torch.train import hourglass as th
+
+    cli, argv = sys.argv[1], sys.argv[2:]
+    rank = int(argv[argv.index("--process-id") + 1]) \
+        if "--process-id" in argv else 0
+    if os.environ.get("SMOKE_SKIP_EXCHANGE"):
+        make = rk.group_exchange
+
+        def faulty(group, rows):
+            ex, calls = make(group, rows), [0]
+
+            def gather(row):
+                calls[0] += 1
+                return row[None] if calls[0] == 1 else ex.gather(row)
+
+            return rk.RankExchange(gather, rows)
+
+        rk.group_exchange = faulty
+    if os.environ.get("SMOKE_SIGNAL_RANK", "") == str(rank):
+        fit = th.HourglassTrainer.fit_epoch
+
+        def fit_epoch(self, state, pipeline, epoch, *a, **k):
+            if epoch == 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return fit(self, state, pipeline, epoch, *a, **k)
+
+        th.HourglassTrainer.fit_epoch = fit_epoch
+    _zero_res_counts()
+    _zero_stage_counts()
+    with _StepTimer() as timer:
+        importlib.import_module(f"bilinear_tpu_torch.cli.{cli}").main(argv)
+    print("SMOKE_COUNTS " + json.dumps(dict(_res_counts(), **_stage_counts(),
+                                            step_ms=timer.ms)),
+          file=sys.stderr)
+    return 0
+
+
+class _Ranks:
+    """``cli``'s main as ``world`` ranks on this card through ``rank_main``,
+    started at once (with --coordinator when ``world`` > 0; 0 is one
+    process without it); their output goes to files, so legs can run side
+    by side. ``collect`` waits for every rank and returns each one's
+    (counts or None, stderr, return code)."""
+
+    def __init__(self, cli, argv, world, env=None):
+        self.cli = cli
+        port = _free_port()
+        extra = ["--coordinator", f"localhost:{port}", "--num-processes",
+                 str(world)] if world else []
+        self.logs, self.procs = [], []
+        for r in range(max(world, 1)):
+            log_file = tempfile.TemporaryFile(mode="w+")
+            self.logs.append(log_file)
+            self.procs.append(subprocess.Popen(
+                [sys.executable, "-c",
+                 "import chip_smoke, sys; sys.exit(chip_smoke.rank_main())",
+                 cli, *argv, *extra,
+                 *(["--process-id", str(r)] if world else [])],
+                cwd=ROOT, env=dict(os.environ, **(env or {})),
+                stdout=subprocess.DEVNULL, stderr=log_file, text=True))
+
+    def collect(self, expect_ok=True, timeout=600):
+        out = []
+        for p, log_file in zip(self.procs, self.logs):
+            try:
+                p.wait(timeout=timeout)
+            finally:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            log_file.seek(0)
+            err = log_file.read()
+            log_file.close()
+            if expect_ok and p.returncode != 0:
+                raise AssertionError(f"{self.cli} rank failed: "
+                                     f"{err[-3000:]}")
+            line = [ln for ln in err.splitlines()
+                    if ln.startswith("SMOKE_COUNTS ")]
+            out.append((json.loads(line[-1][13:]) if line else None, err,
+                        p.returncode))
+        return out
+
+
+def _rank_run(cli, argv, world, env=None, expect_ok=True, timeout=600):
+    """``_Ranks(...)`` waited for at once."""
+    return _Ranks(cli, argv, world, env).collect(expect_ok, timeout)
+
+
+def _mpii_tree(root, n_images):
+    """A learnable synthetic MPII tree and its train records' count (the
+    split drawn from SEED and persisted, as phase 6 does)."""
+    from bilinear_tpu_torch.data.h36m import Task
+    from bilinear_tpu_torch.data.mpii import MPIIAnnotations
+    from bilinear_tpu_torch.data.synthetic import write_mpii_dataset
+
+    write_mpii_dataset(root, n_train_images=n_images, n_test_images=1,
+                       learnable=True, seed=SEED)
+    return len(MPIIAnnotations(root, Task.Train, split_seed=SEED))
+
+
+def _check_rank_counts(name, counts, steps):
+    """Every rank: 107 K3-train and K4 launches per step, each a staged
+    call of four stage entries."""
+    want = {"resmodule_fwd_train": RES_PER_FORWARD * steps,
+            "resmodule_bwd": RES_PER_FORWARD * steps,
+            "resmodule_fwd_stages": 4 * RES_PER_FORWARD * steps,
+            "resmodule_bwd_stages": 4 * RES_PER_FORWARD * steps}
+    for r, c in enumerate(counts):
+        got = {k: c[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{name} rank {r}: launches {got}, "
+                                 f"expected {want}")
+    return want
+
+
+def _trees_equal(a, b):
+    import numpy as np
+
+    fa, fb = _flat(a), _flat(b)
+    return sorted(fa) == sorted(fb) and all(
+        np.array_equal(fa[k], fb[k]) for k in fa)
+
+
+def _held_to_yardstick(name, got, ref, yardstick, loss_ref, loss_gate,
+                       yardstick_ref=None):
+    """A multi-rank run held, as phase 7 holds bf16, to how far another
+    evaluation of the same step lands: ``got`` no farther from ``ref``
+    than PARITY_BF16_RATIO times ``yardstick`` is from ``yardstick_ref``
+    (default ``ref``), in the median and 90th percentile of the per-tensor
+    gradient gaps (``_square_avg_rels``) and in the worst BN-statistics
+    leaf; its loss within ``loss_gate`` of ``loss_ref``'s. For bf16
+    (``ref`` one f32 process, ``yardstick`` one bf16 process): a batch
+    split rounds every layer at other points, and bf16 gradients of a
+    random net sit far from f32 on any path. For End2End in f32 (``ref``
+    one fused process; ``yardstick`` the standard path over the same 2
+    ranks, against one standard process): its joint loss amplifies
+    rounding (ROADMAP.md Queue 3 item 2), so the fused split is held to
+    the spread that the same split gives on the standard path."""
+    yardstick_ref = yardstick_ref or ref
+    q_got = _quantiles(_square_avg_rels(got, ref)[0])
+    q_yard = _quantiles(_square_avg_rels(yardstick, yardstick_ref)[0])
+    stats = {k: _leaf_gap(run["payload"]["state"]["batch_stats"],
+                          base["payload"]["state"]["batch_stats"])[0]
+             for k, run, base in (("got", got, ref),
+                                  ("yardstick", yardstick, yardstick_ref))}
+    gaps = {"loss": _rel(got["loss"], loss_ref["loss"]),
+            "grad_rel_median": q_got[0.5], "grad_rel_p90": q_got[0.9],
+            "bn_stats_leaf": stats["got"]}
+    gates = {"loss": loss_gate,
+             "grad_rel_median": PARITY_BF16_RATIO * q_yard[0.5],
+             "grad_rel_p90": PARITY_BF16_RATIO * q_yard[0.9],
+             "bn_stats_leaf": PARITY_BF16_RATIO * stats["yardstick"]}
+    log(f"  {name}: loss {got['loss']:.6f} (against {loss_ref['loss']:.6f})"
+        "; " + ", ".join(f"{k} {v:.2e} (gate {gates[k]:.2e})"
+                         for k, v in gaps.items())
+        + f"; the yardstick: median {q_yard[0.5]:.2e}, p90 "
+          f"{q_yard[0.9]:.2e}, BN {stats['yardstick']:.2e}")
+    if got["files"] != yardstick["files"] or \
+            any(gaps[k] > gates[k] for k in gaps):
+        raise AssertionError(f"{name}: {gaps} (gates {gates})")
+    return dict(gaps, gates=gates)
+
+
+def _hg_args(mpii, dtype, root, epochs=2):
+    return ["--data-dir", mpii, "--batch-size", str(DETECTOR_BATCH),
+            "--epochs-per-run", str(epochs), "--steps-per-dispatch", "1",
+            "--comment", "hg", "--seed", str(SEED), "--dtype", dtype,
+            "--fused-blocks", "true", "--save-root", root]
+
+
+def _e2e_args(h36m, root, fused="true"):
+    return ["--data-dir", h36m, "--variant", "torch7", "--fused-blocks",
+            fused, "--batch-size", str(DETECTOR_BATCH), "--epochs-per-run",
+            "1", "--comment", "e2e", "--seed", str(SEED), "--learning-rate",
+            "2.5e-5", "--save-root", root]
+
+
+def drive_fused_dp(work, mpii, card):
+    """Phase 16b, each leg alone on the card (they are timed):
+    ``train_hourglass --fused-blocks true`` at full width over 2 ranks
+    sharing this card (gloo; the 7 train records of an 8-image tree: one
+    step of 3 + 4 rows per epoch, two epochs), f32 and bf16, each against
+    one process: f32 at phase 15's gates (``_held_to``) on 1.save, bf16
+    as phase 7 holds bf16 (``_held_to_yardstick``); every rank's K3/K4
+    launches and stage entries, and the ms of epoch 2's step. Returns
+    (record, the one-process runs, launches)."""
+    from bilinear_tpu_torch.cli import train_hourglass
+
+    steps = -(-_train_records(mpii) // DETECTOR_BATCH)
+    epochs = 2
+    files = [f"{e}.save" for e in range(1, epochs + 1)]
+    out, refs, launches = {"steps_per_epoch": steps}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        with _StepTimer() as timer:
+            run_cli(train_hourglass.main, _hg_args(
+                mpii, dtype, os.path.join(work, f"p16_one_{dtype}")))
+        ref = refs[dtype] = _save_digests(os.path.join(
+            work, f"p16_one_{dtype}", "hg"))
+        root = os.path.join(work, f"p16_dp_{dtype}")
+        counts = [c for c, _, _ in _rank_run(
+            "train_hourglass", _hg_args(mpii, dtype, root), 2)]
+        per_rank = _check_rank_counts(f"fused DP {dtype}", counts,
+                                      steps * epochs)
+        got = _save_digests(os.path.join(root, "hg"))
+        if "backend gloo" not in got["log"]:
+            raise AssertionError("the fused DP run is not on gloo")
+        name = f"fused DP 2 ranks, full width, {dtype}"
+        out[dtype] = {
+            "gaps": _held_to(name, got, ref, adam=False, files=files)
+            if dtype == "float32" else
+            _held_to_yardstick(name, got, refs["float32"], ref, ref,
+                               PARITY_BF16_LOSS),
+            "launches_per_rank": per_rank,
+            "one_process_step_ms": timer.ms,
+            "dp_2_ranks_step_ms": [c["step_ms"] for c in counts]}
+        log(f"  fused {dtype} step on {card}, epoch 2: one process "
+            f"{timer.ms[-1]:.2f} ms, 2 ranks sharing the card over gloo "
+            f"{counts[0]['step_ms'][-1]:.2f} / {counts[1]['step_ms'][-1]:.2f}"
+            f" ms; per rank {per_rank}")
+        for k, v in per_rank.items():
+            launches[k] = launches.get(k, 0) + 2 * v
+    return out, refs, launches
+
+
+def start_background_legs(work, mpii, h36m):
+    """Phase 16's untimed multi-process legs, started side by side: the
+    planted fault (2 ranks, every staged call's first exchange skipped)
+    through each gated fused DP leg (f32, bf16, End2End), one rank on NCCL
+    (bf16), End2End over 2 ranks fused and standard (f32), and the
+    preemption legs (one process and 2 ranks, depth cut to
+    P16_PREEMPT_STACKS stacks; the signalled rank sends itself SIGTERM
+    inside epoch 1 of 3)."""
+    small = ["--data-dir", mpii, "--batch-size", str(DETECTOR_BATCH),
+             "--comment", "hg", "--seed", str(SEED), "--dtype", "bfloat16",
+             "--fused-blocks", "true", "--n-stacks", str(P16_PREEMPT_STACKS),
+             "--epochs-per-run", "3"]
+    fault = {"SMOKE_SKIP_EXCHANGE": "1"}
+    return {
+        "fault": _Ranks("train_hourglass", _hg_args(
+            mpii, "float32", os.path.join(work, "p16_fault"), 1), 2,
+            env=fault),
+        "fault_bf16": _Ranks("train_hourglass", _hg_args(
+            mpii, "bfloat16", os.path.join(work, "p16_fault_bf16")), 2,
+            env=fault),
+        "nccl": _Ranks("train_hourglass", _hg_args(
+            mpii, "bfloat16", os.path.join(work, "p16_nccl"), 1), 1),
+        "e2e": _Ranks("train_end2end", _e2e_args(
+            h36m, os.path.join(work, "p16_e2e_dp")), 2),
+        "e2e_standard": _Ranks("train_end2end", _e2e_args(
+            h36m, os.path.join(work, "p16_e2e_dp_standard"), "false"), 2),
+        "e2e_fault": _Ranks("train_end2end", _e2e_args(
+            h36m, os.path.join(work, "p16_e2e_fault")), 2, env=fault),
+        "preempt_one": _Ranks("train_hourglass", small + [
+            "--save-root", os.path.join(work, "p16_preempt_one")], 0,
+            env={"SMOKE_SIGNAL_RANK": "0"}),
+        "preempt_dp": _Ranks("train_hourglass", small + [
+            "--save-root", os.path.join(work, "p16_preempt_dp")], 2,
+            env={"SMOKE_SIGNAL_RANK": "1"}),
+    }
+
+
+def _must_fail(name, gate, *args, **kw):
+    """A planted fault's run: ``gate(name, *args, **kw)`` must raise."""
+    try:
+        gate(name, *args, **kw)
+    except AssertionError:
+        log(f"  {name}: failed the gate, as it must")
+    else:
+        raise AssertionError(f"{name}: passed the gate")
+
+
+def check_background_legs(work, legs, refs, e2e_refs, mpii):
+    """Waits for ``start_background_legs``'s legs and gates them: each
+    planted fault must fail its leg's gate (f32: phase 15's against one
+    process; bf16 and End2End: ``_held_to_yardstick`` as below), its
+    checkpoint files those of the run it stands for; the NCCL rank (no
+    stage entry) within phase 15's gates and its 1.save the one process's
+    bit for bit; End2End fused over 2 ranks no farther from one fused
+    process than 1.5x the standard path over 2 ranks is from one standard
+    process (``_held_to_yardstick``: its joint loss amplifies rounding);
+    preemption: 1.save only and exit 0, a rerun (in this process) resumes
+    to 2.save, and with rank 1 alone signalled both ranks stop after epoch
+    1. Returns (record, launches)."""
+    from bilinear_tpu_torch.cli import train_hourglass
+
+    out, launches = {}, {}
+    skipped = "the first exchange of every staged K3 skipped"
+    legs["fault"].collect()
+    _must_fail(f"planted fault, f32 ({skipped})", _held_to,
+               _save_digests(os.path.join(work, "p16_fault", "hg")),
+               refs["float32"], adam=False)
+    legs["fault_bf16"].collect()
+    _must_fail(f"planted fault, bf16 ({skipped})", _held_to_yardstick,
+               _save_digests(os.path.join(work, "p16_fault_bf16", "hg")),
+               refs["float32"], refs["bfloat16"], refs["bfloat16"],
+               PARITY_BF16_LOSS)
+    c = legs["nccl"].collect()[0][0]
+    got = _save_digests(os.path.join(work, "p16_nccl", "hg"))
+    if "backend nccl" not in got["log"]:
+        raise AssertionError("the one-rank run did not take NCCL")
+    if any(c[k] for k in _stage_counts()):
+        raise AssertionError("one rank went through the staged entries")
+    same = all(_trees_equal(got["payload"][k], refs["bfloat16"]["payload"][k])
+               for k in ("state", "optimizer"))
+    out["nccl_1_rank_bf16"] = {
+        "gaps": _held_to("fused bf16, one rank on NCCL", got,
+                         refs["bfloat16"], adam=False),
+        "bit_equal_to_one_process": same,
+        "stage_entries": {k: c[k] for k in _stage_counts()}}
+    log(f"  one rank on NCCL: its 1.save is the one process's bit for bit: "
+        f"{same}")
+    if not same:
+        raise AssertionError("one rank on NCCL: its 1.save is not the one "
+                             "process's bit for bit")
+    counts = [c for c, _, _ in legs["e2e"].collect()]
+    per_rank = _check_rank_counts("fused End2End DP", counts, 1)
+    for k, v in per_rank.items():
+        launches[k] = launches.get(k, 0) + 2 * v
+    legs["e2e_standard"].collect()
+    standard = _save_digests(os.path.join(work, "p16_e2e_dp_standard",
+                                          "e2e"), end2end=True)
+    e2e_gate = dict(yardstick=standard, loss_ref=e2e_refs["true"],
+                    loss_gate=DIST_STEP_REL, yardstick_ref=e2e_refs["false"])
+    out["end2end_fused_dp_2"] = {
+        "gaps": _held_to_yardstick(
+            "End2End fused DP 2 ranks, f32 (yardstick: the standard path "
+            "over 2 ranks against one standard process)", _save_digests(
+                os.path.join(work, "p16_e2e_dp", "e2e"), end2end=True),
+            e2e_refs["true"], **e2e_gate),
+        "launches_per_rank": per_rank}
+    legs["e2e_fault"].collect()
+    _must_fail(f"planted fault, End2End ({skipped})", _held_to_yardstick,
+               _save_digests(os.path.join(work, "p16_e2e_fault", "e2e"),
+                             end2end=True), e2e_refs["true"], **e2e_gate)
+    legs["preempt_one"].collect()
+    legs["preempt_dp"].collect()
+    one = os.path.join(work, "p16_preempt_one")
+    files = sorted(os.listdir(os.path.join(one, "hg", "parameter")))
+    run_cli(train_hourglass.main, [
+        "--data-dir", mpii, "--batch-size", str(DETECTOR_BATCH), "--comment",
+        "hg", "--seed", str(SEED), "--dtype", "bfloat16", "--fused-blocks",
+        "true", "--n-stacks", str(P16_PREEMPT_STACKS), "--epochs-per-run",
+        "1", "--save-root", one])
+    resumed = sorted(os.listdir(os.path.join(one, "hg", "parameter")))
+    with open(os.path.join(one, "hg", "debug.log")) as f:
+        text = f.read()
+    dp_files = sorted(os.listdir(os.path.join(
+        work, "p16_preempt_dp", "hg", "parameter")))
+    out["preemption"] = {"one_process": files, "resumed": resumed,
+                         "dp_2_rank_1_signalled": dp_files}
+    log(f"  preemption: {out['preemption']}")
+    if files != ["1.save"] or resumed != ["1.save", "2.save"] or \
+            "Preempted after epoch 1" not in text or \
+            "Resumed from epoch 1" not in text or dp_files != ["1.save"]:
+        raise AssertionError(f"preemption: {out['preemption']}")
+    return out, launches
+
+
+def drive_remat(mpii):
+    """Phase 16c: ``HourglassTrainer(remat=True)`` at full width, batch 8
+    (the tree's 7 records and one zero pad), fused bf16 and standard f32
+    (cuDNN's deterministic algorithms): its loss, BN buffers and gradients
+    against a plain step's (bit for bit fused; standard within twice the
+    gap between two plain steps), peak memory with and without remat, and
+    the K3/K4 launches (the recomputation runs K3 again)."""
+    import torch
+    from bilinear_tpu_torch.data.h36m import Task
+    from bilinear_tpu_torch.data.mpii import MPIIAnnotations
+    from bilinear_tpu_torch.data.pipeline import MPIIHostPipeline
+    from bilinear_tpu_torch.train import hourglass as th
+
+    pipe = MPIIHostPipeline(MPIIAnnotations(mpii, Task.Train,
+                                            split_seed=SEED),
+                            DETECTOR_BATCH, transport="u8", pad=True)
+    host = next(iter(pipe.epoch(1, prefetch=0)))
+    draws = th.sample_augment(th.step_generator(SEED, 1, 1), DETECTOR_BATCH)
+    out = {}
+    for label, dtype, fused in (("fused_bf16", torch.bfloat16, True),
+                                ("standard_f32", torch.float32, False)):
+        runs = {}
+        # cuDNN's deterministic algorithms, so that two plain steps' spread
+        # measures this path's own run-to-run difference (zero, if none of
+        # its kernels adds in a run-dependent order)
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        for mode in ("plain", "plain_again", "remat"):
+            trainer = th.HourglassTrainer(dtype=dtype, fused_blocks=fused,
+                                          remat=mode == "remat")
+            state = trainer.init_state(SEED)
+            batch = trainer.batch_tensors(host)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_res_counts()
+            loss = float(trainer.train_step(state, batch, draws))
+            torch.cuda.synchronize()
+            runs[mode] = {
+                "loss": loss, "peak": torch.cuda.max_memory_allocated(),
+                "counts": _res_counts(),
+                "grads": {k: p.grad.float().clone() for k, p in
+                          state.model.named_parameters()
+                          if p.grad is not None},
+                "buffers": {k: b.clone() for k, b in
+                            state.model.named_buffers()}}
+            del trainer, state, batch
+            torch.cuda.empty_cache()
+        torch.backends.cudnn.deterministic = deterministic
+
+        def gap(a, b):
+            g = max(float((a["grads"][k] - b["grads"][k]).abs().max())
+                    for k in a["grads"])
+            s = max(float((a["buffers"][k].double() - b["buffers"][k]
+                           .double()).abs().max()) for k in a["buffers"])
+            return {"loss": abs(a["loss"] - b["loss"]), "grad_max": g,
+                    "buffer_max": s}
+
+        p, p2, r = runs["plain"], runs["plain_again"], runs["remat"]
+        spread, rg = gap(p2, p), gap(r, p)
+        ok = all(rg[k] <= 2 * spread[k] for k in rg)
+        want = {"resmodule_fwd_train": 2 * RES_PER_FORWARD if fused else 0,
+                "resmodule_bwd": RES_PER_FORWARD if fused else 0,
+                "resmodule_fwd_eval": 0}
+        leg = {"remat_vs_plain": rg, "plain_vs_plain": spread,
+               "peak_bytes_plain": p["peak"], "peak_bytes_remat": r["peak"],
+               "launches_plain": p["counts"], "launches_remat": r["counts"]}
+        log(f"  remat {label}: gap to a plain step {rg} (two plain steps "
+            f"{spread}); peak {p['peak'] / 2**30:.3f} GiB plain, "
+            f"{r['peak'] / 2**30:.3f} GiB remat; launches "
+            f"{p['counts']} plain, {r['counts']} remat")
+        if not ok or r["peak"] >= p["peak"] or r["counts"] != want:
+            raise AssertionError(f"remat {label}: {leg}")
+        out[label] = leg
+        del runs, p, p2, r
+        torch.cuda.empty_cache()
+    return out
+
+
+def drive_debug_nans(work, mpii):
+    """Phase 16d: ``--debug-nans`` on a clean full-width fused step
+    (passes) and with an infinity planted in a fused block's weight
+    (``FloatingPointError`` naming the block)."""
+    import numpy as np
+    from bilinear_tpu_torch.cli import train_hourglass
+    from bilinear_tpu_torch.io import checkpoint as pckpt
+    from bilinear_tpu_torch.utils import weights as wt
+
+    out = {}
+    root = os.path.join(work, "p16_nans")
+    argv = ["--data-dir", mpii, "--batch-size", str(DETECTOR_BATCH),
+            "--epochs-per-run", "1", "--comment", "hg", "--seed", str(SEED),
+            "--dtype", "bfloat16", "--fused-blocks", "true",
+            "--debug-nans", "true", "--save-root", root]
+    t0 = time.perf_counter()
+    run_cli(train_hourglass.main, argv)
+    out["clean_step_s"] = time.perf_counter() - t0
+    pdir = os.path.join(root, "hg", "parameter")
+    payload = pckpt.load_checkpoint(pdir, 1)
+    key = "hgArray.3.res2.0.resSeq.5.weight"  # a fused block's 3x3
+    path = {k: p for k, p, _ in wt.torch7_param_paths(wt.torch7_config_of_jax(
+        payload["state"]["params"]))}[key]
+    leaf = np.array(wt.get_leaf(payload["state"]["params"], path))
+    leaf.flat[0] = np.inf
+    wt.put_leaf(payload["state"]["params"], path, leaf)
+    pckpt.save_checkpoint(pdir, 1, payload["state"]["params"],
+                          payload["state"]["batch_stats"],
+                          payload["optimizer"], step=payload["step"])
+    try:
+        run_cli(train_hourglass.main, argv)
+    except FloatingPointError as e:
+        if "hgArray.3.res2.0" not in str(e):
+            raise AssertionError(f"the error names another module: {e}")
+        out["planted_inf_error"] = str(e)
+        log(f"  --debug-nans: the clean step passed "
+            f"({out['clean_step_s']:.1f} s); the planted inf stopped the "
+            f"run: FloatingPointError: {e}")
+    else:
+        raise AssertionError("--debug-nans let a planted inf through")
+
+    return out
+
+
+def drive_profile(work):
+    """Phase 16f: ``train_bilinear --profile true``: the trace file under
+    the run and the CUDA kernels in it."""
+    from bilinear_tpu_torch.cli import train_bilinear
+    from bilinear_tpu_torch.data.synthetic import write_h36m_dataset
+
+    data = os.path.join(work, "p16_prof_h36m")
+    write_h36m_dataset(data, n_train=256, n_valid=16, seed=SEED)
+    root = os.path.join(work, "p16_prof")
+    run_cli(train_bilinear.main, ["--data-dir", data, "--save-root", root,
+                                  "--comment", "bi", "--epochs-per-run",
+                                  "1", "--profile", "true"])
+    traces = [os.path.join(dp, f) for dp, _, fs in os.walk(
+        os.path.join(root, "bi", "plugins", "profile")) for f in fs
+        if f.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        raise AssertionError(f"--profile wrote {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    log(f"  --profile: {traces[0][len(root):]} holds {len(events)} events, "
+        f"{len(kernels)} of them CUDA kernels")
+    if not kernels:
+        raise AssertionError("the trace holds no CUDA kernel")
+    return {"events": len(events), "cuda_kernels": len(kernels)}
+
+
+def check_canvas_cache(data_dir, work):
+    """Phase 16g, on phase 6's tree: the canvas cache's batches equal the
+    uncached pipeline's bit for bit over two epochs, and the second cached
+    epoch decodes no JPEG; ``train_hourglass --cache-canvases true``
+    writes the cache (depth cut to one stack)."""
+    import numpy as np
+    from bilinear_tpu_torch.cli import train_hourglass
+    from bilinear_tpu_torch.data.h36m import Task
+    from bilinear_tpu_torch.data.mpii import MPIIAnnotations
+    from bilinear_tpu_torch.data.pipeline import MPIIHostPipeline
+
+    kw = dict(shuffle=True, seed=SEED, transport="u8")
+    ann = MPIIAnnotations(data_dir, Task.Train, split_seed=SEED)
+    plain = MPIIHostPipeline(ann, DETECTOR_BATCH, **kw)
+    cached = MPIIHostPipeline(ann, DETECTOR_BATCH, cache_dir=os.path.join(
+        work, "p16_canvas_cache"), **kw)
+    decoded = []
+    for epoch in (1, 2):
+        before = cached.decoded
+        for a, b in zip(plain.epoch(epoch), cached.epoch(epoch)):
+            for k in ("images", "centers", "scales", "keypoints", "valid",
+                      "heads", "index"):
+                if not np.array_equal(getattr(a, k), getattr(b, k)):
+                    raise AssertionError(f"cached epoch {epoch}: {k}")
+        decoded.append(cached.decoded - before)
+    root = os.path.join(work, "p16_cache_cli")
+    run_cli(train_hourglass.main, [
+        "--data-dir", data_dir, "--save-root", root, "--comment", "c",
+        "--epochs-per-run", "1", "--n-stacks", "1", "--fused-blocks",
+        "true", "--dtype", "bfloat16", "--cache-canvases", "true"])
+    files = sorted(os.listdir(os.path.join(data_dir, "canvas_cache",
+                                           "train")))
+    out = {"records": len(ann), "decoded_per_epoch": decoded,
+           "cli_cache_files": files}
+    log(f"  canvas cache: {out}")
+    if decoded != [len(ann), 0] or len(files) != 2:
+        raise AssertionError(f"canvas cache: {out}")
+    return out
+
+
+def drive_doctor():
+    """Phase 16h: ``python -m bilinear_tpu_torch.cli.doctor``: exit 0, every
+    probe present and none failed; its matmul and transfer figures."""
+    p = subprocess.run([sys.executable, "-m", "bilinear_tpu_torch.cli.doctor"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if p.returncode != 0:
+        raise AssertionError(f"doctor exited {p.returncode}: "
+                             f"{p.stdout[-2000:]} {p.stderr[-2000:]}")
+    report = json.loads(p.stdout)
+    probes = {"platform", "memory", "dispatch", "sync", "transfer", "matmul",
+              "kernels"}
+    if set(report) != probes or any("error" in v for v in report.values()):
+        raise AssertionError(f"doctor: {report}")
+    m, t = report["matmul"], report["transfer"]
+    log(f"  doctor: bf16 matmul {m['tflops']:.1f} TFLOP/s at n = {m['n']} "
+        f"({m['share_of_peak']:.3f} of 989); pinned H2D "
+        f"{t['h2d_mb_s']:.0f} MB/s, D2H {t['d2h_mb_s']:.0f} MB/s; dispatch "
+        f"round trip {report['dispatch']['round_trip_ms']:.4f} ms; "
+        f"{report['platform'].get('nvidia_smi')}")
+    return report
+
+
+def _train_records(mpii):
+    from bilinear_tpu_torch.data.h36m import Task
+    from bilinear_tpu_torch.data.mpii import MPIIAnnotations
+
+    return len(MPIIAnnotations(mpii, Task.Train, split_seed=SEED))
+
+
+def drive_phase16(card):
+    """Phase 16: the staged K3/K4, fused blocks under DP (timed legs
+    alone, then the untimed multi-process legs side by side while this
+    process runs End2End's one-process references, remat, --debug-nans
+    and --profile), doctor last, on an idle card. The canvas cache runs in
+    phase 14's tree, before it is removed. Returns (record, stage kernels'
+    max |d|, launches)."""
+    from bilinear_tpu_torch.cli import train_end2end
+    from bilinear_tpu_torch.data.synthetic import write_h36m_dataset
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_16_")
+    t0 = time.perf_counter()
+
+    def step(text):
+        log(f"{text} (phase 16 at {time.perf_counter() - t0:.1f} s)")
+
+    try:
+        step(f"phase 16a: staged K3/K4 against their plain versions on "
+             f"{card}")
+        errs = check_staged_resmodule()
+        mpii = os.path.join(work, "p16_mpii")
+        _mpii_tree(mpii, P16_TRAIN_IMAGES)
+        h36m = os.path.join(work, "p16_h36m")
+        write_h36m_dataset(h36m, n_train=DETECTOR_BATCH, n_valid=2,
+                           with_images=True, seed=SEED)
+        step("phase 16b: fused blocks over 2 ranks, timed")
+        dp, refs, launches = drive_fused_dp(work, mpii, card)
+        rec = {"fused_dp": dp}
+        step("phase 16c-e: the fault, NCCL, End2End and preemption legs "
+             "side by side; End2End references, remat, --debug-nans, "
+             "--profile here")
+        legs = start_background_legs(work, mpii, h36m)
+        try:
+            e2e_refs = {}
+            for fused in ("true", "false"):
+                root = os.path.join(work, f"p16_e2e_one_{fused}")
+                run_cli(train_end2end.main, _e2e_args(h36m, root, fused))
+                e2e_refs[fused] = _save_digests(os.path.join(root, "e2e"),
+                                                end2end=True)
+            rec["remat"] = drive_remat(mpii)
+            rec["debug_nans"] = drive_debug_nans(work, mpii)
+            rec["profile"] = drive_profile(work)
+            bg, bg_launches = check_background_legs(work, legs, refs,
+                                                    e2e_refs, mpii)
+        except BaseException:
+            for ranks in legs.values():
+                for p in ranks.procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            raise
+        rec.update(bg)
+        for k, v in bg_launches.items():
+            launches[k] = launches.get(k, 0) + v
+        step("phase 16f: doctor")
+        rec["doctor"] = drive_doctor()
+        step("phase 16: done")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return rec, errs, launches
+
+
+def phase16_alone() -> int:
+    """Phases 1, 2 and 16 only: a quick loop on phase 16 (``python3 -c
+    "import chip_smoke, sys; sys.exit(chip_smoke.phase16_alone())"``)."""
+    import torch
+    from bilinear_tpu_torch.ops import _build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    secs = _build.build_all(["lifting", "lifting_int8", "resmodule",
+                             "int8_conv"])
+    log(f"card: {card}; built in {secs:.1f} s")
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_16g_")
+    try:
+        _mpii_tree(os.path.join(work, "MPII"), N_TRAIN_IMAGES)
+        cache = check_canvas_cache(os.path.join(work, "MPII"), work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rec, errs, launches = drive_phase16(card)
+    rec["canvas_cache"] = cache
+    log(json.dumps({"phase16": rec, "errs": errs, "launches": launches},
+                   default=str))
+    log(f"phase 16 took {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 # ------------------------------------------------------------------ main
 
 # K6/K7 replace no Pallas kernel: the JAX functions they stand for are XLA.
@@ -5216,12 +6218,23 @@ def _run_after_phase5(card, keep, errs, launches, table, end_to_end):
         log("phase 14: AOT export through cli.export_aot, fresh-process "
             "loads, serve --aot")
         aot_result = drive_aot(work)
+        # phase 16g runs here, while phase 6's tree exists
+        log("phase 16g: the canvas cache on phase 6's tree")
+        cache_result = check_canvas_cache(data_dir, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # phase 15: camera and bins, DP/TP training, mesh serving, PP
     log("phase 15: camera and bin generation, DP/TP training, mesh-sharded "
         "serving, pipeline parallelism")
     p15, p15_launches = drive_phase15(card)
+    # phase 16: fused blocks under DP, remat, --debug-nans, preemption,
+    # --profile, doctor
+    log("phase 16: fused blocks over 2 ranks (staged K3/K4), remat, "
+        "--debug-nans, preemption, --profile, doctor")
+    p16, staged_errs, p16_launches = drive_phase16(card)
+    p16["canvas_cache"] = cache_result
+    for name, e in staged_errs.items():
+        errs[name] = max(errs[name], e)
 
     by_path = {name: {"phase4_serving": launches[name]}
                for name in SOURCES if not name.startswith("resmodule")}
@@ -5242,6 +6255,8 @@ def _run_after_phase5(card, keep, errs, launches, table, end_to_end):
     for name, paths in p15_launches.items():
         if name in by_path:
             by_path[name].update(paths)
+    for name in ("resmodule_fwd_train", "resmodule_bwd"):
+        by_path[name]["phase16_fused_dp_ranks"] = p16_launches[name]
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         if name.startswith("resmodule"):
@@ -5265,6 +6280,10 @@ def _run_after_phase5(card, keep, errs, launches, table, end_to_end):
                 "per_shape": [dict(row, shape_bhwio=list(shape))
                               for shape, row in at.items()],
             })
+            if name != "resmodule_fwd_eval":
+                kind = "fwd" if name == "resmodule_fwd_train" else "bwd"
+                kernels[-1]["staged_entries_phase16"] = p16_launches[
+                    f"resmodule_{kind}_stages"]
             continue
         at = table[name]
         main, big = at[TIME_NS[0]], at[TIME_NS[1]]
@@ -5326,6 +6345,7 @@ def _run_after_phase5(card, keep, errs, launches, table, end_to_end):
     log(json.dumps({"int8": int8_result}))
     log(json.dumps({"aot": aot_result}))
     log(json.dumps({"phase15": p15}))
+    log(json.dumps({"phase16": p16}, default=str))
     return {"kernels": kernels, "card": card}
 
 

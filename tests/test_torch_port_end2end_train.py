@@ -572,9 +572,10 @@ def test_sample_augment_streams():
     assert torch.equal(torch.rand(8, generator=a.dropout),
                        torch.rand(8, generator=b.dropout))
     assert a.dropout.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        te.End2EndTrainer(mesh=Mesh(data=2, model=1), device="cpu",
+    # Fused blocks train over a data mesh (the staged K3/K4).
+    t = te.End2EndTrainer(mesh=Mesh(data=2, model=1), device="cpu",
                           model_kw={"fused": True})
+    assert t.mesh is not None and t.shard is not None
 
 
 # ------------------------------------------------------------------ CLIs

@@ -82,7 +82,13 @@ def test_port_modules_are_listed():
                      "bilinear_tpu_torch.data.h36m_generate",
                      "bilinear_tpu_torch.parallel.mesh",
                      "bilinear_tpu_torch.parallel.tp",
-                     "bilinear_tpu_torch.parallel.pp"):
+                     "bilinear_tpu_torch.parallel.pp",
+                     "bilinear_tpu_torch.native",
+                     "bilinear_tpu_torch.core.remat",
+                     "bilinear_tpu_torch.utils.debug",
+                     "bilinear_tpu_torch.utils.preempt",
+                     "bilinear_tpu_torch.utils.profiling",
+                     "bilinear_tpu_torch.cli.doctor"):
         assert expected in names
 
 

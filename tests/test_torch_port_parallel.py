@@ -38,6 +38,12 @@ here while they run. Tolerances:
   0.5), the whole model in float64, against the port in one process:
   losses rel 1e-12, gradients within 1e-9 and BN statistics within 1e-10
   of each leaf's largest value;
+- the same hourglass and End2End steps with fused blocks (K3/K4's plain
+  versions, their BN reductions merged over the data group), the whole
+  model in float64, on the batch's first 3 rows (the detector, split
+  1 / 2) and 4 rows (End2End, split 2 / 2), at those gates, and the fused hourglass step on its first row alone (rank 0
+  holds none); the fused hourglass step's loss also rel 2e-4 of JAX's
+  single-device fused model on JAX's crops;
 - the sharded servers: every block's rows are the unsharded server's on
   that block bit for bit (the same kernels on the same rows), and within
   1e-5 relative of the whole batch's.
@@ -68,13 +74,12 @@ from bilinear_tpu_torch.parallel import mesh as pmesh
 from bilinear_tpu_torch.serving import End2EndServer, LiftingServer
 from bilinear_tpu_torch.train import hourglass as th
 from bilinear_tpu_torch.train.bilinear import BilinearTrainer
-from bilinear_tpu_torch.train.end2end import E2EAugment, End2EndTrainer
-from bilinear_tpu_torch.train.end2end import \
-    sample_augment as e2e_sample_augment
+from bilinear_tpu_torch.train.end2end import E2EAugment
 from bilinear_tpu_torch.utils import weights as wt
 from test_torch_port_ft_train import _FixedDraws, _jax_args
 from torch_port_fixtures import one_torch_thread  # noqa: F401
 from torch_port_fixtures import rows, scrambled_variables
+import torch_port_dist_worker as dw
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_port_dist_worker.py")
@@ -198,17 +203,19 @@ def runs(tmp_path_factory):
             jax.random.PRNGKey(2), *(jnp.asarray(hg[k]) for k in (
                 "images", "centers", "scales", "keypoints", "valid")),
             augment=True)
-    jmodel = JaxMainModel(**HG_SIZE)
+    def jax_loss(jmodel, n=8):
+        @jax.jit
+        def loss(crops, targets):
+            out, _ = jmodel.apply({"params": hg_params,
+                                   "batch_stats": hg_stats},
+                                  crops, train=True, mutable=["batch_stats"])
+            tgt = jnp.transpose(targets, (0, 2, 3, 1))
+            return jnp.sum(jnp.mean(jnp.square(out - tgt[None]),
+                                    axis=(1, 2, 3, 4)))
+        return float(loss(crops[:n], targets[:n]))
 
-    @jax.jit
-    def jax_loss(crops, targets):
-        out, _ = jmodel.apply({"params": hg_params, "batch_stats": hg_stats},
-                              crops, train=True, mutable=["batch_stats"])
-        tgt = jnp.transpose(targets, (0, 2, 3, 1))
-        return jnp.sum(jnp.mean(jnp.square(out - tgt[None]),
-                                axis=(1, 2, 3, 4)))
-
-    hloss = jax_loss(crops, targets)
+    hloss = jax_loss(JaxMainModel(**HG_SIZE))
+    hloss_fused = jax_loss(JaxMainModel(**HG_SIZE, fused=True), dw.FUSED_ROWS)
 
     # The port in one process, on the same inputs.
     one = {}
@@ -228,29 +235,15 @@ def runs(tmp_path_factory):
     losses = t.train_epoch(st, torch.from_numpy(inputs["ex"]),
                            torch.from_numpy(inputs["ey"]), epoch=1, seed=3)
     one["epoch"] = dict(losses=losses.numpy(), trees=st.trees())
-    for name, dtype in (("hourglass", torch.float32),
-                        ("hourglass64", torch.float64)):
-        ht = th.HourglassTrainer(device="cpu", dtype=dtype, **HG_SIZE)
-        hst = ht.init_state(0)
-        hst.restore(inputs["hourglass_payload"])
-        hl = ht.train_step(hst, {k: torch.from_numpy(v)
-                                 for k, v in _hg_data().items()}, draws)
-        one[name] = dict(loss=float(hl), trees=hst.trees(), grads={
-            k: p.grad.clone() for k, p in hst.model.named_parameters()
-            if p.grad is not None})
-
-    et = End2EndTrainer(device="cpu", dtype=torch.float64, model_kw=HG_SIZE)
-    est = et.init_state(0)
-    est.model.double()
-    el = et.train_step(est, {k: torch.from_numpy(v)
-                             for k, v in inputs["e2e_batch"].items()},
-                       tuple(torch.from_numpy(v)
-                             for v in inputs["e2e_stats"]),
-                       e2e_sample_augment(0, 1, 1, 8))
-    one["end2end"] = dict(losses=[float(v) for v in el], trees=est.trees(),
-                          grads={k: p.grad.clone() for k, p in
-                                 est.model.named_parameters()
-                                 if p.grad is not None})
+    for name, dtype, fused, n in (
+            ("hourglass", torch.float32, False, 8),
+            ("hourglass64", torch.float64, False, 8),
+            ("hourglass_fused", torch.float64, True, dw.FUSED_ROWS),
+            ("hourglass_fused_one_row", torch.float64, True, 1)):
+        one[name] = dw.hourglass_step(None, inputs, dtype, fused, n)
+    one["end2end"] = dw.end2end_step(None, inputs)
+    one["end2end_fused"] = dw.end2end_step(None, inputs, True,
+                                           dw.E2E_FUSED_ROWS)
 
     cli_one = os.path.join(work, "cli_one")
     train_bilinear.main(cli_args + ["--save-root", cli_one])
@@ -266,7 +259,7 @@ def runs(tmp_path_factory):
     return dict(out=out, one=one, jax=dict(
         step=(jax.device_get(sref), float(lref)),
         tp=(jax.device_get(stp), float(ltp)),
-        hourglass=float(hloss)),
+        hourglass=hloss, hourglass_fused=hloss_fused),
         dp_root=dp_root, cli_one=cli_one, cli_args=cli_args)
 
 
@@ -427,14 +420,68 @@ def test_cli_two_ranks_write_once_and_resume(runs):
     assert "Resumed from epoch 1" in log
 
 
-def test_fused_blocks_under_dp_raise():
-    mesh = pmesh.Mesh(data=2, model=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        th.HourglassTrainer(device="cpu", mesh=mesh, fused_blocks=True,
-                            **HG_SIZE)
-    # One rank keeps the fused path.
-    th.HourglassTrainer(device="cpu", mesh=pmesh.Mesh(data=1, model=1),
-                        fused_blocks=True, **HG_SIZE)
+def _grads_close(got, want, tol):
+    """Each gradient within ``tol`` of its leaf's largest value; a
+    gradient that is zero in exact arithmetic (a bias in front of a
+    train-mode BN, below 1e-10) is rounding noise and not compared."""
+    assert set(got) == set(want)
+    for k, g in got.items():
+        ref = want[k]
+        scale = float(ref.abs().max())
+        if scale >= 1e-10:
+            assert (g - ref).abs().max() <= tol * scale, k
+
+
+def test_dp_fused_hourglass_step_matches_one_process_and_jax(runs):
+    """``HourglassTrainer(fused_blocks=True)`` over 2 ranks, the whole
+    model in float64: each block's BN reductions merged over the data group
+    in rank order (K3/K4's plain versions), so the step is the one-process
+    step on the global batch (losses, gradients, the running statistics
+    updated once with the global count, dgamma and dbeta summed once)."""
+    want = runs["one"]["hourglass_fused"]
+    for r in runs["out"]["dp"]:
+        got = r["hourglass_fused"]
+        assert got["loss"] == pytest.approx(runs["jax"]["hourglass_fused"],
+                                            rel=2e-4)
+        assert got["loss"] == pytest.approx(want["loss"], rel=1e-12)
+        _leafwise(got["trees"][1], want["trees"][1], 1e-10, "statistics")
+        _grads_close(got["grads"], want["grads"], 1e-9)
+
+
+def test_dp_fused_step_with_an_empty_rank_matches_one_process(runs):
+    """The fused detector's step on one row over 2 ranks: rank 0 holds
+    none, sends rows of count 0 (the forward) and of zeros (the backward)
+    to every merge and still updates its running statistics; both ranks
+    hold the one-process step."""
+    want = runs["one"]["hourglass_fused_one_row"]
+    for r in runs["out"]["dp"]:
+        got = r["hourglass_fused_one_row"]
+        assert got["loss"] == pytest.approx(want["loss"], rel=1e-12)
+        _leafwise(got["trees"][1], want["trees"][1], 1e-10, "statistics")
+        _grads_close(got["grads"], want["grads"], 1e-9)
+
+
+def test_dp_fused_end2end_step_matches_one_process(runs):
+    """``End2EndTrainer`` with ``model_kw={"fused": True}`` over 2 ranks,
+    in float64, against one process on the global batch."""
+    want = runs["one"]["end2end_fused"]
+    for r in runs["out"]["dp"]:
+        got = r["end2end_fused"]
+        np.testing.assert_allclose(got["losses"], want["losses"],
+                                   rtol=1e-12)
+        _leafwise(got["trees"][1], want["trees"][1], 1e-10, "statistics")
+        _grads_close(got["grads"], want["grads"], 1e-9)
+
+
+def test_fused_blocks_take_any_data_mesh():
+    """The detector trainers take fused blocks at any data mesh (one rank
+    is no mesh: the unstaged kernels); a model axis is refused."""
+    for data in (1, 2):
+        th.HourglassTrainer(device="cpu", mesh=pmesh.Mesh(data=data, model=1),
+                            fused_blocks=True, **HG_SIZE)
+    with pytest.raises(ValueError, match="tensor parallelism"):
+        th.HourglassTrainer(device="cpu", mesh=pmesh.Mesh(data=1, model=2),
+                            fused_blocks=True, **HG_SIZE)
 
 
 def test_row_blocks_and_batch_like_leaves():

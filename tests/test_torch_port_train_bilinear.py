@@ -350,12 +350,10 @@ def test_config_mirrors_jax():
 
 
 @pytest.mark.parametrize("flag,error", [
-    (["--profile", "true"], NotImplementedError),
-    (["--debug-nans", "true"], NotImplementedError),
-    # --coordinator is ported; a tensor-parallel run without a process
-    # group is what the CLI refuses now.
+    # --coordinator, --profile and --debug-nans are ported; a
+    # tensor-parallel run without a process group is what the CLI refuses.
     (["--model-parallel", "2"], ValueError)],
-    ids=["profile", "debug-nans", "coordinator"])
+    ids=["coordinator"])
 def test_train_cli_refuses_what_is_not_ported(flag, error):
     with pytest.raises(error):
         train_bilinear.main(flag + ["--device", "cpu"])

@@ -12,7 +12,12 @@ localhost:PORT, runs SCENARIO and writes ``DIR/{SCENARIO}_{RANK}.pkl``:
   0.5, an epoch of 29 rows in batches of 16 (the tail, 13 rows, splits 7 /
   6), and a standard torch7 ``HourglassTrainer`` step (2 stacks, 16
   features, depth 2, batch 8) in f32 and in float64, and an
-  ``End2EndTrainer`` step of that detector and the lifter in float64.
+  ``End2EndTrainer`` step of that detector and the lifter in float64; the
+  same two steps with fused blocks (K3/K4's plain versions over the data
+  group), the whole model in float64, on the batch's first FUSED_ROWS rows
+  (the detector, split 1 / 2) and E2E_FUSED_ROWS rows (End2End, split
+  2 / 2), and the fused detector's step on its first row alone (rank 0
+  holds none).
 - ``tp``: data 2 x model 2. The same full-width bilinear step, tensor
   parallel (dropout 0 and 0.5).
 """
@@ -32,6 +37,16 @@ from bilinear_tpu_torch.train import hourglass as th  # noqa: E402
 from bilinear_tpu_torch.train.bilinear import BilinearTrainer  # noqa: E402
 
 HG_SIZE = dict(n_stacks=2, features=16, depth=2)
+FUSED_ROWS = 3
+E2E_FUSED_ROWS = 4
+
+
+def first_rows(tree, n):
+    """The first ``n`` rows of every tensor leaf of a (Named)tuple tree
+    (a per-batch int passes through)."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(first_rows(v, n) for v in tree))
+    return tree[:n] if isinstance(tree, torch.Tensor) else tree
 
 
 def grads_of(model):
@@ -70,25 +85,34 @@ def bilinear_epoch(mesh, inputs):
     return dict(losses=losses.numpy(), trees=st.trees())
 
 
-def hourglass_step(mesh, inputs, dtype=torch.float32):
-    t = th.HourglassTrainer(device="cpu", mesh=mesh, dtype=dtype, **HG_SIZE)
+def hourglass_step(mesh, inputs, dtype=torch.float32, fused=False, rows=8):
+    """The detector's step on the batch's first ``rows`` rows; fused, the
+    whole model in float64. ``mesh=None`` is one process."""
+    t = th.HourglassTrainer(device="cpu", mesh=mesh, dtype=dtype,
+                            fused_blocks=fused, **HG_SIZE)
     st = t.init_state(0)
+    if fused:
+        st.model.double()
     st.restore(inputs["hourglass_payload"])
-    batch = {k: torch.from_numpy(v) for k, v in inputs["hg_batch"].items()}
-    loss = t.train_step(st, batch, inputs["hg_draws"])
+    batch = {k: torch.from_numpy(v[:rows])
+             for k, v in inputs["hg_batch"].items()}
+    loss = t.train_step(st, batch, first_rows(inputs["hg_draws"], rows))
     return dict(loss=float(loss), trees=st.trees(), grads=grads_of(st.model))
 
 
-def end2end_step(mesh, inputs):
-    """End2End's step in float64 (the lifter's dropout masks drawn for the
-    global batch), from its seeded initialisation."""
+def end2end_step(mesh, inputs, fused=False, rows=8):
+    """End2End's step in float64 on the batch's first ``rows`` rows (the
+    lifter's dropout masks drawn for the global batch), from its seeded
+    initialisation. ``mesh=None`` is one process."""
     t = te.End2EndTrainer(device="cpu", mesh=mesh, dtype=torch.float64,
-                          model_kw=HG_SIZE)
+                          model_kw=dict(HG_SIZE, fused=fused))
     st = t.init_state(0)
     st.model.double()
-    batch = {k: torch.from_numpy(v) for k, v in inputs["e2e_batch"].items()}
+    batch = {k: torch.from_numpy(v[:rows])
+             for k, v in inputs["e2e_batch"].items()}
     stats = tuple(torch.from_numpy(v) for v in inputs["e2e_stats"])
-    losses = t.train_step(st, batch, stats, te.sample_augment(0, 1, 1, 8))
+    losses = t.train_step(st, batch, stats,
+                          te.sample_augment(0, 1, 1, rows))
     return dict(losses=[float(v) for v in losses], trees=st.trees(),
                 grads=grads_of(st.model))
 
@@ -107,7 +131,13 @@ def main():
                    epoch=bilinear_epoch(mesh, inputs),
                    hourglass=hourglass_step(mesh, inputs),
                    hourglass64=hourglass_step(mesh, inputs, torch.float64),
-                   end2end=end2end_step(mesh, inputs))
+                   end2end=end2end_step(mesh, inputs),
+                   hourglass_fused=hourglass_step(
+                       mesh, inputs, torch.float64, True, FUSED_ROWS),
+                   hourglass_fused_one_row=hourglass_step(
+                       mesh, inputs, torch.float64, True, 1),
+                   end2end_fused=end2end_step(mesh, inputs, True,
+                                              E2E_FUSED_ROWS))
     elif scenario == "tp":
         mesh = ml.make_mesh(model=2)
         out = dict(step0=bilinear_step(mesh, inputs, 0.0),
