@@ -31,6 +31,18 @@
 // (H100), more than a memset and a second launch would where a sample is a
 // few tiles; the cluster's barrier does not.
 //
+// K6 in two stage entries (int8_activation_amax, int8_quantize_scaled), for
+// a tensor cut into row slabs that must share one per-sample scale (the
+// detectors' spatially sharded forward, parallel/spatial.py): stage 1
+// writes each sample's max|x| over its slab into a (batch,) f32 buffer,
+// stage 2 quantises with a (batch,) f32 scale it is given. The caller takes
+// the maximum over the slabs (exact in any order) and forms the scale with
+// a true division in between, so the slabs put back together are the
+// one-launch K6's bits. Both stages are the bodies above: stage 1 the first
+// pass and the maxima's meeting (cluster or grid), stage 2 the second pass
+// alone, one block per tile with no barrier between blocks. Bound: bytes,
+// as the one launch; the second read of x is the price of the split.
+//
 // K7 (int8_conv_forward): an implicit-GEMM convolution, stride 1, padding
 // (k - 1) / 2, of NHWC int8 activations (B, H, W, Ci) with int8 weights
 // (Co, k, k, Ci): M = B * H * W output pixels by N = Co by K = k * k * Ci,
@@ -178,6 +190,10 @@ struct QuantArgs {
   long long batch;
   long long vps;     // 8-value vectors per sample
   long long tps;     // tiles per sample
+  // 0: the one launch (max|x|, scale, quantise); 1: write each sample's
+  // max|x| into `scale` and stop; 2: quantise with the scale read from
+  // `scale`.
+  int stage;
 };
 
 template <typename T>
@@ -208,10 +224,16 @@ quantize_kernel(const __grid_constant__ QuantArgs a) {
   cg::this_grid().sync();
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
     const long long b = t / a.tps, p = t - b * a.tps, v0 = p * Q_TILE;
+    if (a.stage == 1 && p != 0) continue;  // one block writes the sample's
     float m = 0.f;
     for (long long i = threadIdx.x; i < a.tps; i += Q_THREADS)
       m = fmaxf(m, __ldcg(a.slots + b * a.tps + i));
-    const float s = __fdiv_rn(fmaxf(block_max(m, red), 1e-12f), 127.0f);
+    m = block_max(m, red);
+    if (a.stage == 1) {
+      if (threadIdx.x == 0) a.scale[b] = m;
+      continue;
+    }
+    const float s = __fdiv_rn(fmaxf(m, 1e-12f), 127.0f);
     if (p == 0 && threadIdx.x == 0) a.scale[b] = s;
     const T* xs = x + b * a.vps * Q_VEC;
     int8_t* qs = a.q + b * a.vps * Q_VEC;
@@ -236,7 +258,8 @@ quantize_kernel(const __grid_constant__ QuantArgs a) {
 // per sample (a single block for a sample of one tile), block rank p taking
 // tile p, its values held in registers between the two passes; the tiles'
 // maxima meet in distributed shared memory, with no grid-wide barrier and
-// no slots.
+// no slots. Stage 2 launches it over samples of any size without a
+// cluster: each block quantises its tile with the given scale.
 template <typename T>
 __global__ void __launch_bounds__(Q_SAMPLE_THREADS)
 quantize_sample_kernel(const __grid_constant__ QuantArgs a) {
@@ -247,6 +270,8 @@ quantize_sample_kernel(const __grid_constant__ QuantArgs a) {
   const long long v0 = (blockIdx.x - b * a.tps) * Q_TILE;
   const T* xs = static_cast<const T*>(a.x) + b * a.vps * Q_VEC;
   int8_t* qs = a.q + b * a.vps * Q_VEC;
+  const bool given = a.stage == 2;
+  const bool meet = !given && a.tps > 1;
   Raw8<T> held[UNROLL];
   float m = 0.f;
 #pragma unroll
@@ -259,8 +284,8 @@ quantize_sample_kernel(const __grid_constant__ QuantArgs a) {
       for (int i = 0; i < Q_VEC; ++i) m = fmaxf(m, fabsf(val.v[i]));
     }
   }
-  m = block_max<Q_SAMPLE_THREADS>(m, red);
-  if (a.tps > 1) {
+  if (!given) m = block_max<Q_SAMPLE_THREADS>(m, red);
+  if (meet) {
     cg::cluster_group cluster = cg::this_cluster();
     if (threadIdx.x == 0) tile_max = m;
     cluster.sync();  // every tile's maximum is in its block
@@ -271,22 +296,26 @@ quantize_sample_kernel(const __grid_constant__ QuantArgs a) {
 #pragma unroll
     for (int i = 0; i < Q_CLUSTER_TILES; ++i) m = fmaxf(m, r[i]);
   }
-  const float s = __fdiv_rn(fmaxf(m, 1e-12f), 127.0f);
-  if (v0 == 0 && threadIdx.x == 0) a.scale[b] = s;
+  if (a.stage == 1) {
+    if (v0 == 0 && threadIdx.x == 0) a.scale[b] = m;
+  } else {
+    const float s = given ? a.scale[b] : __fdiv_rn(fmaxf(m, 1e-12f), 127.0f);
+    if (!given && v0 == 0 && threadIdx.x == 0) a.scale[b] = s;
 #pragma unroll
-  for (int u = 0; u < UNROLL; ++u) {
-    const long long v = v0 + u * Q_SAMPLE_THREADS + threadIdx.x;
-    if (v < a.vps) {
-      const Vec8 val = widen(held[u]);
-      uint32_t w[2] = {0u, 0u};
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long v = v0 + u * Q_SAMPLE_THREADS + threadIdx.x;
+      if (v < a.vps) {
+        const Vec8 val = widen(held[u]);
+        uint32_t w[2] = {0u, 0u};
 #pragma unroll
-      for (int i = 0; i < Q_VEC; ++i)
-        w[i >> 2] |= (uint32_t)(uint8_t)(int8_t)quantize1(val.v[i], s)
-                     << (8 * (i & 3));
-      *reinterpret_cast<uint2*>(qs + v * Q_VEC) = make_uint2(w[0], w[1]);
+        for (int i = 0; i < Q_VEC; ++i)
+          w[i >> 2] |= (uint32_t)(uint8_t)(int8_t)quantize1(val.v[i], s)
+                       << (8 * (i & 3));
+        *reinterpret_cast<uint2*>(qs + v * Q_VEC) = make_uint2(w[0], w[1]);
+      }
     }
   }
-  if (a.tps > 1) cg::this_cluster().sync();  // the others have read tile_max
+  if (meet) cg::this_cluster().sync();  // the others have read tile_max
 }
 
 // Blocks of the quantise kernel of type T that the current device holds at
@@ -309,9 +338,9 @@ cudaError_t quantize_resident(int* out) {
 
 template <typename T>
 cudaError_t launch_quantize(const QuantArgs& a, cudaStream_t stream) {
-  if (a.tps == 1) {
+  if (a.tps == 1 || a.stage == 2) {
     quantize_sample_kernel<T>
-        <<<(unsigned)a.batch, Q_SAMPLE_THREADS, 0, stream>>>(a);
+        <<<(unsigned)(a.batch * a.tps), Q_SAMPLE_THREADS, 0, stream>>>(a);
     return cudaGetLastError();
   }
   if (a.tps <= Q_CLUSTER_TILES) {
@@ -342,8 +371,9 @@ cudaError_t launch_quantize(const QuantArgs& a, cudaStream_t stream) {
 
 cudaError_t quantize(const void* x, int dtype, long long batch,
                      long long per_sample, void* q, void* scale, void* slots,
-                     cudaStream_t stream) {
+                     int stage, cudaStream_t stream) {
   QuantArgs a;
+  a.stage = stage;
   a.x = x;
   a.q = static_cast<int8_t*>(q);
   a.scale = static_cast<float*>(scale);
@@ -665,7 +695,28 @@ extern "C" int int8_quantize_activations(const void* x, int dtype,
                                          long long per_sample, void* q,
                                          void* scale, void* slots,
                                          void* stream) {
-  return (int)quantize(x, dtype, batch, per_sample, q, scale, slots,
+  return (int)quantize(x, dtype, batch, per_sample, q, scale, slots, 0,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// K6's first stage: amax (batch,) f32 gets each sample's max|x| over the
+// slab x (arguments as int8_quantize_activations; slots are used by a
+// sample of more than 8 tiles). Returns the launch's CUDA error.
+extern "C" int int8_activation_amax(const void* x, int dtype, long long batch,
+                                    long long per_sample, void* amax,
+                                    void* slots, void* stream) {
+  return (int)quantize(x, dtype, batch, per_sample, nullptr, amax, slots, 1,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// K6's second stage: q = clip(rint(x / scale[b]), -127, 127) with the
+// given (batch,) f32 scale, one block per 8,192-value tile. Returns the
+// launch's CUDA error.
+extern "C" int int8_quantize_scaled(const void* x, int dtype, long long batch,
+                                    long long per_sample, const void* scale,
+                                    void* q, void* stream) {
+  return (int)quantize(x, dtype, batch, per_sample, q,
+                       const_cast<void*>(scale), nullptr, 2,
                        static_cast<cudaStream_t>(stream));
 }
 
@@ -695,7 +746,7 @@ extern "C" int int8_conv_fused(const void* xf, int dtype, void* xq, void* sx,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = quantize(xf, dtype, B, (long long)H * W * Ci, xq, sx, slots,
-                           s);
+                           0, s);
   if (e != cudaSuccess) return (int)e;
   return (int)conv(xq, w, sx, ks, bias, out, B, H, W, Ci, Co, k, out_kind, bn,
                    depth, splits, per, s);

@@ -1512,11 +1512,22 @@ inline cudaError_t& setup_error() {
   return e;
 }
 
+// Raises a kernel's dynamic shared memory limit once per device (the
+// attribute is the current device's: a process that launches on two cards
+// sets it on each); `ready_on` is the kernel's own, by device.
 template <typename K>
-void allow_smem(K kernel, int bytes) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess && setup_error() == cudaSuccess) setup_error() = e;
+void allow_smem(K kernel, int bytes, bool (&ready_on)[64]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && ready_on[dev & 63]) return;
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) {
+    ready_on[dev & 63] = true;
+  } else if (setup_error() == cudaSuccess) {
+    setup_error() = e;
+  }
 }
 
 // The last launch error of this thread, or else a failed set-up.
@@ -1528,9 +1539,8 @@ inline int call_status() {
 template <int NT, int AMODE, int EMODE, bool SKIP>
 void launch_tc(const GemmArgs<bf16>& g, cudaStream_t s) {
   constexpr int smem = Tc<NT, SKIP>::smem();
-  static bool once = (allow_smem(gemm_tc_k<NT, AMODE, EMODE, SKIP>, smem),
-                      true);
-  (void)once;
+  static bool ready_on[64] = {};
+  allow_smem(gemm_tc_k<NT, AMODE, EMODE, SKIP>, smem, ready_on);
   gemm_tc_k<NT, AMODE, EMODE, SKIP>
       <<<dim3(tiles_of(g.M), g.N / NT), THREADS, smem, s>>>(g);
 }
@@ -1539,9 +1549,8 @@ constexpr int MAX_SMEM = 227 * 1024;  // dynamic shared memory of one block
 
 template <int NT, int AMODE, int EMODE>
 void launch_conv(const GemmArgs<bf16>& g, cudaStream_t s) {
-  static bool once = (allow_smem(conv_tc_k<NT, AMODE, EMODE>, MAX_SMEM),
-                      true);
-  (void)once;
+  static bool ready_on[64] = {};
+  allow_smem(conv_tc_k<NT, AMODE, EMODE>, MAX_SMEM, ready_on);
   conv_tc_k<NT, AMODE, EMODE><<<dim3(tiles_of(g.M), g.N / NT), THREADS,
                                 conv_smem<NT>(g.a.W, g.a.C), s>>>(g);
 }
@@ -1578,9 +1587,8 @@ void launch_gemm(const GemmArgs<bf16>& g, cudaStream_t s) {
 
 template <int AMODE, int EMODE, bool SKIP>
 void launch_gemm(const GemmArgs<float>& g, cudaStream_t s) {
-  static bool once = (allow_smem(gemm_simt_k<AMODE, EMODE, SKIP>,
-                                 simt_smem(SKIP)), true);
-  (void)once;
+  static bool ready_on[64] = {};
+  allow_smem(gemm_simt_k<AMODE, EMODE, SKIP>, simt_smem(SKIP), ready_on);
   gemm_simt_k<AMODE, EMODE, SKIP>
       <<<dim3(tiles_of(g.M), g.N / SN), THREADS, simt_smem(SKIP), s>>>(g);
 }
@@ -1635,8 +1643,8 @@ template <int NB, int AMODE>
 void launch_wgrad_tc(const ALoad<bf16>& a, const void* G, int M, int K, int N,
                      int splits, int rps, float* part, float* bpart,
                      cudaStream_t s) {
-  static bool once = (allow_smem(wgrad_tc_k<NB, AMODE>, Wg<NB>::smem()), true);
-  (void)once;
+  static bool ready_on[64] = {};
+  allow_smem(wgrad_tc_k<NB, AMODE>, Wg<NB>::smem(), ready_on);
   wgrad_tc_k<NB, AMODE>
       <<<dim3(K / 64, N / (64 * NB), splits), 128, Wg<NB>::smem(), s>>>(
           a, static_cast<const bf16*>(G), M, K, N, rps, part, bpart);

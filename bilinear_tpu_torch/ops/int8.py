@@ -29,6 +29,15 @@ returns int8 and wraps) nor in f32 (a torch7 3x3 has K = 1,152, and
 1,152 * 127^2 > 2^24, so f32 partial sums need not be exact): the int32
 accumulator is a float64 convolution of the int8 values, exact because
 |acc| <= 9 * 256 * 127^2 < 2^53.
+
+A tensor cut into row slabs (``parallel/spatial.py``) must quantise every
+slab with the whole sample's scale. K6 then runs as two stage entries:
+``activation_amax`` (each sample's max|x| over a slab), ``slab_scale`` (the
+maximum over the slabs, exact in any order, and the scale by JAX's formula
+with a true division), ``quantize_scaled`` (int8 with that scale); the
+slabs put back together are ``quantize_activations_ref``'s bits.
+``int8_conv(..., scale=)`` takes the scale and launches the second stage
+and K7. Unsharded paths keep the one launch.
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.overrides import handle_torch_function, has_torch_function_unary
 
 from bilinear_tpu_torch.ops import _build
 from bilinear_tpu_torch.ops.lifting import on_device
@@ -50,6 +60,9 @@ MODES = (None, "int8")
 # Launches of the kernels, whichever entry made them: K6, K7.
 LAUNCHES_QUANTIZE = 0
 LAUNCHES_CONV = 0
+# Launches of K6's two stage entries (amax, quantise with a given scale),
+# one each; not counted in LAUNCHES_QUANTIZE.
+LAUNCHES_QUANTIZE_STAGES = 0
 
 OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 
@@ -94,11 +107,33 @@ def prepare_kernel(kernel: torch.Tensor,
 
 def quantize_activations_ref(x: torch.Tensor
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K6: (xq int8 like ``x``, scale f32 (B, 1, 1, 1))."""
-    xf = x.float()
-    amax = xf.abs().amax(dim=(1, 2, 3), keepdim=True)
-    scale = _div127(torch.clamp_min(amax, 1e-12))
-    return _quantize(xf, scale), scale
+    """Plain version of K6: (xq int8 like ``x``, scale f32 (B, 1, 1, 1)),
+    the plain versions of its two stages on one slab."""
+    scale = slab_scale([activation_amax_ref(x)])
+    return quantize_scaled_ref(x, scale), scale.reshape(-1, 1, 1, 1)
+
+
+def activation_amax_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K6's first stage: each sample's max|x|, (B,) f32."""
+    return x.float().abs().amax(dim=(1, 2, 3))
+
+
+def slab_scale(amaxes) -> torch.Tensor:
+    """The per-sample scale of a tensor cut into slabs, from each slab's
+    ``activation_amax`` (on the first one's device): (B,) f32,
+    ``max(amax, 1e-12) / 127`` of the maximum over the slabs."""
+    dev = amaxes[0].device
+    amax = amaxes[0]
+    for a in amaxes[1:]:
+        amax = torch.maximum(amax, a.to(dev))
+    return _div127(torch.clamp_min(amax, 1e-12))
+
+
+def quantize_scaled_ref(x: torch.Tensor, scale: torch.Tensor
+                        ) -> torch.Tensor:
+    """Plain version of K6's second stage: int8 like ``x`` with the given
+    (B,) f32 scale."""
+    return _quantize(x.float(), scale.reshape(-1, 1, 1, 1))
 
 
 def int8_conv_acc_ref(xq: torch.Tensor, kq: torch.Tensor) -> torch.Tensor:
@@ -126,11 +161,15 @@ def dequantize_ref(acc: torch.Tensor, sx: torch.Tensor,
 def int8_conv_ref(x: torch.Tensor, kernel: Optional[torch.Tensor] = None,
                   bias: Optional[torch.Tensor] = None, *,
                   prepared: Optional[QuantizedKernel] = None,
-                  out_dtype=None) -> torch.Tensor:
-    """Plain version of ``int8_conv``."""
+                  out_dtype=None, scale: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Plain version of ``int8_conv`` (``scale`` as there)."""
     if prepared is None:
         prepared = prepare_kernel(kernel, bias)
-    xq, sx = quantize_activations_ref(x)
+    if scale is None:
+        xq, sx = quantize_activations_ref(x)
+    else:
+        xq, sx = quantize_scaled_ref(x, scale), scale
     return dequantize_ref(int8_conv_acc_ref(xq, prepared.kq), sx, prepared,
                           out_dtype or x.dtype)
 
@@ -269,7 +308,15 @@ def _lib():
         f.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7 \
             + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         f.restype = ctypes.c_int
-        _fns = (q, c, f)
+        a = lib.int8_activation_amax
+        a.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_longlong] + [ctypes.c_void_p] * 3
+        a.restype = ctypes.c_int
+        s = lib.int8_quantize_scaled
+        s.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_longlong] + [ctypes.c_void_p] * 3
+        s.restype = ctypes.c_int
+        _fns = (q, c, f, a, s)
     return _fns
 
 
@@ -351,6 +398,62 @@ def quantize_activations(x: torch.Tensor
     return xq, scale
 
 
+def _stage_input(x: torch.Tensor, what: str) -> Tuple[torch.Tensor, int]:
+    x = _nhwc_for_kernel(x, (torch.float32, torch.bfloat16), what)
+    per = x[0].numel() if x.shape[0] else 0
+    if per % 8:
+        raise ValueError(f"{what}: H * W * C must be a multiple of 8")
+    return x, per
+
+
+def activation_amax(x: torch.Tensor) -> torch.Tensor:
+    """K6's first stage: each sample's max|x| over the NHWC slab ``x``,
+    (B,) f32. The kernel on a CUDA tensor (f32 or bf16, H * W * C a
+    multiple of 8), the plain version on a CPU tensor."""
+    global LAUNCHES_QUANTIZE_STAGES
+    if x.device.type == "cpu":
+        return activation_amax_ref(x)
+    x, per = _stage_input(x, "activation_amax")
+    b = x.shape[0]
+    amax = torch.empty((b,), dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        return amax.zero_()
+    slots = torch.empty((b * -(-per // QUANT_TILE),), dtype=torch.float32,
+                        device=x.device)
+    with on_device(x.device):
+        rc = _lib()[3](x.data_ptr(), int(x.dtype == torch.bfloat16), b, per,
+                       amax.data_ptr(), slots.data_ptr(),
+                       torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "int8_activation_amax")
+    LAUNCHES_QUANTIZE_STAGES += 1
+    return amax
+
+
+def quantize_scaled(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """K6's second stage: int8 of the NHWC ``x`` with the given (B,) f32
+    ``scale`` (``slab_scale``). The kernel on a CUDA tensor, the plain
+    version on a CPU tensor."""
+    global LAUNCHES_QUANTIZE_STAGES
+    if x.device.type == "cpu":
+        return quantize_scaled_ref(x, scale)
+    x, per = _stage_input(x, "quantize_scaled")
+    b = x.shape[0]
+    if scale.dtype != torch.float32 or scale.numel() != b or \
+            scale.device != x.device or not scale.is_contiguous():
+        raise ValueError("quantize_scaled: one contiguous f32 scale per "
+                         "sample, on x's device")
+    xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    if xq.numel() == 0:
+        return xq
+    with on_device(x.device):
+        rc = _lib()[4](x.data_ptr(), int(x.dtype == torch.bfloat16), b, per,
+                       scale.data_ptr(), xq.data_ptr(),
+                       torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "int8_quantize_scaled")
+    LAUNCHES_QUANTIZE_STAGES += 1
+    return xq
+
+
 def int8_conv_cuda(xq: torch.Tensor, sx: Optional[torch.Tensor],
                    prepared: QuantizedKernel, out_dtype,
                    plan: Optional[ConvPlan] = None) -> torch.Tensor:
@@ -421,28 +524,33 @@ def int8_conv_fused_cuda(x: torch.Tensor, prepared: QuantizedKernel,
 def int8_conv(x: torch.Tensor, kernel: Optional[torch.Tensor] = None,
               bias: Optional[torch.Tensor] = None, *,
               prepared: Optional[QuantizedKernel] = None,
-              out_dtype=None) -> torch.Tensor:
+              out_dtype=None, scale: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
     """The quantized conv at eval time, NHWC x HWIO with padding (k - 1) //
     2 and stride 1: ``x`` and ``kernel`` are the ordinary float tensors
     (or ``prepared=prepare_kernel(kernel, bias)``, quantized once), the
     result is in ``out_dtype`` (default ``x.dtype``). K6 + K7 in one call
     (``int8_conv_fused_cuda``) on a CUDA tensor, the plain version on a CPU
-    tensor."""
+    tensor. With ``scale`` ((B,) f32, ``slab_scale``) ``x`` is quantised
+    with it: K6's second stage, then K7."""
     out_dtype = out_dtype or x.dtype
     if prepared is None:
         prepared = prepare_kernel(kernel, bias)
     if x.device.type == "cpu":
-        return int8_conv_ref(x, prepared=prepared, out_dtype=out_dtype)
+        return int8_conv_ref(x, prepared=prepared, out_dtype=out_dtype,
+                             scale=scale)
+    if scale is not None:
+        return int8_conv_cuda(quantize_scaled(x, scale), scale, prepared,
+                              out_dtype)
     return int8_conv_fused_cuda(x, prepared, out_dtype)
 
 
-def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
-    """``conv`` (stride 1, 'same' padding) applied to the channels_last NCHW
-    activation ``x`` as an int8 conv, the result in ``dtype`` and
-    channels_last. The module's weights are quantized once and kept on it
-    beside the version and address of each; a changed weight (a reload
-    copies into it in place, a move gives it a new address) is quantized
-    again. Not a parameter or buffer: the state_dict is unchanged."""
+def prepared_kernel(conv: nn.Conv2d) -> QuantizedKernel:
+    """``conv``'s weights in ``int8_conv``'s form, quantized once and kept
+    on the module beside the version and address of each; a changed weight
+    (a reload copies into it in place, a move gives it a new address) is
+    quantized again. Not a parameter or buffer: the state_dict is
+    unchanged."""
     w, b = conv.weight, conv.bias
     key = (w.data_ptr(), w._version,
            None if b is None else (b.data_ptr(), b._version))
@@ -453,5 +561,16 @@ def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
                                       None if b is None else b.detach())
         cached = (key, prepared)
         conv.__dict__["_int8_prepared"] = cached
-    y = int8_conv(x.permute(0, 2, 3, 1), prepared=cached[1], out_dtype=dtype)
+    return cached[1]
+
+
+def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
+    """``conv`` (stride 1, 'same' padding) applied to the channels_last NCHW
+    activation ``x`` as an int8 conv (weights from ``prepared_kernel``), the
+    result in ``dtype`` and channels_last. An ``x`` that overrides torch
+    functions (``parallel/spatial.py``'s slabs) takes the call."""
+    if has_torch_function_unary(x):
+        return handle_torch_function(conv2d, (x,), conv, x, dtype)
+    y = int8_conv(x.permute(0, 2, 3, 1), prepared=prepared_kernel(conv),
+                  out_dtype=dtype)
     return y.permute(0, 3, 1, 2)

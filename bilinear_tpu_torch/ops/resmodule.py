@@ -45,6 +45,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.overrides import handle_torch_function, has_torch_function_unary
 
 from bilinear_tpu_torch.ops import _build
 from bilinear_tpu_torch.utils import debug
@@ -812,7 +813,11 @@ def res_block_train(x4d: torch.Tensor, p: ResParams, *,
 def res_block_eval(x4d: torch.Tensor, p: ResParams, stats: BatchStats, *,
                    dtype=torch.bfloat16) -> torch.Tensor:
     """Fused eval-mode forward with running statistics. Not differentiable
-    (neither is the TPU kernel's eval call)."""
+    (neither is the TPU kernel's eval call). An ``x4d`` that overrides torch
+    functions (``parallel/spatial.py``'s slabs) takes the call."""
+    if has_torch_function_unary(x4d):
+        return handle_torch_function(res_block_eval, (x4d,), x4d, p, stats,
+                                     dtype=dtype)
     if x4d.device.type == "cpu":
         return res_block_ref(x4d, p, train=False, stats=stats, dtype=dtype)[0]
     if torch.is_grad_enabled() and (x4d.requires_grad or any(

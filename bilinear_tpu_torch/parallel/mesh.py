@@ -25,8 +25,14 @@ Every process of a data-parallel run holds the whole split, as JAX's
 losses and BN statistics are weighted by the global count, so a step is the
 one-process step.
 
-Not ported: JAX's spatial sharding (``spatial_sharding``, ``shard_spatial``:
-GSPMD's halo exchange of an image split over devices).
+Spatial sharding (``spatial_sharding``, ``shard_spatial``, JAX's names):
+the H axis of an NHWC image cut over a ``LocalMesh`` into contiguous
+blocks of whole units of the detector's downsampling factor (``2^(2 +
+depth)`` input rows, 64 at the published depth 4), blocks differing by at
+most one unit (``row_block`` over the units). Where GSPMD would pad, the
+port raises: an H that is no multiple of the factor, or fewer units than
+slabs (a slab with less than one row at the hourglass waist). The halo
+exchanges GSPMD inserts are ``parallel/spatial.py``'s.
 """
 from __future__ import annotations
 
@@ -303,3 +309,66 @@ def make_stage_mesh(devices: Optional[Sequence[DeviceLike]] = None,
         devices = devices[:stages]
     return LocalMesh(devices)
 
+
+@dataclass(frozen=True)
+class SpatialSharding:
+    """Axis ``axis`` of an ``ndim``-d tensor cut over ``devices``, in
+    order, into contiguous blocks of whole units of ``unit`` rows."""
+
+    devices: Tuple[torch.device, ...]
+    ndim: int
+    axis: int
+    unit: int
+
+    def blocks(self, n: int) -> List[Tuple[int, int]]:
+        """Each device's rows ``[lo, hi)`` of an axis of ``n`` rows:
+        ``row_block`` over whole units, so blocks differ by at most one
+        unit. Raises where GSPMD would pad."""
+        parts = len(self.devices)
+        if n % self.unit:
+            raise ValueError(
+                f"H = {n} is not a multiple of the model's downsampling "
+                f"factor {self.unit}: a slab boundary would fall inside a "
+                "pooling window")
+        units = n // self.unit
+        if units < parts:
+            raise ValueError(
+                f"H = {n} holds {units} unit(s) of the model's downsampling "
+                f"factor {self.unit}, fewer than the {parts} slabs: a slab "
+                "would have less than one row at the hourglass waist")
+        return [(lo * self.unit, hi * self.unit)
+                for lo, hi in (row_block(units, i, parts)
+                               for i in range(parts))]
+
+
+def spatial_sharding(mesh, ndim: int = 4, axis: int = 1, *,
+                     unit: int) -> SpatialSharding:
+    """The plan of a spatial split (JAX's ``spatial_sharding``): axis
+    ``axis`` (H of NHWC by default) of an ``ndim``-d tensor over the
+    devices of ``mesh`` (a ``LocalMesh`` or a list of devices), in blocks
+    of whole ``unit`` rows (a detector's downsampling factor,
+    ``spatial.downsampling_factor``)."""
+    if not -ndim <= axis < ndim:
+        raise ValueError(f"axis {axis} of a {ndim}-d tensor")
+    return SpatialSharding(tuple(as_local_mesh(mesh).devices), ndim,
+                           axis % ndim, unit)
+
+
+def shard_spatial(mesh, x, axis: int = 1, *,
+                  unit: int) -> List[torch.Tensor]:
+    """``x`` (a tensor or an array) cut along ``axis`` into the blocks of
+    ``spatial_sharding``, block i on device i (a view where it already
+    lies there). ``gather_spatial`` puts them back."""
+    x = torch.as_tensor(x)
+    plan = spatial_sharding(mesh, x.ndim, axis, unit=unit)
+    return [x.narrow(plan.axis, lo, hi - lo).to(dev)
+            for dev, (lo, hi) in zip(plan.devices,
+                                     plan.blocks(x.shape[plan.axis]))]
+
+
+def gather_spatial(slabs: Sequence[torch.Tensor],
+                   axis: int = 1) -> torch.Tensor:
+    """Slabs put back together along ``axis`` on the first slab's
+    device."""
+    dev = slabs[0].device
+    return torch.cat([t.to(dev) for t in slabs], dim=axis)

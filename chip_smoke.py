@@ -176,8 +176,26 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    uncached ones bit for bit, no JPEG decoded in epoch 2, the CLI's
    --cache-canvases); cli.doctor (exit 0, every probe, its matmul and
    transfer figures).
+17. Spatial sharding of the detectors' eval forward (parallel/spatial.py)
+   over ["cuda:0"] * S, S = 2 and 4: K3 eval on each haloed slab
+   (cropped) bit for bit against K3 on the whole tensor at the stem
+   block, a 64x64 block and the waist's one-row slabs, bf16 and f32; K6's
+   stage entries (each slab's amax, the maximum over slabs, quantisation
+   with that scale) against the one-launch K6 and their plain versions;
+   K7 on each haloed int8 slab against K6 + K7 on the whole tensor (a
+   planted fault, slabs quantised with their own amax, must break it);
+   then phase 6's torch7 2.save as standard f32, fused bf16 and int8 and a
+   seeded full-width preact detector, standard f32 and int8, on 256x256
+   frames at batch 1 and 8 against their unsharded forwards (f32 within
+   1e-5 of the largest heatmap; bf16 and int8 no farther from the
+   unsharded f32 model than 1.5x the unsharded bf16 / int8 model), with
+   107 S K3-eval and 321 S (345 S) K7 launches per forward, K6's stage
+   entries twice that, no one-launch K6, halo exchanges and bytes; a
+   skipped halo exchange must fail the f32 gate; ms per forward at S = 1,
+   2, 4 and one S = 2 fused forward by trace. The slabs share one card:
+   no scaling figure.
 
-Phases run in the order 1-5, 9, 6-8, 10-14, 16g, 15, 16. The line before the last is the kernels' JSON record; the last line is
+Phases run in the order 1-5, 9, 6-8, 10-14, 16g, 17, 15, 16. The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or bilinear_tpu.
 """
 import json
@@ -6056,6 +6074,503 @@ def phase16_alone() -> int:
     return 0
 
 
+# ------------------------------------------------------------ phase 17
+
+P17_SLABS = (2, 4)  # slabs of the image's H axis, all on this card
+P17_BATCHES = (1, 8)
+P17_RES = 256
+P17_F32_GATE = 1e-5  # f32 standard: of the heatmaps' largest value
+P17_YARDSTICK = 1.5  # phase 13's: x the unsharded model's distance to f32
+P17_TIME_ITERS = 3
+# K3 eval at the stem block, a 64x64 block and the hourglass waist, whose
+# slabs over 4 hold one row each (two or three with their halo).
+P17_K3_SHAPES = ((8, 128, 128, 64, 128), (8, 64, 64, 256, 256),
+                 (8, 4, 4, 256, 256))
+# K6's stage entries: samples of 32 tiles a slab (the cooperative route of
+# the first stage), of 2-4 tiles (a cluster) and of one.
+P17_K6_SHAPES = ((8, 64, 64, 128), (8, 16, 16, 256), (1, 4, 4, 256))
+# K7 on haloed slabs: (B, H, W, Ci, Co, k) of the int8 convs, the 3x3s from
+# the largest level to the waist and a 1x1.
+P17_K7_SHAPES = ((8, 64, 64, 128, 128, 3), (8, 16, 16, 128, 128, 3),
+                 (1, 4, 4, 128, 128, 3), (8, 8, 8, 256, 128, 1),
+                 (8, 128, 128, 64, 64, 3))
+
+
+def _spatial_counts():
+    from bilinear_tpu_torch.ops import int8
+    from bilinear_tpu_torch.ops import resmodule as rm
+    from bilinear_tpu_torch.parallel import spatial
+
+    return {"resmodule_fwd_eval": rm.LAUNCHES_FWD_EVAL,
+            "int8_quantize": int8.LAUNCHES_QUANTIZE,
+            "int8_quantize_stages": int8.LAUNCHES_QUANTIZE_STAGES,
+            "int8_conv": int8.LAUNCHES_CONV,
+            "halo_exchanges": spatial.EXCHANGES,
+            "halo_bytes": spatial.EXCHANGE_BYTES}
+
+
+def _zero_spatial_counts():
+    from bilinear_tpu_torch.ops import int8
+    from bilinear_tpu_torch.ops import resmodule as rm
+    from bilinear_tpu_torch.parallel import spatial
+
+    rm.LAUNCHES_FWD_EVAL = 0
+    int8.LAUNCHES_QUANTIZE = int8.LAUNCHES_QUANTIZE_STAGES = 0
+    int8.LAUNCHES_CONV = 0
+    spatial.EXCHANGES = spatial.EXCHANGE_BYTES = 0
+
+
+def _own_amax_scales(amaxes):
+    """Planted fault: every slab quantised with its own amax."""
+    from bilinear_tpu_torch.ops import int8
+
+    return [int8.slab_scale([a]) for a in amaxes]
+
+
+def check_spatial_kernels():
+    """Phase 17a: the kernels on slabs, through parallel/spatial.py's own
+    rules, bit for bit against the kernels on the whole tensor: K3 eval on
+    each haloed slab (cropped) at P17_K3_SHAPES in bf16 and f32, also held
+    to the plain version at phase 3b's gates; K6's stage entries (each
+    slab's amax, the maximum over the slabs, quantisation with that scale)
+    against the one-launch K6 and their plain versions, int8 values and
+    scales, bf16 and f32; K7 on each haloed int8 slab against the one-call
+    K6 + K7 and the plain version on the whole tensor, bf16, with the
+    routes plan_conv picks for the slabs. A planted fault (slabs quantised
+    with their own amax) must break K7's equality. Returns (record, max
+    |d| to the plain versions)."""
+    import torch
+    from bilinear_tpu_torch.ops import int8
+    from bilinear_tpu_torch.ops import resmodule as rm
+    from bilinear_tpu_torch.parallel import spatial
+    from bilinear_tpu_torch.parallel.mesh import gather_spatial, \
+        shard_spatial
+
+    dev = torch.device("cuda")
+    errs = {"resmodule_fwd_eval": 0.0, "int8_quantize_stages": 0.0,
+            "int8_conv": 0.0}
+    rec = {"k3": [], "k6": [], "k7": []}
+    for i, shape in enumerate(P17_K3_SHAPES):
+        x, _, p, stats = res_case(shape, SEED + 1700 + i, dev)
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            whole = rm.res_block_eval(x, p, stats, dtype=dtype)
+            plain = rm.res_block_ref(x, p, train=False, stats=stats,
+                                     dtype=dtype)[0]
+            for s in P17_SLABS:
+                parts = shard_spatial(_mesh(s), x, axis=1, unit=1)
+                got = gather_spatial(spatial._res_block_eval(
+                    spatial.Slabs(parts), p, stats, dtype=dtype).parts)
+                torch.cuda.synchronize()
+                mx, _ = gate_close(f"K3 eval over {s} haloed slabs {shape} "
+                                   f"{tag} vs plain", got, plain,
+                                   *RES_GATES[("K3", tag)])
+                errs["resmodule_fwd_eval"] = max(errs["resmodule_fwd_eval"],
+                                                 mx)
+                eq = bool(torch.equal(got, whole))
+                rec["k3"].append({"shape": shape, "dtype": tag, "slabs": s,
+                                  "bit_equal_to_whole": eq,
+                                  "slab_rows": [t.shape[1] for t in parts]})
+                if not eq:
+                    raise AssertionError(f"K3 on haloed slabs {shape} {tag} "
+                                         f"S={s} is not K3 on the whole")
+    log(f"  K3 eval on haloed slabs: {len(rec['k3'])} cases bit-equal to "
+        "K3 on the whole tensor")
+    gen = torch.Generator().manual_seed(SEED + 1710)
+    for shape in P17_K6_SHAPES:
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            b, h, w, c = shape
+            x = (torch.randn(shape, generator=gen) * (torch.rand(
+                b, 1, 1, 1, generator=gen) * 3 + 0.1)).to(dtype).cuda()
+            xq1, s1 = int8.quantize_activations(x)
+            for s in P17_SLABS:
+                parts = shard_spatial(_mesh(s), x, axis=1, unit=1)
+                amax = [int8.activation_amax(t) for t in parts]
+                scale = int8.slab_scale(amax)
+                xq = torch.cat([int8.quantize_scaled(t, scale)
+                                for t in parts], 1)
+                plain_ok = all(
+                    torch.equal(a, int8.activation_amax_ref(t))
+                    and torch.equal(int8.quantize_scaled(t, scale),
+                                    int8.quantize_scaled_ref(t, scale))
+                    for a, t in zip(amax, parts))
+                ok = torch.equal(xq, xq1) and torch.equal(
+                    scale, s1.reshape(-1)) and plain_ok
+                rec["k6"].append({"shape": shape, "dtype": tag, "slabs": s,
+                                  "equal": bool(ok)})
+                if not ok:
+                    raise AssertionError(f"K6 stages {shape} {tag} S={s}: "
+                                         "not the one-launch K6's bits")
+    log(f"  K6 stage entries: {len(rec['k6'])} cases equal to the one "
+        "launch and to their plain versions (int8 values, amax, scales)")
+    routes = set()
+    for j, (b, h, w, ci, co, k) in enumerate(P17_K7_SHAPES):
+        conv = torch.nn.Conv2d(ci, co, k, padding=(k - 1) // 2)
+        with torch.no_grad():
+            conv.weight.mul_(1 + torch.rand(co, 1, 1, 1, generator=gen))
+        conv = conv.cuda()
+        x = torch.relu(torch.randn(b, ci, h, w, generator=gen)).to(
+            torch.bfloat16).cuda().contiguous(
+                memory_format=torch.channels_last)
+        whole = int8.conv2d(conv, x, torch.bfloat16)
+        plain = int8.int8_conv_ref(
+            x.permute(0, 2, 3, 1), prepared=int8.prepared_kernel(conv),
+            out_dtype=torch.bfloat16).permute(0, 3, 1, 2)
+        if not torch.equal(whole, plain):
+            raise AssertionError(f"K6 + K7 {(b, h, w, ci, co, k)} is not "
+                                 "the plain version's")
+        for s in P17_SLABS:
+            parts = shard_spatial(_mesh(s), x, axis=2, unit=1)
+            for i, t in enumerate(parts):  # each haloed slab's plan
+                hh = t.shape[2] + (k - 1) // 2 * ((i > 0) + (i < s - 1))
+                routes.add(int8.plan_conv(b, hh, w, ci, co, k).route)
+            got = gather_spatial(spatial._int8_conv2d(
+                conv, spatial.Slabs(parts), torch.bfloat16).parts, axis=2)
+            eq = bool(torch.equal(got, whole))
+            rec["k7"].append({"shape": (b, h, w, ci, co, k), "slabs": s,
+                              "bit_equal": eq})
+            if not eq:
+                raise AssertionError(f"K7 on haloed slabs "
+                                     f"{(b, h, w, ci, co, k)} S={s} is not "
+                                     "K7 on the whole")
+            if j == 0 and s == 2:
+                real = spatial._slab_scales
+                spatial._slab_scales = _own_amax_scales
+                try:
+                    bad = gather_spatial(spatial._int8_conv2d(
+                        conv, spatial.Slabs(parts), torch.bfloat16).parts,
+                        axis=2)
+                finally:
+                    spatial._slab_scales = real
+                if torch.equal(bad, whole):
+                    raise AssertionError("the planted own-amax fault "
+                                         "passed K7's gate")
+                log("  planted fault, slabs quantised with their own amax: "
+                    "K7's equality fails, as it must")
+    rec["k7_routes"] = sorted(routes)
+    log(f"  K7 on haloed int8 slabs: {len(rec['k7'])} cases bit-equal to "
+        f"the whole tensor's (and its plain version); routes {sorted(routes)}")
+    torch.cuda.synchronize()
+    return rec, errs
+
+
+def _p17_ms(fn, iters: int = P17_TIME_ITERS) -> float:
+    """ms per call of ``fn`` by CUDA events after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def _p17_models(sd):
+    """The full-width torch7 MainModel from ``sd`` (phase 6's 2.save, or a
+    seeded one with scrambled BN statistics) as standard f32, fused bf16
+    and int8 bf16, and the full-width preact StackedHourglass (seeded, BN
+    statistics scrambled) as standard f32 and int8 bf16, on the card, in
+    eval mode."""
+    import torch
+    from bilinear_tpu_torch.models.hourglass import StackedHourglass
+    from bilinear_tpu_torch.models.hourglass_torch7 import MainModel
+
+    def scrambled(model, seed):
+        gen = torch.Generator().manual_seed(seed)
+        out = model.state_dict()
+        for k, v in out.items():
+            if k.endswith("running_mean"):
+                v.copy_(torch.randn(v.shape, generator=gen) * 0.1)
+            elif k.endswith("running_var"):
+                v.copy_(torch.rand(v.shape, generator=gen) + 0.5)
+        return out
+
+    if sd is None:
+        sd = scrambled(MainModel(generator=torch.Generator().manual_seed(
+            SEED + 1720)), SEED + 1721)
+    pre_sd = scrambled(StackedHourglass(generator=torch.Generator()
+                                        .manual_seed(SEED + 1722)),
+                       SEED + 1723)
+    models = {}
+    for label, cls, state, kw in (
+            ("torch7_f32", MainModel, sd, {}),
+            ("torch7_fused_bf16", MainModel, sd,
+             dict(fused=True, dtype=torch.bfloat16)),
+            ("torch7_int8", MainModel, sd,
+             dict(quantize="int8", dtype=torch.bfloat16)),
+            ("preact_f32", StackedHourglass, pre_sd, {}),
+            ("preact_int8", StackedHourglass, pre_sd,
+             dict(quantize="int8", dtype=torch.bfloat16))):
+        m = cls(**kw)
+        m.load_state_dict(state)
+        models[label] = m.cuda().eval()
+    return models
+
+
+def _skip_first_halo(spatial, along=None):
+    """Planted fault: the first halo exchange's rows (along dim ``along``,
+    any by default) replaced by zeros."""
+    import torch
+
+    real = spatial._edge_rows
+    calls = []
+
+    def skipped(t, r, dim, last, dev):
+        rows = real(t, r, dim, last, dev)
+        if along is not None and dim != along:
+            return rows
+        calls.append(1)
+        return torch.zeros_like(rows) if len(calls) == 1 else rows
+
+    return real, skipped
+
+
+def _p17_faults(models, refs, images):
+    """The planted faults, each through a whole sharded forward over 2
+    slabs that must fail its gate: the first halo exchange skipped (zero
+    rows instead) in the f32 standard forward (the stem's 7x7), in the
+    fused bf16 one (K3's first, rows along NHWC's H) and in the int8 one
+    (the first int8 3x3's); the int8 slabs quantised with their own amax.
+    Returns a record of each fault's distances."""
+    from bilinear_tpu_torch.parallel import spatial
+
+    plain = refs["torch7_f32"]
+    scale = float(plain.abs().max())
+    rec = {}
+    for name, label, attr, along in (
+            ("skipped_halo", "torch7_f32", "_edge_rows", None),
+            ("skipped_halo", "torch7_fused_bf16", "_edge_rows", 1),
+            ("skipped_halo", "torch7_int8", "_edge_rows", 1),
+            ("own_amax", "torch7_int8", "_slab_scales", None)):
+        if attr == "_edge_rows":
+            real, planted = _skip_first_halo(spatial, along)
+        else:
+            real, planted = spatial._slab_scales, _own_amax_scales
+        setattr(spatial, attr, planted)
+        try:
+            bad = spatial.make_spatial_fn(models[label], _mesh(2))(images)
+        finally:
+            setattr(spatial, attr, real)
+        d_own = float((bad - refs[label]).abs().max())
+        row = {"max_abs_to_unsharded": d_own}
+        if label.endswith("f32"):
+            passed = d_own <= P17_F32_GATE * scale
+            gate = f"<= {P17_F32_GATE} x {scale:.4e}"
+        else:
+            d = float((bad - plain).abs().max())
+            d_ref = float((refs[label] - plain).abs().max())
+            in_yardstick = d <= P17_YARDSTICK * d_ref
+            passed = in_yardstick and bool(bad.equal(refs[label]))
+            gate = f"bit-equal and <= {P17_YARDSTICK} x {d_ref:.4e}"
+            row.update(max_abs_to_plain_f32=d,
+                       within_yardstick_alone=in_yardstick)
+        log(f"  planted fault {name} in {label} over 2 slabs: max|d| to "
+            f"unsharded {d_own:.3e}" + (
+                f", to plain f32 {row['max_abs_to_plain_f32']:.4e}, "
+                f"within the yardstick alone {row['within_yardstick_alone']}"
+                if "max_abs_to_plain_f32" in row else "")
+            + f"; gate {gate}: fails, as it must" * (not passed))
+        if passed:
+            raise AssertionError(f"the planted fault {name} in {label} "
+                                 f"passed its gate {gate}: {row}")
+        rec[f"{name}_{label}"] = row
+    return rec
+
+
+def drive_spatial(sd=None):
+    """Phase 17b-d: the spatially sharded eval forward
+    (parallel/spatial.py) of both full-width detectors on 256x256 frames
+    at batch 1 and 8 over ["cuda:0"] * S, S in P17_SLABS, against the
+    unsharded model (S = 1): f32 standard within P17_F32_GATE of the
+    heatmaps' largest value; fused bf16 and int8 the unsharded forward's
+    bits, and no farther from the unsharded plain f32 model than
+    P17_YARDSTICK x the unsharded bf16 / int8 model is; launches per
+    forward (K3 eval 107 S, K7 321 S or 345 S, K6's stage entries 2 x that,
+    no one-launch K6, no K3 in int8), halo exchanges and bytes; the planted
+    faults (``_p17_faults``) must each fail; ms per forward at S = 1, 2, 4
+    (torch7, three modes) and the device time of one S = 2 fused forward by
+    trace. Returns (record, launches)."""
+    import torch
+    from bilinear_tpu_torch.parallel import spatial
+
+    models = _p17_models(sd)
+    rec = {"forwards": {}, "times_ms": {}}
+    launches = {"resmodule_fwd_eval": 0, "int8_quantize_stages": 0,
+                "int8_conv": 0}
+    per_k7 = {"torch7": INT8_PER_FORWARD["torch7"],
+              "preact": INT8_PER_FORWARD["preact"]}
+    for b in P17_BATCHES:
+        images = torch.rand((b, P17_RES, P17_RES, 3),
+                            generator=torch.Generator(device="cuda")
+                            .manual_seed(SEED + 1730 + b), device="cuda")
+        with torch.no_grad():
+            refs = {k: m(images) for k, m in models.items()}
+        for label, model in models.items():
+            variant = label.split("_")[0]
+            plain = refs[f"{variant}_f32"]
+            scale = float(plain.abs().max())
+            for s in P17_SLABS:
+                fn = spatial.make_spatial_fn(model, _mesh(s))
+                _zero_spatial_counts()
+                got = fn(images)
+                torch.cuda.synchronize()
+                counts = _spatial_counts()
+                if not torch.isfinite(got).all() or \
+                        got.shape != refs[label].shape:
+                    raise AssertionError(f"{label} S={s} b={b}: "
+                                         f"{tuple(got.shape)}, finite "
+                                         f"{bool(torch.isfinite(got).all())}")
+                equal = bool(torch.equal(got, refs[label]))
+                d_own = float((got - refs[label]).abs().max())
+                row = {"bit_equal": equal, "max_abs_to_unsharded": d_own,
+                       "launches": counts}
+                if label.endswith("f32"):
+                    ok = d_own <= P17_F32_GATE * scale
+                    row["gate"] = f"<= {P17_F32_GATE} x {scale:.4e}"
+                else:
+                    d = float((got - plain).abs().max())
+                    d_ref = float((refs[label] - plain).abs().max())
+                    ok = equal and d <= P17_YARDSTICK * d_ref
+                    row.update(max_abs_to_plain_f32=d,
+                               unsharded_max_abs_to_plain_f32=d_ref,
+                               gate=f"bit-equal and <= {P17_YARDSTICK} x "
+                                    f"{d_ref:.4e}")
+                want = {}
+                if "fused" in label:
+                    want = {"resmodule_fwd_eval": RES_PER_FORWARD * s,
+                            "int8_conv": 0, "int8_quantize_stages": 0}
+                elif "int8" in label:
+                    want = {"int8_conv": per_k7[variant] * s,
+                            "int8_quantize_stages": 2 * per_k7[variant] * s,
+                            "resmodule_fwd_eval": 0}
+                else:
+                    want = {"resmodule_fwd_eval": 0, "int8_conv": 0}
+                want["int8_quantize"] = 0
+                counted = all(counts[k] == n for k, n in want.items())
+                for k in launches:
+                    launches[k] += counts[k]
+                log(f"  {label} b={b} S={s}: max|d| to unsharded "
+                    f"{d_own:.3e}, bit-equal {equal}, gate {row['gate']}"
+                    + (f" (to plain f32 {row['max_abs_to_plain_f32']:.4e})"
+                       if "max_abs_to_plain_f32" in row else "")
+                    + f"; launches {counts}")
+                if not ok:
+                    raise AssertionError(f"{label} b={b} S={s} out of its "
+                                         f"gate: {row}")
+                if not counted:
+                    raise AssertionError(f"{label} b={b} S={s} launches "
+                                         f"{counts}, want {want}")
+                rec["forwards"][f"{label}_b{b}_S{s}"] = row
+        if b == P17_BATCHES[0]:
+            rec["faults"] = _p17_faults(models, refs, images)
+        for label in ("torch7_f32", "torch7_fused_bf16", "torch7_int8"):
+            model = models[label]
+            row = {}
+            with torch.no_grad():
+                row["S1"] = _p17_ms(lambda: model(images))
+            for s in P17_SLABS:
+                fn = spatial.make_spatial_fn(model, _mesh(s))
+                row[f"S{s}"] = _p17_ms(lambda: fn(images))
+            rec["times_ms"][f"{label}_b{b}"] = row
+            log(f"  {label} b={b}: ms per forward " + ", ".join(
+                f"{k} {v:.2f}" for k, v in row.items()))
+    fn = spatial.make_spatial_fn(models["torch7_fused_bf16"], _mesh(2))
+    per = _trace_whole(lambda: fn(images), 1)
+    dev_ms = sum(ms for ms, _ in per.values())
+    copy_ms = sum(ms for key, (ms, _) in per.items()
+                  if "Cat" in key or "copy" in key.lower())
+    rec["trace_fused_bf16_b8_S2"] = {
+        "device_ms": dev_ms, "kernels": sum(c for _, c in per.values()),
+        "cat_and_copy_ms": copy_ms, "top": sorted(
+            ((k[:60], ms) for k, (ms, _) in per.items()),
+            key=lambda kv: -kv[1])[:8]}
+    log(f"  one fused bf16 forward at b=8 over 2 slabs by trace: {dev_ms:.3f}"
+        f" ms of device time in {rec['trace_fused_bf16_b8_S2']['kernels']:.0f}"
+        f" kernels, {copy_ms:.3f} ms of it in cat and copy kernels"
+        f" (the halos' torch.cat and the crops)")
+    return rec, launches
+
+
+def stage_times():
+    """K6's two stage entries at INT8_MAIN_SHAPE's input (bf16) by CUDA
+    events, one slab (the whole tensor), beside their plain versions and
+    the one-launch K6; the bound is K6's (x read once, int8 written once:
+    the second read of the split is not in it)."""
+    import torch
+    from bilinear_tpu_torch.ops import int8
+
+    b, h, w, ci, co, k = INT8_MAIN_SHAPE
+    x = torch.randn((b, h, w, ci), generator=torch.Generator()
+                    .manual_seed(SEED + 1740)).to(torch.bfloat16).cuda()
+
+    def stages():
+        int8.quantize_scaled(x, int8.slab_scale([int8.activation_amax(x)]))
+
+    def plain():
+        int8.quantize_scaled_ref(x, int8.slab_scale(
+            [int8.activation_amax_ref(x)]))
+
+    ms, plain_ms = _p17_ms(stages, 20), _p17_ms(plain, 20)
+    one_ms = _p17_ms(lambda: int8.quantize_activations(x), 20)
+    bound_ms, by = int8_bound("int8_quantize", b, (h, w, ci, co, k))
+    per = _trace_whole(stages, 5)
+    k6 = {key: v for key, v in per.items() if "quantize" in key}
+    trace_ms = sum(v[0] for v in k6.values())
+    log(f"  K6 stage entries at {(b, h, w, ci)} bf16: {ms:.4f} ms by events "
+        f"(amax, scale, quantise: the wrappers' host time), "
+        f"{trace_ms:.4f} ms of device time in "
+        f"{sum(v[1] for v in k6.values()):.0f} kernels by trace "
+        f"({sum(v[0] for v in per.values()):.4f} with the scale's torch "
+        f"ops), plain {plain_ms:.4f}, one-launch K6 {one_ms:.4f}, bound "
+        f"{bound_ms:.4f} ({by})")
+    return {"ms": ms, "trace_ms": trace_ms, "plain_ms": plain_ms,
+            "one_launch_ms": one_ms, "bound_ms": bound_ms, "bound_by": by,
+            "shape_bhwc": [b, h, w, ci]}
+
+
+def drive_phase17(card, sd=None):
+    """Phase 17: spatial sharding. Returns (record, launches, max |d| of the
+    kernels to their plain versions)."""
+    t0 = time.perf_counter()
+    log(f"phase 17a: K3, K6's stage entries and K7 on haloed slabs on {card}")
+    rec = {}
+    rec["kernels"], errs = check_spatial_kernels()
+    log(f"phase 17b: the sharded forwards on {card} (phase 17 at "
+        f"{time.perf_counter() - t0:.1f} s); the slabs share one card: "
+        "these times are no scaling figure")
+    rec["spatial"], launches = drive_spatial(sd)
+    rec["k6_stage_times"] = stage_times()
+    rec["card"] = card
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"phase 17: done in {rec['seconds']:.1f} s")
+    return rec, launches, errs
+
+
+def phase17_alone() -> int:
+    """Phases 1, 2 and 17 only, on a seeded full-width torch7 model (no
+    2.save): ``python3 -c "import chip_smoke, sys;
+    sys.exit(chip_smoke.phase17_alone())"``."""
+    import torch
+    from bilinear_tpu_torch.ops import _build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    secs = _build.build_all(["resmodule", "int8_conv"])
+    log(f"card: {card}; built in {secs:.1f} s")
+    rec, launches, errs = drive_phase17(card)
+    log(json.dumps({"phase17": rec, "launches": launches, "errs": errs},
+                   default=str))
+    return 0
+
+
 # ------------------------------------------------------------------ main
 
 # K6/K7 replace no Pallas kernel: the JAX functions they stand for are XLA.
@@ -6221,6 +6736,15 @@ def _run_after_phase5(card, keep, errs, launches, table, end_to_end):
         # phase 16g runs here, while phase 6's tree exists
         log("phase 16g: the canvas cache on phase 6's tree")
         cache_result = check_canvas_cache(data_dir, work)
+        # phase 17: spatial sharding, on phase 6's 2.save
+        log("phase 17: spatial sharding of both detectors' eval forward "
+            "(halo exchanges, K3 on haloed slabs, K6's stage entries)")
+        import torch
+        p17, p17_launches, p17_errs = drive_phase17(card, _detector_model(
+            os.path.join(work, "save", "smoke"), torch.float32, False,
+            "cuda").state_dict())
+        for name, e in p17_errs.items():
+            errs[name] = max(errs.get(name, 0.0), e)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # phase 15: camera and bins, DP/TP training, mesh serving, PP
@@ -6257,6 +6781,8 @@ def _run_after_phase5(card, keep, errs, launches, table, end_to_end):
             by_path[name].update(paths)
     for name in ("resmodule_fwd_train", "resmodule_bwd"):
         by_path[name]["phase16_fused_dp_ranks"] = p16_launches[name]
+    by_path["resmodule_fwd_eval"]["phase17_spatial"] = p17_launches[
+        "resmodule_fwd_eval"]
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         if name.startswith("resmodule"):
@@ -6317,9 +6843,12 @@ def _run_after_phase5(card, keep, errs, launches, table, end_to_end):
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": int8_launches[name] + sum(
-                p15_launches.get(name, {}).values()),
+                p15_launches.get(name, {}).values())
+            + p17_launches.get(name, 0),
             "launches_by_path": dict({"phase13_int8_serving":
-                                      int8_launches[name]},
+                                      int8_launches[name],
+                                      "phase17_spatial":
+                                      p17_launches.get(name, 0)},
                                      **p15_launches.get(name, {})),
             "max_abs_err": errs[name], "shape_bhwcok": list(INT8_MAIN_SHAPE),
             "ms": main[f"{k}_ms"], "plain_ms": main[f"{k}_plain_ms"],
@@ -6341,11 +6870,26 @@ def _run_after_phase5(card, keep, errs, launches, table, end_to_end):
             entry["routes_checked"] = int8_result["routes_checked"]
             entry["per_shape"] = int8_times["per_shape"]
         kernels.append(entry)
+    st = p17["k6_stage_times"]
+    kernels.append({
+        "name": "int8_quantize_stages", "route": "cuda",
+        "source": INT8_SOURCES["int8_quantize"][0],
+        "replaces": INT8_SOURCES["int8_quantize"][1],
+        "launches": p17_launches["int8_quantize_stages"],
+        "launches_by_path": {"phase17_spatial":
+                             p17_launches["int8_quantize_stages"]},
+        "max_abs_err": errs["int8_quantize_stages"],
+        "shape_bhwc": st["shape_bhwc"], "ms": st["ms"],
+        "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+        "bound_by": st["bound_by"], "library_ms": None,
+        "trace_ms": st["trace_ms"], "one_launch_k6_ms": st["one_launch_ms"],
+        "entries": ["int8_activation_amax", "int8_quantize_scaled"]})
     log(json.dumps({"end2end": e2e_result}))
     log(json.dumps({"int8": int8_result}))
     log(json.dumps({"aot": aot_result}))
     log(json.dumps({"phase15": p15}))
     log(json.dumps({"phase16": p16}, default=str))
+    log(json.dumps({"phase17": p17}, default=str))
     return {"kernels": kernels, "card": card}
 
 
