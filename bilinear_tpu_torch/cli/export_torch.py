@@ -12,6 +12,10 @@ package (both write the JAX layout). The torch7 detector's identity
 ResModules carry a zero ``conv_skip`` with no optimizer state, as the
 reference registers it and never trains it.
 
+The detector's sizes are read from the checkpoint; ``--n-stacks``,
+``--features`` and ``--depth`` (the JAX CLI's flags) are checked against
+them, and a size that disagrees stops the export.
+
 Usage:
   python -m bilinear_tpu_torch.cli.export_torch --family bilinear \\
       --save-root save --out-dir /path/to/torch/parameter
@@ -43,6 +47,32 @@ def _param_group(optimizer_cls, lr: float) -> dict:
     return dict(optimizer_cls([dummy], lr=lr).state_dict()["param_groups"][0])
 
 
+SIZE_FLAGS = ("n_stacks", "features", "depth")
+
+
+def _variant(family: str) -> str:
+    return "torch7" if family == "hourglass" else "preact"
+
+
+def check_sizes(payload: dict, family: str, given: dict) -> None:
+    """Raise ``SystemExit`` when a size in ``given`` (``SIZE_FLAGS``; None
+    for a flag not given) differs from the one the checkpoint holds. The
+    lifting MLP has none of these sizes."""
+    given = {k: v for k, v in given.items() if v is not None}
+    if not given:
+        return
+    if family == "bilinear":
+        raise SystemExit("--n-stacks/--features/--depth size a detector; "
+                         "the bilinear family has none of them")
+    cfg = wt.HOURGLASS[_variant(family)].config_of_jax(
+        payload["state"]["params"])
+    for key, value in given.items():
+        if cfg[key] != value:
+            flag = "--" + key.replace("_", "-")
+            raise SystemExit(f"{flag} {value} disagrees with the "
+                             f"checkpoint's {key} {cfg[key]}")
+
+
 def reference_checkpoint(payload: dict, family: str, epoch: int,
                          learning_rate: float) -> dict:
     """A port/JAX ``.save`` payload of ``epoch`` -> the reference's torch
@@ -61,7 +91,7 @@ def reference_checkpoint(payload: dict, family: str, epoch: int,
     else:
         from bilinear_tpu_torch.train.hourglass import make_model
 
-        variant = "torch7" if family == "hourglass" else "preact"
+        variant = _variant(family)
         conv = wt.HOURGLASS[variant]
         cfg = conv.config_of_jax(params)
         model = make_model(variant, n_stacks=cfg["n_stacks"],
@@ -112,6 +142,9 @@ def main(argv=None) -> None:
     p.add_argument("--learning-rate", type=float, default=None,
                    help="lr recorded in the exported optimizer param_group "
                         "(default: the family's reference lr)")
+    for flag in SIZE_FLAGS:
+        p.add_argument("--" + flag.replace("_", "-"), type=int, default=None,
+                       help="checked against the checkpoint's detector")
     args = p.parse_args(argv)
 
     comment = args.comment or _DEFAULT_COMMENT[args.family]
@@ -121,8 +154,11 @@ def main(argv=None) -> None:
     epoch = latest_epoch(parameter_dir)
     if epoch <= 0:
         raise SystemExit(f"no checkpoint found under {parameter_dir}")
+    payload = load_checkpoint(parameter_dir, epoch)
+    check_sizes(payload, args.family,
+                {k: getattr(args, k) for k in SIZE_FLAGS})
     ckpt = reference_checkpoint(
-        load_checkpoint(parameter_dir, epoch), args.family, epoch,
+        payload, args.family, epoch,
         args.learning_rate or _DEFAULT_LR[args.family])
     os.makedirs(out_dir, exist_ok=True)
     out_path = os.path.join(out_dir, f"{epoch}.save")

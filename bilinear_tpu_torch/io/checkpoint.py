@@ -11,17 +11,25 @@ importing JAX; models convert through ``utils/weights.py``. Resume reads
 the newest epoch; ``-1`` is the "finalized" sentinel (``mark_finalized``:
 the detector's BN statistics after the one-time recalibration of
 ``eval_hourglass``), which never wins the scan and is loaded by its epoch.
-``{epoch}.orbax`` directories are recognised by the scan but not readable
-here, and the JAX package's asynchronous save is not ported either.
+``save_checkpoint(..., async_save=True)`` copies the trees to host memory
+and writes the file on a background thread (``wait_for_async_saves`` before
+exiting). ``{epoch}.orbax`` directories are recognised by the scan but not
+readable here: the port does not depend on the orbax package.
 
 The payload is a pickle: load only checkpoints this project wrote.
 """
 from __future__ import annotations
 
+import copy
 import os
 import pickle
 import shutil
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+import threading
+from typing import (Any, Dict, Iterator, List, Mapping, MutableMapping,
+                    Optional, Tuple)
+
+import numpy as np
+import torch
 
 FINALIZED_EPOCH = -1
 
@@ -57,8 +65,8 @@ def load_checkpoint(parameter_dir: str, epoch: int) -> Dict[str, Any]:
             return pickle.load(f)
     if os.path.isdir(os.path.join(parameter_dir, f"{epoch}.orbax")):
         raise NotImplementedError(
-            "Orbax checkpoints are not ported (nor is the asynchronous "
-            "save); see ROADMAP.md"
+            "Orbax checkpoints are not readable by the port, which does not "
+            "depend on the orbax package; see ROADMAP.md"
         )
     raise FileNotFoundError(
         f"no checkpoint for epoch {epoch} in {parameter_dir} "
@@ -66,14 +74,83 @@ def load_checkpoint(parameter_dir: str, epoch: int) -> Dict[str, Any]:
     )
 
 
+def _host_copy(tree, memo=None):
+    """``tree`` with every array and tensor copied: the trainers' numpy
+    trees share memory with tensors the optimizer updates in place
+    (``Tensor.numpy()``). Containers keep their types (an ``OrderedDict``
+    state_dict, a named tuple), an array its memory order, a tensor its
+    device, storage layout and storage sharing, and a leaf met twice is
+    copied once, so the copy pickles as the tree would: numpy trees to the
+    same bytes (a tensor's pickle also names its storage's address)."""
+    memo = {} if memo is None else memo
+    if id(tree) in memo:
+        return memo[id(tree)]
+    if isinstance(tree, MutableMapping):
+        out = copy.copy(tree)
+        for k, v in tree.items():
+            out[k] = _host_copy(v, memo)
+    elif isinstance(tree, Mapping):
+        out = type(tree)({k: _host_copy(v, memo) for k, v in tree.items()})
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        out = type(tree)(*(_host_copy(v, memo) for v in tree))
+    elif isinstance(tree, (list, tuple)):
+        out = type(tree)(_host_copy(v, memo) for v in tree)
+    elif isinstance(tree, np.ndarray):
+        out = tree.copy(order="A")
+    elif isinstance(tree, torch.Tensor):
+        out = _tensor_copy(tree, memo)
+    else:
+        return tree
+    memo[id(tree)] = out
+    return out
+
+
+def _tensor_copy(t: torch.Tensor, memo: Dict) -> torch.Tensor:
+    """``t`` on a copy of its storage (one copy per storage), same offset,
+    size, stride, device and requires_grad; a Parameter stays one."""
+    storage = t.untyped_storage()
+    key = ("storage", t.device, storage.data_ptr())
+    if key not in memo:
+        memo[key] = storage.clone()
+    with torch.no_grad():
+        out = torch.empty(0, dtype=t.dtype, device=t.device).set_(
+            memo[key], t.storage_offset(), t.size(), t.stride())
+    if isinstance(t, torch.nn.Parameter):
+        return torch.nn.Parameter(out, requires_grad=t.requires_grad)
+    return out.requires_grad_(t.requires_grad)
+
+
+_async_lock = threading.Lock()
+_async_threads: List[threading.Thread] = []
+_async_errors: List[BaseException] = []
+
+
+def _write(path: str, payload: Dict[str, Any]) -> None:
+    """Pickle ``payload`` to ``path`` atomically: a per-process tmp file
+    (two processes sharing a directory never write one file), then a
+    rename. Writes are serialised by one lock."""
+    with _async_lock:
+        tmp = f"{path}.tmp.{os.getpid()}"
+        try:
+            with open(tmp, "wb") as f:
+                pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+
+
 def save_checkpoint(parameter_dir: str, epoch: int,
                     params: Mapping[str, Any], batch_stats: Mapping[str, Any],
                     optimizer: Optional[Mapping[str, Any]] = None,
-                    step: int = 1) -> str:
+                    step: int = 1, async_save: bool = False) -> str:
     """Write ``{epoch}.save`` from JAX-layout numpy trees: ``params``,
     ``batch_stats`` and the optimizer state (``{}`` when there is none, as
     for a served model). The write is atomic (per-process tmp file +
-    rename)."""
+    rename). With ``async_save`` the trees are copied to host memory before
+    the call returns, so that training may update them at once, and a
+    background thread writes the file; ``wait_for_async_saves`` waits for
+    every such write."""
     os.makedirs(parameter_dir, exist_ok=True)
     payload = {
         "epoch": epoch,
@@ -82,15 +159,32 @@ def save_checkpoint(parameter_dir: str, epoch: int,
         "optimizer": {} if optimizer is None else optimizer,
     }
     path = os.path.join(parameter_dir, f"{epoch}.save")
-    tmp = f"{path}.tmp.{os.getpid()}"
-    try:
-        with open(tmp, "wb") as f:
-            pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    if not async_save:
+        _write(path, payload)
+        return path
+    payload = _host_copy(payload)
+
+    def write():
+        try:
+            _write(path, payload)
+        except BaseException as e:  # raised again by wait_for_async_saves
+            _async_errors.append(e)
+
+    t = threading.Thread(target=write, daemon=True)
+    t.start()
+    _async_threads.append(t)
     return path
+
+
+def wait_for_async_saves() -> None:
+    """Wait until every asynchronous save of this process is written; a
+    save that failed raises its error here."""
+    while _async_threads:
+        _async_threads.pop(0).join()
+    if _async_errors:
+        err = _async_errors[0]
+        _async_errors.clear()
+        raise err
 
 
 def mark_finalized(parameter_dir: str, params: Mapping[str, Any],

@@ -7,7 +7,8 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
 1. Card: name and power limit from nvidia-smi; TF32 switched off for
    matmuls and cuDNN, so the plain f32 versions run in full f32.
 2. Build: every CUDA source (csrc/lifting.cu, csrc/lifting_int8.cu,
-   csrc/resmodule.cu, csrc/int8_conv.cu), one nvcc each, in parallel.
+   csrc/resmodule.cu, csrc/int8_conv.cu, csrc/int8_scale_probe.cu), one
+   nvcc each, in parallel.
 3. Kernels vs their plain PyTorch versions, on the card, in the working
    type: K1 bf16 and f32, K2 dynamic and static, at every n of row_counts()
    (both sides of every boundary between kernel paths and tiles), full-width
@@ -25,6 +26,19 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    f32; and
    K3 eval and K3 train with running=None under no_grad at three batch-16
    shapes of the evaluation slice (the BN buffers bit-unchanged).
+   3c. K5, the int8 scale probe's chains (ops/int8_scale_probe.py), at n =
+   1, 255, 4096 and 65536: on dyadic inputs (every sum exact in f32) the
+   mxu chain equal to its plain version bit for bit (output and every
+   activation) and the fixed chain's int8 activations equal to its plain
+   version's, its output within K2 static's gates; on seeded random
+   inputs fixed within K2 static's gates, and mxu from its own first int8
+   activation on bit for bit (rows whose first activation differs from
+   the plain version's are counted, not gated: the encode sums in another
+   order). Then the probe's seven rows (scripts/torch_int8_scale_probe.py:
+   dynamic K2 at 256-, 512- and 1024-row groups, fixed, mxu-bound,
+   lifting_forward_int8 dynamic and static) at n = 256 and 65536 by CUDA
+   events beside the bound, the plain version and K2 static, with K5's
+   launches counted.
 4. The lifting slice: a synthetic H36M dataset and an epoch-1 checkpoint
    written by the port; for each serving mode the daemon of cli/serve.py
    answers /v1/lift requests (JSON and .npy, concurrent ones coalesced)
@@ -147,11 +161,12 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    DP (2 ranks), TP (1 x 2) and DP x TP (2 x 2) and a full-width standard
    train_hourglass DP step (2 x 4 rows), every rank a process started
    through the CLI's --coordinator flags on this card (gloo), each against
-   one process; a one-rank NCCL run (--fused-blocks true over 2 ranks is
+   one process, side by side; DP and TP step times, each alone; a one-rank
+   NCCL run (--fused-blocks true over 2 ranks is
    phase 16's run); LiftingServer(mesh=["cuda:0"] * 2) in bf16, int8 and int8-static
    and End2EndServer(mesh=...) fused bf16 and int8 against the unsharded
    servers (launches per call, bit-equality per shard); pipeline_forward
-   fused and int8 at (S, M) in {(2, 2), (2, 4), (4, 4), (8, 8)} with its
+   fused and int8 at (S, M) in {(2, 2), (4, 4), (8, 8)} with its
    launches, pipeline_end2end against End2End, one make_pp_train_step at
    (2, 2) against the accumulated one-process step; times of each.
 16. Fused blocks under data parallelism, remat, --debug-nans, preemption,
@@ -160,15 +175,18 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    against the unstaged call bit for bit with one rank and against the
    plain versions with two ranks as threads (a skipped exchange must fail
    that gate); cli.train_hourglass --fused-blocks true at full width over
-   2 ranks sharing the card (gloo), bf16 and f32, against one process at
-   phase 15's gates, 107 K3-train and K4 launches per step per rank, each
-   of four stage entries, step ms; a one-rank NCCL run; every staged call
+   2 ranks sharing the card (gloo), f32 (timed alone) and bf16 (side by
+   side with the untimed legs), against one process at phase 15's gates
+   (bf16 at phase 7's yardstick), 107 K3-train and K4 launches per step
+   per rank, each of four stage entries, step ms; a one-rank NCCL run;
+   every staged call
    with its first exchange skipped must fail the gate; a fused End2End
    step over 2 ranks against one process; HourglassTrainer(remat=True) at
    batch 8, fused bf16 (bit for bit) and standard f32 (within two plain
    steps' spread) against a plain step, peak memory lower, K3 launched
-   twice per block; --debug-nans: a clean step passes and an inf planted
-   in a fused block's weight stops the run naming the block; SIGTERM in
+   twice per block; --debug-nans (2 of 8 stacks): a clean step passes and
+   an inf planted in a fused block's weight stops the run naming the
+   block; SIGTERM in
    epoch 1 of a train_hourglass process (exit 0, 1.save, resumed to
    2.save) and to rank 1 of 2 (both stop after epoch 1); train_bilinear
    --profile true (a trace with CUDA kernels); the canvas cache on phase
@@ -195,7 +213,7 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    2, 4 and one S = 2 fused forward by trace. The slabs share one card:
    no scaling figure.
 
-Phases run in the order 1-5, 9, 6-8, 10-14, 16g, 17, 15, 16. The line before the last is the kernels' JSON record; the last line is
+Phases run in the order 1-3, 3b, 3c, 4, 5, 9, 6-8, 10-14, 16g, 17, 15, 16. The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or bilinear_tpu.
 """
 import json
@@ -522,6 +540,256 @@ def check_quantize():
     if bad:
         raise AssertionError("the kernel's quantisation is not the plain "
                              "version's")
+
+
+# ------------------------------------------------------------ phase 3c
+
+PROBE_ROWS = (1, 255, 4096, 65536)
+PROBE_BATCH = 65536  # the probe's BATCH
+PROBE_GROUPS = (256, 512, 1024)
+
+
+def dyadic_probe_inputs(wq, n, gen):
+    """K5's exact inputs: ``wq`` (prepared on the card) with its encode and
+    decode replaced by dyadic values (weights j/16, biases i/8, |i|, |j| <=
+    16) and its hidden weights by random int8, and n rows of k/4 (|k| <=
+    16). Every encode sum then has at most 14 significant bits and every
+    mxu decode sum at most 22: exact in f32 in any order. Rows 0 and 1
+    drive channels 0 and 1 to +-130, past int8's range. On ``gen``'s
+    device."""
+    import torch
+    from bilinear_tpu_torch.ops import lifting_int8 as pq
+
+    dev = gen.device
+
+    def ints(shape, hi=16):
+        return torch.randint(-hi, hi + 1, shape, generator=gen,
+                             device=dev).float()
+
+    enc_w, enc_b = ints((IN_F, H)) / 16, ints((H,)) / 8
+    dec_w, dec_b = ints((H, OUT_F)) / 16, ints((OUT_F,)) / 8
+    enc_w[:, 0], enc_w[:, 1], enc_b[0], enc_b[1] = 1.0, -1.0, 2.0, -2.0
+    x = ints((n, IN_F)) / 4
+    x[0], x[1] = 4.0, -4.0
+    prepared = pq.PreparedInt8({
+        "encode": (enc_w.to(torch.bfloat16), enc_b),
+        "hidden": [(ints((H, H), 127).to(torch.int8), ws, b)
+                   for _, ws, b in wq["hidden"]],
+        "decode": (dec_w.to(torch.bfloat16), dec_b)})
+    prepared["kmajor"] = [w.t().contiguous() for w in (
+        prepared["encode"][0], *(h[0] for h in prepared["hidden"]),
+        prepared["decode"][0])]
+    return prepared, x
+
+
+def _activations_equal(name, got, want):
+    """The kernel's activations (``probe_forward``'s) against the plain
+    version's list, bit for bit: each hidden layer's int8 input and, when
+    the list holds it, the decode's int8 input (bf16 in the kernel)."""
+    import torch
+
+    kernel = list(got["q"]) + [got["decode_input"]]
+    for i, w in enumerate(want):
+        if not torch.equal(kernel[i].float(), w.float()):
+            bad = int((kernel[i].float() != w.float()).sum())
+            raise AssertionError(f"{name}: activation {i} differs from the "
+                                 f"plain version's in {bad} values")
+
+
+def check_probe(params, stats):
+    """Phase 3c's checks of K5. Returns {kernel: max_abs_err}."""
+    import torch
+    from bilinear_tpu_torch.ops import int8_scale_probe as kp
+    from bilinear_tpu_torch.ops import lifting_int8 as pq
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    wq = pq.prepare_weights_int8(params, stats, device=dev)
+    errs = {"int8_scale_probe_fixed": 0.0, "int8_scale_probe_mxu": 0.0}
+
+    exact, x_all = dyadic_probe_inputs(wq, max(PROBE_ROWS), gen)
+    span = (0, 0)
+    for n in PROBE_ROWS:
+        x = x_all[:n]
+        out, acts = kp.probe_forward(exact, x, "mxu", activations=True)
+        torch.cuda.synchronize()
+        want = []
+        ref = kp.mxu_chain_ref(exact, x, want)
+        _activations_equal(f"K5 mxu dyadic n={n}", acts, want)
+        span = (int(acts["q"][0].min()), int(acts["q"][0].max()))
+        if not torch.equal(out, ref):
+            raise AssertionError(f"K5 mxu dyadic n={n}: output differs from "
+                                 f"the plain version's in "
+                                 f"{int((out != ref).sum())} values")
+        out, acts = kp.probe_forward(exact, x, "fixed", activations=True)
+        torch.cuda.synchronize()
+        want = []
+        ref = kp.fixed_chain_ref(exact, x, want)
+        _activations_equal(f"K5 fixed dyadic n={n}", acts, want)
+        mx, _ = gate_close(f"int8_scale_probe_fixed dyadic n={n}", out, ref,
+                           2e-3, p99_tol=2e-2)
+        errs["int8_scale_probe_fixed"] = max(errs["int8_scale_probe_fixed"],
+                                             mx)
+    log(f"  K5 on dyadic inputs at n = {PROBE_ROWS}: mxu bit-equal "
+        f"(output and all five int8 activations), fixed's four int8 "
+        f"activations bit-equal; first mxu activation spans {list(span)}")
+
+    x_all = torch.randn((max(PROBE_ROWS), IN_F), generator=gen, device=dev)
+    for n in PROBE_ROWS:
+        x = x_all[:n]
+        out, acts = kp.probe_forward(wq, x, "fixed", activations=True)
+        torch.cuda.synchronize()
+        want = []
+        ref = kp.fixed_chain_ref(wq, x, want)
+        moved = sum(int((a != w).sum()) for a, w in zip(acts["q"], want))
+        mx, _ = gate_close(f"int8_scale_probe_fixed n={n}", out, ref, 2e-3,
+                           p99_tol=2e-2)
+        log(f"    fixed n={n}: {moved} of {4 * n * H} int8 activations one "
+            f"step or more from the plain version's")
+        errs["int8_scale_probe_fixed"] = max(errs["int8_scale_probe_fixed"],
+                                             mx)
+        out, acts = kp.probe_forward(wq, x, "mxu", activations=True)
+        torch.cuda.synchronize()
+        plain = []
+        kp.mxu_chain_ref(wq, x, plain)
+        rows_apart = int((acts["q"][0] != plain[0]).any(dim=1).sum())
+        want = []
+        ref = kp.mxu_hidden_ref(wq, acts["q"][0], want)
+        _activations_equal(f"K5 mxu n={n}", acts, want)
+        # From the first activation on only the decode sums in another
+        # order: the f32 gate of K1.
+        mx, _ = gate_close(f"int8_scale_probe_mxu n={n} (from its first "
+                           f"activation)", out, ref, 1e-4, 1e-3)
+        log(f"    mxu n={n}: {rows_apart} of {n} rows' first int8 "
+            f"activation differ from the plain encode's (not gated)")
+        errs["int8_scale_probe_mxu"] = max(errs["int8_scale_probe_mxu"], mx)
+    errs["lifting_int8_dynamic"] = check_probe_dynamic(wq, gen)
+    return errs
+
+
+def check_probe_dynamic(wq, gen):
+    """The probe's dynamic rows: K2 at each of PROBE_GROUPS at the rows the
+    probe times (``time_probe``'s ns), output and per-group amax against
+    ``lifting_forward_int8_ref(tile=g)`` and its groups' amax (zero rows
+    pad the last group), at phase 3's K2 dynamic gates. Returns the
+    largest output difference."""
+    import torch
+    from bilinear_tpu_torch.ops import int8_scale_probe as kp
+    from bilinear_tpu_torch.ops import lifting_int8 as pq
+
+    x_all = torch.randn((max(TIME_NS), IN_F), generator=gen,
+                        device=gen.device)
+    err = 0.0
+    for n in TIME_NS:
+        x = x_all[:n]
+        xb = x.to(torch.bfloat16)
+        for g in PROBE_GROUPS:
+            out, acts = kp.probe_forward(wq, x, "dynamic", g, activations=True)
+            torch.cuda.synchronize()
+            ref = pq.lifting_forward_int8_ref(wq, x, tile=g)
+            mx, _ = gate_close(f"lifting_int8_dynamic probe n={n} group={g}",
+                               out, ref, 2e-3, p99_tol=2e-2)
+            err = max(err, mx)
+            groups = -(-n // g)
+            plain = []
+            pq.forward_chain(wq, (None,) * 4,
+                             pq._pad_rows(xb, groups * g).reshape(groups, g,
+                                                                  IN_F),
+                             plain)
+            plain = torch.stack(plain)
+            rel = float(((acts["amax"] - plain).abs() / plain).max())
+            log(f"    dynamic n={n} group={g}: {groups} groups, amax max "
+                f"rel diff {rel:.2e}")
+            if rel > 1e-2:
+                raise AssertionError(f"K2 dynamic n={n} group={g}: per-group "
+                                     f"amax disagrees")
+    return err
+
+
+def probe_calls(wq, scales, x):
+    """The probe's seven rows on rows ``x``, in its order: (variant, group
+    rows, kernel call, plain call)."""
+    from bilinear_tpu_torch.ops import int8_scale_probe as kp
+    from bilinear_tpu_torch.ops import lifting_int8 as pq
+
+    rows = [("dynamic", g,
+             lambda g=g: kp.probe_forward(wq, x, "dynamic", g),
+             lambda g=g: pq.lifting_forward_int8_ref(wq, x, tile=g))
+            for g in PROBE_GROUPS]
+    rows += [("fixed", None, lambda: kp.probe_forward(wq, x, "fixed"),
+              lambda: kp.fixed_chain_ref(wq, x)),
+             ("mxu-bound", None, lambda: kp.probe_forward(wq, x, "mxu"),
+              lambda: kp.mxu_chain_ref(wq, x)),
+             ("production-entry", pq.GROUP,
+              lambda: pq.lifting_forward_int8(x=x, prepared=wq),
+              lambda: pq.lifting_forward_int8_ref(wq, x)),
+             ("production-static", None,
+              lambda: pq.lifting_forward_int8(x=x, prepared=wq,
+                                              static_scales=scales),
+              lambda: pq.lifting_forward_int8_ref(wq, x, scales))]
+    return rows
+
+
+def time_probe(params, stats, card, ns=TIME_NS):
+    """The probe's seven rows (``probe_calls``) at each n of ``ns`` by CUDA
+    events, plain version, kernel, kernel, plain version, beside K2's bound
+    (the same products) and K2 static (the production-static row), on
+    full-width seeded weights, the static scales calibrated on the probe's
+    batch as the probe does. Returns the rows, each with the card."""
+    import torch
+    from bilinear_tpu_torch.ops import lifting_int8 as pq
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    wq = pq.prepare_weights_int8(params, stats, device=dev)
+    x_all = torch.randn((max(max(ns), PROBE_BATCH), IN_F), generator=gen,
+                        device=dev)
+    scales = pq.calibrate_scales(wq, x_all[:PROBE_BATCH])
+    rows = []
+    for n in ns:
+        x = x_all[:n]
+        iters = 200 if n <= 4096 else 20
+        b_ms, b_by = bound("int8", n)
+        at_n = []
+        for variant, group, kern, ref in probe_calls(wq, scales, x):
+            p1 = cuda_ms(ref, iters)
+            k1 = cuda_ms(kern, iters)
+            k2 = cuda_ms(kern, iters)
+            p2 = cuda_ms(ref, iters)
+            ms = (k1 + k2) / 2
+            at_n.append({
+                "variant": variant, "group_rows": group, "n": n,
+                "poses_per_sec": n / ms * 1e3, "ms": ms, "turns_ms": [k1, k2],
+                "plain_ms": (p1 + p2) / 2,
+                "bound_ms": b_ms, "bound_by": b_by, "card": card})
+        static = at_n[-1]["ms"]
+        for row in at_n:
+            row["k2_static_ms"] = static
+            log(f"  probe {row['variant']}"
+                f"{'' if row['group_rows'] is None else ' ' + str(row['group_rows'])}"
+                f" n={n}: {row['ms']:.4f} ms (turns {row['turns_ms'][0]:.4f},"
+                f" {row['turns_ms'][1]:.4f}), {row['poses_per_sec']:.4g} "
+                f"poses/s, plain {row['plain_ms']:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by}), K2 static {static:.4f} ms")
+        rows += at_n
+    return rows
+
+
+def drive_probe(params, stats, card):
+    """Phase 3c: K5's checks, then the probe's rows (its main path) with
+    K5's launches counted. Returns (errs, rows, launches by kernel)."""
+    from bilinear_tpu_torch.ops import int8_scale_probe as kp
+
+    errs = check_probe(params, stats)
+    for k in kp.LAUNCHES:
+        kp.LAUNCHES[k] = 0
+    rows = time_probe(params, stats, card)
+    launches = {f"int8_scale_probe_{k}": n for k, n in kp.LAUNCHES.items()}
+    log(f"  K5 launches over the probe's rows: {launches}")
+    for k, n in launches.items():
+        if not n:
+            raise AssertionError(f"{k}: the kernel was not launched")
+    return errs, rows, launches
 
 
 # ------------------------------------------------------------ phase 3b
@@ -4255,9 +4523,10 @@ def time_int8_serving(work):
     return out
 
 
-def _pose_p50(http):
-    """Wall p50 of /v1/pose at POSE_TIME_SIZES u8 frames, one request at a
-    time, through ``http`` (started and stopped here)."""
+def _pose_p50(http, calls=POSE_TIME_CALLS):
+    """Wall p50 of /v1/pose at POSE_TIME_SIZES u8 frames over ``calls``
+    requests, one at a time, through ``http`` (started and stopped
+    here)."""
     import numpy as np
     from bilinear_tpu_torch.client import PoseClient
 
@@ -4270,7 +4539,7 @@ def _pose_p50(http):
             for _ in range(3):
                 client.pose(frames)
             secs = []
-            for _ in range(POSE_TIME_CALLS):
+            for _ in range(calls):
                 t0 = time.perf_counter()
                 client.pose(frames)
                 secs.append(time.perf_counter() - t0)
@@ -4487,13 +4756,15 @@ LEARN_GATE = 0.1  # MPJPE after 10 epochs below 0.1x epoch 0's
 # 2, the JPEG of another canvas tens.
 LEARN_JPEG_GATE = 4.0
 DP_ROWS = 256  # the DP/TP equality legs: 4 steps of 64
+TIME_ROWS = 1024  # the DP/TP timed legs: 16 steps of 64 an epoch
 DIST_STEP_REL = 1e-5  # multi-rank vs one process: losses and digests
 DIST_GRAD_REL = 1e-4  # gradient-scale leaves, of each leaf's largest
 GRAD_FLOOR = 1e-3  # below this of the tree's largest: rounding noise
-PP_CASES = ((2, 2), (2, 4), (4, 4), (8, 8))
+PP_CASES = ((2, 2), (4, 4), (8, 8))
 PP_BATCH = 8
 PP_TIME_ITERS = 3
 MESH_SHARDS = 2
+MESH_POSE_CALLS = 10  # the sharded servers' /v1/pose p50 (a depth cut)
 
 
 def write_calibration(root):
@@ -4904,9 +5175,11 @@ def drive_parallel_training(work, calib, card):
     the card): train_bilinear DP (2 ranks), TP (data 1 x model 2) and
     DP x TP (2 x 2) for one epoch of DP_ROWS rows, each against one
     process; a full-width standard train_hourglass step over 2 ranks (4
-    rows each) against one process; a one-rank NCCL train_bilinear; the DP run's
-    1.save resumed by one process; ms per step with two ranks sharing the
-    card."""
+    rows each) against one process; a one-rank NCCL train_bilinear. These
+    equality legs run side by side (their answers do not depend on the
+    schedule; the seconds they take together are no measure of any one).
+    Then the DP run's 1.save resumed by one process, and ms per step with
+    two ranks sharing the card, each timed leg alone."""
     from bilinear_tpu_torch.cli import train_bilinear, train_hourglass
     from bilinear_tpu_torch.data.synthetic import write_mpii_dataset
 
@@ -4914,22 +5187,56 @@ def drive_parallel_training(work, calib, card):
     data = _manifold_bins(os.path.join(work, "dp_h36m"), calib, DP_ROWS, 64)
     lift = ["--data-dir", data, "--epochs-per-run", "1", "--seed",
             str(SEED), "--comment", "lift"]
-    one_root = os.path.join(work, "dp_one")
-    run_cli(train_bilinear.main, lift + ["--save-root", one_root])
-    ref = _save_digests(os.path.join(one_root, "lift"))
-    module = "bilinear_tpu_torch.cli.train_bilinear"
-    for name, world, model in (("bilinear_dp_2", 2, 1),
-                               ("bilinear_tp_1x2", 2, 2),
-                               ("bilinear_dp_tp_2x2", 4, 2)):
-        root = os.path.join(work, name)
-        t0 = time.perf_counter()
-        _ranks(module, lift + ["--save-root", root, "--model-parallel",
-                               str(model)], world)
-        got = _save_digests(os.path.join(root, "lift"))
+    mpii = os.path.join(work, "dp_mpii")
+    write_mpii_dataset(mpii, n_train_images=8, n_test_images=1,
+                       learnable=True, seed=SEED)
+    hg = ["--data-dir", mpii, "--batch-size", "8", "--epochs-per-run", "1",
+          "--steps-per-dispatch", "1", "--comment", "hg", "--seed",
+          str(SEED)]
+    lift_legs = (("bilinear_dp_2", 2, 1), ("bilinear_tp_1x2", 2, 2),
+                 ("bilinear_dp_tp_2x2", 4, 2))
+    t0 = time.perf_counter()
+    legs = {name: _Ranks("train_bilinear", lift + [
+        "--save-root", os.path.join(work, name), "--model-parallel",
+        str(model)], world) for name, world, model in lift_legs}
+    legs["nccl"] = _Ranks("train_bilinear", lift + [
+        "--save-root", os.path.join(work, "nccl")], 1)
+    legs["hg_dp"] = _Ranks("train_hourglass",
+                           hg + ["--save-root", os.path.join(work, "hg_dp")],
+                           2)
+    try:
+        one_root = os.path.join(work, "dp_one")
+        run_cli(train_bilinear.main, lift + ["--save-root", one_root])
+        ref = _save_digests(os.path.join(one_root, "lift"))
+        hg_root = os.path.join(work, "hg_one")
+        run_cli(train_hourglass.main, hg + ["--save-root", hg_root])
+        hg_ref = _save_digests(os.path.join(hg_root, "hg"))
+        for ranks in legs.values():
+            ranks.collect()
+    finally:
+        for ranks in legs.values():
+            for proc in ranks.procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    out["equality_legs_side_by_side_s"] = time.perf_counter() - t0
+    for name, _, _ in lift_legs:
+        got = _save_digests(os.path.join(work, name, "lift"))
         if "backend gloo" not in got["log"]:
             raise AssertionError(f"{name}: not on gloo")
-        out[name] = {"gaps": _held_to(name, got, ref, adam=True),
-                     "command_s": time.perf_counter() - t0}
+        out[name] = {"gaps": _held_to(name, got, ref, adam=True)}
+    got = _save_digests(os.path.join(work, "nccl", "lift"))
+    if "backend nccl" not in got["log"]:
+        raise AssertionError("the one-rank run did not take NCCL")
+    out["bilinear_nccl_1"] = {"gaps": _held_to("bilinear_nccl_1", got, ref,
+                                                adam=True)}
+    got = _save_digests(os.path.join(work, "hg_dp", "hg"))
+    out["hourglass_dp_2"] = {"gaps": _held_to("hourglass DP 2 ranks, full "
+                                              "width, standard", got,
+                                              hg_ref, adam=False)}
+    log(f"  the equality legs (DP, TP, DP x TP, NCCL, the detector's DP "
+        f"step: 11 processes) side by side in "
+        f"{out['equality_legs_side_by_side_s']:.1f} s")
     # The DP run's 1.save resumes in one process.
     dp_root = os.path.join(work, "bilinear_dp_2")
     run_cli(train_bilinear.main, lift + ["--save-root", dp_root])
@@ -4939,57 +5246,30 @@ def drive_parallel_training(work, calib, card):
             os.path.join(dp_root, "lift", "parameter", "2.save")):
         raise AssertionError("the DP 1.save did not resume in one process")
     log("  the DP run's 1.save resumed in one process (2.save written)")
-    # One rank on NCCL.
-    nccl_root = os.path.join(work, "nccl")
-    _ranks(module, lift + ["--save-root", nccl_root], 1)
-    got = _save_digests(os.path.join(nccl_root, "lift"))
-    if "backend nccl" not in got["log"]:
-        raise AssertionError("the one-rank run did not take NCCL")
-    out["bilinear_nccl_1"] = {"gaps": _held_to("bilinear_nccl_1", got, ref,
-                                                adam=True)}
 
-    # Times: two epochs of the learnability bins, the second's ms per step.
-    learn = os.path.join(work, "learn_h36m")
-    for name, world, model in (("dp_2", 2, 1), ("tp_1x2", 2, 2)):
+    # Times, each leg alone: two epochs of TIME_ROWS manifold rows, the
+    # second's ms per step; one process (this one) on the same epochs.
+    timed = _manifold_bins(os.path.join(work, "time_h36m"), calib, TIME_ROWS,
+                           64)
+    timed_argv = ["--data-dir", timed, "--epochs-per-run", "2", "--comment",
+                  "t"]
+    for name, world, model in (("one_process", 1, 0), ("dp_2", 2, 1),
+                               ("tp_1x2", 2, 2)):
         root = os.path.join(work, "time_" + name)
-        _ranks(module, ["--data-dir", learn, "--epochs-per-run", "2",
-                        "--comment", "t", "--save-root", root,
-                        "--model-parallel", str(model)], world)
+        if world == 1:
+            run_cli(train_bilinear.main, timed_argv + ["--save-root", root])
+        else:
+            _ranks("bilinear_tpu_torch.cli.train_bilinear",
+                   timed_argv + ["--save-root", root, "--model-parallel",
+                                 str(model)], world)
         with open(os.path.join(root, "t", "debug.log")) as f:
             out[name + "_ms_per_step"] = _epoch_step_ms(f.read())
-    # One process: the last epoch of the learnability run (phase 15b).
-    with open(os.path.join(work, "save", "learn", "debug.log")) as f:
-        out["one_process_ms_per_step"] = _epoch_step_ms(f.read())
-    log(f"  lifting train step, batch 64, f32, ms per step of a 64-step "
-        f"epoch on {card}: one process "
-        f"{out['one_process_ms_per_step']:.3f}, DP 2 ranks "
+    log(f"  lifting train step, batch 64, f32, ms per step on {card}: one "
+        f"process {out['one_process_ms_per_step']:.3f}, DP 2 ranks "
         f"{out['dp_2_ms_per_step']:.3f}, TP 1x2 "
-        f"{out['tp_1x2_ms_per_step']:.3f} (two ranks share one card over "
-        "gloo: not a scaling figure)")
-
-    # The detector: one full-width standard step, 2 ranks x 4 rows.
-    mpii = os.path.join(work, "dp_mpii")
-    write_mpii_dataset(mpii, n_train_images=8, n_test_images=1,
-                       learnable=True, seed=SEED)
-    hg = ["--data-dir", mpii, "--batch-size", "8", "--epochs-per-run", "1",
-          "--steps-per-dispatch", "1", "--comment", "hg", "--seed",
-          str(SEED)]
-    one_root = os.path.join(work, "hg_one")
-    t0 = time.perf_counter()
-    run_cli(train_hourglass.main, hg + ["--save-root", one_root])
-    one_s = time.perf_counter() - t0
-    ref = _save_digests(os.path.join(one_root, "hg"))
-    root = os.path.join(work, "hg_dp")
-    t0 = time.perf_counter()
-    _ranks("bilinear_tpu_torch.cli.train_hourglass",
-           hg + ["--save-root", root], 2)
-    dp_s = time.perf_counter() - t0
-    got = _save_digests(os.path.join(root, "hg"))
-    out["hourglass_dp_2"] = {"gaps": _held_to("hourglass DP 2 ranks, full "
-                                              "width, standard", got,
-                                              ref, adam=False),
-                             "one_process_cli_s": one_s,
-                             "two_rank_command_s": dp_s}
+        f"{out['tp_1x2_ms_per_step']:.3f} (each alone, epoch 2 of two "
+        f"{TIME_ROWS // 64}-step epochs; two ranks share one card over gloo: "
+        "not a scaling figure)")
     # --fused-blocks true over the same ranks is phase 16's run.
     return out
 
@@ -5107,7 +5387,7 @@ def drive_mesh_serving(work):
                 for k in ("int8_quantize", "int8_conv"):
                     launches[k] = launches.get(k, 0) + q[k]
         rec["pose_http_p50_ms"] = _pose_p50(PoseHTTPServer(
-            end2end=mesh, max_delay_ms=0))
+            end2end=mesh, max_delay_ms=0), MESH_POSE_CALLS)
         log(f"  /v1/pose wall p50, {label}, {MESH_SHARDS} shards of cuda:0, "
             "u8, one request at a time: " + ", ".join(
                 f"{n} frames {v:.2f} ms"
@@ -5343,7 +5623,8 @@ def phase15_alone() -> int:
 # ------------------------------------------------------------ phase 16
 
 P16_TRAIN_IMAGES = 8  # 7 train records: one step of 3 + 4 rows per epoch
-P16_PREEMPT_STACKS = 2  # the preemption legs' depth cut (width is full)
+P16_CUT_STACKS = 2  # the preemption and --debug-nans legs' depth cut
+# (their width is full)
 
 
 def _stage_counts():
@@ -5569,9 +5850,10 @@ def _held_to_yardstick(name, got, ref, yardstick, loss_ref, loss_gate,
     return dict(gaps, gates=gates)
 
 
-def _hg_args(mpii, dtype, root, epochs=2):
+def _hg_args(mpii, dtype, root, epochs=None):
     return ["--data-dir", mpii, "--batch-size", str(DETECTOR_BATCH),
-            "--epochs-per-run", str(epochs), "--steps-per-dispatch", "1",
+            "--epochs-per-run", str(epochs or P16_EPOCHS[dtype]),
+            "--steps-per-dispatch", "1",
             "--comment", "hg", "--seed", str(SEED), "--dtype", dtype,
             "--fused-blocks", "true", "--save-root", root]
 
@@ -5583,20 +5865,25 @@ def _e2e_args(h36m, root, fused="true"):
             "2.5e-5", "--save-root", root]
 
 
+# The fused DP legs' epochs (one step each): f32's 2-rank step is timed
+# alone on epoch 2; bf16's legs run side by side, untimed, so one epoch.
+P16_EPOCHS = {"float32": 2, "bfloat16": 1}
+
+
 def drive_fused_dp(work, mpii, card):
     """Phase 16b, each leg alone on the card (they are timed):
-    ``train_hourglass --fused-blocks true`` at full width over 2 ranks
-    sharing this card (gloo; the 7 train records of an 8-image tree: one
-    step of 3 + 4 rows per epoch, two epochs), f32 and bf16, each against
-    one process: f32 at phase 15's gates (``_held_to``) on 1.save, bf16
-    as phase 7 holds bf16 (``_held_to_yardstick``); every rank's K3/K4
-    launches and stage entries, and the ms of epoch 2's step. Returns
-    (record, the one-process runs, launches)."""
+    ``train_hourglass --fused-blocks true`` at full width in one process,
+    f32 and bf16, and over 2 ranks sharing this card in f32 (gloo; the 7
+    train records of an 8-image tree: one step of 3 + 4 rows per epoch,
+    P16_EPOCHS epochs) against one process at phase 15's gates
+    (``_held_to``); every rank's K3/K4 launches and stage entries, and the
+    ms of epoch 2's step. The bf16 run over 2 ranks is a side-by-side leg
+    (``start_background_legs``). Returns (record, the one-process runs,
+    launches)."""
     from bilinear_tpu_torch.cli import train_hourglass
 
     steps = -(-_train_records(mpii) // DETECTOR_BATCH)
-    epochs = 2
-    files = [f"{e}.save" for e in range(1, epochs + 1)]
+    files = [f"{e}.save" for e in range(1, P16_EPOCHS["float32"] + 1)]
     out, refs, launches = {"steps_per_epoch": steps}, {}, {}
     for dtype in ("float32", "bfloat16"):
         with _StepTimer() as timer:
@@ -5604,23 +5891,25 @@ def drive_fused_dp(work, mpii, card):
                 mpii, dtype, os.path.join(work, f"p16_one_{dtype}")))
         ref = refs[dtype] = _save_digests(os.path.join(
             work, f"p16_one_{dtype}", "hg"))
+        out[dtype] = {"one_process_step_ms": timer.ms}
+        if dtype == "bfloat16":
+            log(f"  fused bf16 step on {card}, one process: "
+                f"{timer.ms[-1]:.2f} ms (its one epoch's step, warm-up "
+                f"included; the bf16 legs' reference)")
+            continue
         root = os.path.join(work, f"p16_dp_{dtype}")
         counts = [c for c, _, _ in _rank_run(
             "train_hourglass", _hg_args(mpii, dtype, root), 2)]
         per_rank = _check_rank_counts(f"fused DP {dtype}", counts,
-                                      steps * epochs)
+                                      steps * P16_EPOCHS[dtype])
         got = _save_digests(os.path.join(root, "hg"))
         if "backend gloo" not in got["log"]:
             raise AssertionError("the fused DP run is not on gloo")
-        name = f"fused DP 2 ranks, full width, {dtype}"
-        out[dtype] = {
-            "gaps": _held_to(name, got, ref, adam=False, files=files)
-            if dtype == "float32" else
-            _held_to_yardstick(name, got, refs["float32"], ref, ref,
-                               PARITY_BF16_LOSS),
-            "launches_per_rank": per_rank,
-            "one_process_step_ms": timer.ms,
-            "dp_2_ranks_step_ms": [c["step_ms"] for c in counts]}
+        out[dtype].update(
+            gaps=_held_to(f"fused DP 2 ranks, full width, {dtype}", got, ref,
+                          adam=False, files=files),
+            launches_per_rank=per_rank,
+            dp_2_ranks_step_ms=[c["step_ms"] for c in counts])
         log(f"  fused {dtype} step on {card}, epoch 2: one process "
             f"{timer.ms[-1]:.2f} ms, 2 ranks sharing the card over gloo "
             f"{counts[0]['step_ms'][-1]:.2f} / {counts[1]['step_ms'][-1]:.2f}"
@@ -5632,18 +5921,20 @@ def drive_fused_dp(work, mpii, card):
 
 def start_background_legs(work, mpii, h36m):
     """Phase 16's untimed multi-process legs, started side by side: the
-    planted fault (2 ranks, every staged call's first exchange skipped)
-    through each gated fused DP leg (f32, bf16, End2End), one rank on NCCL
-    (bf16), End2End over 2 ranks fused and standard (f32), and the
-    preemption legs (one process and 2 ranks, depth cut to
-    P16_PREEMPT_STACKS stacks; the signalled rank sends itself SIGTERM
-    inside epoch 1 of 3)."""
+    fused bf16 run over 2 ranks (full width), the planted fault (2 ranks,
+    every staged call's first exchange skipped) through each gated fused
+    DP leg (f32, bf16, End2End), one rank on NCCL (bf16), End2End over 2
+    ranks fused and standard (f32), and the preemption legs (one process
+    and 2 ranks, depth cut to P16_CUT_STACKS stacks; the signalled rank
+    sends itself SIGTERM inside epoch 1 of 3)."""
     small = ["--data-dir", mpii, "--batch-size", str(DETECTOR_BATCH),
              "--comment", "hg", "--seed", str(SEED), "--dtype", "bfloat16",
-             "--fused-blocks", "true", "--n-stacks", str(P16_PREEMPT_STACKS),
+             "--fused-blocks", "true", "--n-stacks", str(P16_CUT_STACKS),
              "--epochs-per-run", "3"]
     fault = {"SMOKE_SKIP_EXCHANGE": "1"}
     return {
+        "fused_bf16": _Ranks("train_hourglass", _hg_args(
+            mpii, "bfloat16", os.path.join(work, "p16_dp_bfloat16")), 2),
         "fault": _Ranks("train_hourglass", _hg_args(
             mpii, "float32", os.path.join(work, "p16_fault"), 1), 2,
             env=fault),
@@ -5678,7 +5969,11 @@ def _must_fail(name, gate, *args, **kw):
 
 
 def check_background_legs(work, legs, refs, e2e_refs, mpii):
-    """Waits for ``start_background_legs``'s legs and gates them: each
+    """Waits for ``start_background_legs``'s legs and gates them: the fused
+    bf16 run over 2 ranks as phase 7 holds bf16 (``_held_to_yardstick``:
+    no farther from one f32 process than 1.5x one bf16 process), with
+    every rank's launches and stage entries (its step ms side by side with
+    the other legs: no measure of the step alone); each
     planted fault must fail its leg's gate (f32: phase 15's against one
     process; bf16 and End2End: ``_held_to_yardstick`` as below), its
     checkpoint files those of the run it stands for; the NCCL rank (no
@@ -5692,6 +5987,21 @@ def check_background_legs(work, legs, refs, e2e_refs, mpii):
     from bilinear_tpu_torch.cli import train_hourglass
 
     out, launches = {}, {}
+    steps = -(-_train_records(mpii) // DETECTOR_BATCH)
+    counts = [c for c, _, _ in legs["fused_bf16"].collect()]
+    per_rank = _check_rank_counts("fused DP bfloat16", counts,
+                                  steps * P16_EPOCHS["bfloat16"])
+    got = _save_digests(os.path.join(work, "p16_dp_bfloat16", "hg"))
+    if "backend gloo" not in got["log"]:
+        raise AssertionError("the fused DP run is not on gloo")
+    out["fused_dp_bfloat16"] = {
+        "gaps": _held_to_yardstick(
+            "fused DP 2 ranks, full width, bfloat16", got, refs["float32"],
+            refs["bfloat16"], refs["bfloat16"], PARITY_BF16_LOSS),
+        "launches_per_rank": per_rank,
+        "dp_2_ranks_step_ms_side_by_side": [c["step_ms"] for c in counts]}
+    for k, v in per_rank.items():
+        launches[k] = launches.get(k, 0) + 2 * v
     skipped = "the first exchange of every staged K3 skipped"
     legs["fault"].collect()
     _must_fail(f"planted fault, f32 ({skipped})", _held_to,
@@ -5747,7 +6057,7 @@ def check_background_legs(work, legs, refs, e2e_refs, mpii):
     run_cli(train_hourglass.main, [
         "--data-dir", mpii, "--batch-size", str(DETECTOR_BATCH), "--comment",
         "hg", "--seed", str(SEED), "--dtype", "bfloat16", "--fused-blocks",
-        "true", "--n-stacks", str(P16_PREEMPT_STACKS), "--epochs-per-run",
+        "true", "--n-stacks", str(P16_CUT_STACKS), "--epochs-per-run",
         "1", "--save-root", one])
     resumed = sorted(os.listdir(os.path.join(one, "hg", "parameter")))
     with open(os.path.join(one, "hg", "debug.log")) as f:
@@ -5843,9 +6153,9 @@ def drive_remat(mpii):
 
 
 def drive_debug_nans(work, mpii):
-    """Phase 16d: ``--debug-nans`` on a clean full-width fused step
-    (passes) and with an infinity planted in a fused block's weight
-    (``FloatingPointError`` naming the block)."""
+    """Phase 16d: ``--debug-nans`` on a clean fused step at full width and
+    P16_CUT_STACKS stacks (passes) and with an infinity planted in a fused
+    block's weight (``FloatingPointError`` naming the block)."""
     import numpy as np
     from bilinear_tpu_torch.cli import train_hourglass
     from bilinear_tpu_torch.io import checkpoint as pckpt
@@ -5856,13 +6166,14 @@ def drive_debug_nans(work, mpii):
     argv = ["--data-dir", mpii, "--batch-size", str(DETECTOR_BATCH),
             "--epochs-per-run", "1", "--comment", "hg", "--seed", str(SEED),
             "--dtype", "bfloat16", "--fused-blocks", "true",
-            "--debug-nans", "true", "--save-root", root]
+            "--n-stacks", str(P16_CUT_STACKS), "--debug-nans", "true",
+            "--save-root", root]
     t0 = time.perf_counter()
     run_cli(train_hourglass.main, argv)
     out["clean_step_s"] = time.perf_counter() - t0
     pdir = os.path.join(root, "hg", "parameter")
     payload = pckpt.load_checkpoint(pdir, 1)
-    key = "hgArray.3.res2.0.resSeq.5.weight"  # a fused block's 3x3
+    key = "hgArray.1.res2.0.resSeq.5.weight"  # the last stack's, a 3x3
     path = {k: p for k, p, _ in wt.torch7_param_paths(wt.torch7_config_of_jax(
         payload["state"]["params"]))}[key]
     leaf = np.array(wt.get_leaf(payload["state"]["params"], path))
@@ -5874,7 +6185,7 @@ def drive_debug_nans(work, mpii):
     try:
         run_cli(train_hourglass.main, argv)
     except FloatingPointError as e:
-        if "hgArray.3.res2.0" not in str(e):
+        if "hgArray.1.res2.0" not in str(e):
             raise AssertionError(f"the error names another module: {e}")
         out["planted_inf_error"] = str(e)
         log(f"  --debug-nans: the clean step passed "
@@ -6033,6 +6344,7 @@ def drive_phase16(card):
                         p.kill()
                         p.wait()
             raise
+        dp["bfloat16"].update(bg.pop("fused_dp_bfloat16"))
         rec.update(bg)
         for k, v in bg_launches.items():
             launches[k] = launches.get(k, 0) + v
@@ -6598,6 +6910,12 @@ SOURCES = {
 }
 
 
+PROBE_SOURCES = {  # K5's modes: (the probe's row, the Pallas body)
+    "int8_scale_probe_fixed": ("fixed", "benchmarks/int8_scale_probe.py:65"),
+    "int8_scale_probe_mxu": ("mxu-bound", "benchmarks/int8_scale_probe.py:85"),
+}
+
+
 def run() -> dict:
     import torch
 
@@ -6619,9 +6937,10 @@ def run() -> dict:
 
     # phase 2: build
     secs = _build.build_all(["lifting", "lifting_int8", "resmodule",
-                             "int8_conv"])
+                             "int8_conv", "int8_scale_probe"])
     log(f"phase 2: built csrc/lifting.cu, csrc/lifting_int8.cu, "
-        f"csrc/resmodule.cu and csrc/int8_conv.cu in {secs:.1f} s")
+        f"csrc/resmodule.cu, csrc/int8_conv.cu and csrc/int8_scale_probe.cu "
+        f"in {secs:.1f} s")
 
     # phase 3: kernels vs plain versions
     log("phase 3: kernels vs plain versions")
@@ -6629,6 +6948,11 @@ def run() -> dict:
     errs, scales = check_kernels(params, stats)
     log("phase 3b: K3 (train, eval) and K4 vs their plain versions")
     errs.update(check_resmodule())
+    log("phase 3c: K5, the int8 scale probe's chains, vs their plain "
+        "versions; the probe's rows")
+    probe_errs, probe_rows, probe_launches = drive_probe(params, stats, card)
+    for name, e in probe_errs.items():
+        errs[name] = max(errs.get(name, 0.0), e)
 
     # phase 4: the slice
     log("phase 4: serving over HTTP")
@@ -6649,14 +6973,15 @@ def run() -> dict:
     keep = tempfile.mkdtemp(prefix="chip_smoke_keep_")
     try:
         return _run_after_phase5(card, keep, errs, launches, table,
-                                 end_to_end)
+                                 end_to_end, (probe_rows, probe_launches))
     finally:
         shutil.rmtree(keep, ignore_errors=True)
 
 
-def _run_after_phase5(card, keep, errs, launches, table, end_to_end):
+def _run_after_phase5(card, keep, errs, launches, table, end_to_end, probe):
     """Phases 9, 6-8 and 10-14, and the kernels' record; ``keep`` holds
-    phase 9's lifting checkpoint for phase 12."""
+    phase 9's lifting checkpoint for phase 12; ``probe``: phase 3c's rows
+    and K5's launches."""
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         # phase 9: training lifting
@@ -6884,6 +7209,23 @@ def _run_after_phase5(card, keep, errs, launches, table, end_to_end):
         "bound_by": st["bound_by"], "library_ms": None,
         "trace_ms": st["trace_ms"], "one_launch_k6_ms": st["one_launch_ms"],
         "entries": ["int8_activation_amax", "int8_quantize_scaled"]})
+    probe_rows, probe_launches = probe
+    for name, (variant, replaces) in PROBE_SOURCES.items():
+        at = {r["n"]: r for r in probe_rows if r["variant"] == variant}
+        main, big = at[TIME_NS[0]], at[TIME_NS[1]]
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "k2_static_ms",
+                "poses_per_sec")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "bilinear_tpu_torch/csrc/int8_scale_probe.cu",
+            "replaces": replaces, "launches": probe_launches[name],
+            "launches_by_path": {"phase3c_probe_rows": probe_launches[name]},
+            "max_abs_err": errs[name], "n": TIME_NS[0], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "yardstick_k2_static_ms": main["k2_static_ms"],
+            f"at_{TIME_NS[1]}": {k: big[k] for k in keys}})
+    log(json.dumps({"int8_scale_probe": probe_rows}))
     log(json.dumps({"end2end": e2e_result}))
     log(json.dumps({"int8": int8_result}))
     log(json.dumps({"aot": aot_result}))

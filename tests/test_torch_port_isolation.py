@@ -88,7 +88,8 @@ def test_port_modules_are_listed():
                      "bilinear_tpu_torch.utils.debug",
                      "bilinear_tpu_torch.utils.preempt",
                      "bilinear_tpu_torch.utils.profiling",
-                     "bilinear_tpu_torch.cli.doctor"):
+                     "bilinear_tpu_torch.cli.doctor",
+                     "bilinear_tpu_torch.ops.int8_scale_probe"):
         assert expected in names
 
 
@@ -106,12 +107,22 @@ def test_aot_loader_imports_no_other_port_module():
                                    "'bilinear_tpu_torch.io.aot']"]
 
 
-@pytest.mark.parametrize("extra", [[], ["chip_smoke"]],
-                         ids=["package", "chip_smoke"])
+def _torch_scripts():
+    """The port's timing scripts, ``scripts/torch_*.py``, as module names."""
+    return sorted(f[:-3] for f in os.listdir(os.path.join(ROOT, "scripts"))
+                  if f.startswith("torch_") and f.endswith(".py"))
+
+
+@pytest.mark.parametrize("extra", [[], ["chip_smoke"], "scripts"],
+                         ids=["package", "chip_smoke", "scripts"])
 def test_imports_without_jax_or_reference_package(extra):
+    if extra == "scripts":
+        extra = _torch_scripts()
+        assert "torch_int8_scale_probe" in extra
     names = _port_modules() + extra
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+        p for p in (ROOT, os.path.join(ROOT, "scripts"),
+                    os.environ.get("PYTHONPATH")) if p))
     proc = subprocess.run(
         [sys.executable, "-c", _SCRIPT, *names], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=300,
