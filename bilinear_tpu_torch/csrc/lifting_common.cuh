@@ -18,7 +18,10 @@
 // 128 rows (half as much per row) and its activation round trips (~1.6 GB
 // per bf16 call, ~0.5 ms of device memory time) overlap the products. So bulk
 // batches run one GEMM per layer; the whole chain is one launch only for a
-// serving batch, where launches, not bytes, are the cost.
+// serving batch, where launches, not bytes, are the cost. (This argument is
+// for bf16 and these per-layer kernels: in int8 two 64-row activations fit
+// beside a weight ring, and a cluster's multicast shares the weight reads;
+// the int8 scale probe's chains, K5 in int8_scale_probe.cu, run so, fused.)
 //
 // The GEMM (gemm_tile): A is (M, K) and the weight a K-contiguous (N, K) copy
 // made once per checkpoint, so both operands reach wgmma as 128-byte swizzled
@@ -47,11 +50,10 @@
 // zero-fill, the epilogue skips rows >= M and columns >= N, and masked rows
 // never enter an amax.
 //
-// An epilogue's int8 form (Q, a template parameter, so that K1's and K2's
-// code is the default's alone): K2's true division (Q_DIV), or one of the
-// probe's chains (int8_scale_probe.cu): a product with a given multiplier
-// (Q_MUL), a saturating truncation (Q_SAT) and the int32 accumulator's low
-// byte with no bias (Q_WRAP); the last two replace the value itself.
+// The int8 forms of the probe's chains (int8_scale_probe.cu, which finishes
+// its values in registers with them): a product with a given multiplier
+// (quantize_mul), a saturating truncation (saturate_int8) and the int32
+// accumulator's low byte with no bias (wrap_int8).
 //
 // Dynamic int8 scales span 512 rows x 1024 columns, 32 tiles: such a layer
 // runs as a persistent cooperative grid that takes a group's tiles together
@@ -115,28 +117,26 @@ __device__ __forceinline__ int quantize(float v, Scale sc) {
   return (int)fminf(fmaxf(rintf(q), -127.f), 127.f);
 }
 
-enum Quant : int {
-  Q_DIV = 0,   // clip(rint(v / s), -127, 127), true division (quantize)
-  Q_MUL = 1,   // clip(rint(v * r), -127, 127): r is Scale::r, as given
-  Q_SAT = 2,   // v truncated toward zero, saturated to [-128, 127], NaN 0
-  Q_WRAP = 3,  // v (an int32 accumulator) modulo 256; no bias
-};
-// v as its int8 value in form Q; Q_SAT and Q_WRAP values arrive converted
-// (Epilogue::finish).
-template <int Q>
-__device__ __forceinline__ int quantize_as(float v, Scale sc) {
-  if constexpr (Q == Q_DIV) return quantize(v, sc);
-  if constexpr (Q == Q_MUL)
-    return (int)fminf(fmaxf(rintf(__fmul_rn(v, sc.r)), -127.f), 127.f);
-  return (int)v;
+// The int8 forms of the probe's chains (int8_scale_probe.cu), value by value
+// as their plain versions compute them. fixed: clip(rint(v * r), -127, 127),
+// a product with the given multiplier r, not K2's division, for v >= 0 (fixed
+// quantises ReLU outputs and sums of two: never negative, never NaN). Rounded
+// without conversion instructions, which run at a sixteenth of the issue
+// rate: clamped to 128 first, the sum with 1.5 * 2^23 rounds to an integer,
+// half to even, whose bits are the integer plus 0x4B400000.
+__device__ __forceinline__ int quantize_mul(float v, float r) {
+  const float y = fminf(__fmul_rn(v, r), 128.f);
+  return min(__float_as_int(__fadd_rn(y, 12582912.f)) - 0x4B400000, 127);
 }
-// The value that a Q_SAT or Q_WRAP layer passes on. cvt.rzi.s32.f32
-// truncates, saturates to int32 and sends NaN to 0; the wrap is of an exact
-// integer (|acc| < 2^24).
-template <int Q> __device__ __forceinline__ float convert_as(float v) {
-  const int t = __float2int_rz(v);
-  if constexpr (Q == Q_SAT) return (float)min(max(t, -128), 127);
-  return (float)(((t & 0xff) ^ 0x80) - 0x80);
+// mxu's encode: v truncated toward zero, saturated to [-128, 127], NaN to 0
+// (cvt.rzi.s32.f32 truncates, saturates to int32 and sends NaN to 0).
+__device__ __forceinline__ int saturate_int8(float v) {
+  return min(max(__float2int_rz(v), -128), 127);
+}
+// mxu's hidden layers: an int32 accumulator modulo 256, as int8, by integer
+// operations alone (a float round trip would cost two conversions a value).
+__device__ __forceinline__ int wrap_int8(int t) {
+  return ((t & 0xff) ^ 0x80) - 0x80;
 }
 
 // ---- V consecutive values to and from global memory ------------------------
@@ -188,7 +188,7 @@ __device__ __forceinline__ void store_vec(bf16* p, const float (&v)[8]) {
                  pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
 }
 // The values quantised with scale s, as int8.
-template <int V, int Q = Q_DIV>
+template <int V>
 __device__ __forceinline__ void store_quantized(int8_t* p, const float (&v)[V],
                                                 Scale s) {
   uint32_t w[V / 4];
@@ -197,7 +197,7 @@ __device__ __forceinline__ void store_quantized(int8_t* p, const float (&v)[V],
     w[i] = 0;
 #pragma unroll
     for (int b = 0; b < 4; ++b)
-      w[i] |= (uint32_t)(quantize_as<Q>(v[4 * i + b], s) & 0xff) << (8 * b);
+      w[i] |= (uint32_t)(quantize(v[4 * i + b], s) & 0xff) << (8 * b);
   }
   if (V == 8)
     *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[V / 4 - 1]);
@@ -207,10 +207,10 @@ __device__ __forceinline__ void store_quantized(int8_t* p, const float (&v)[V],
 
 // ---- every layer's epilogue -------------------------------------------------
 // W is the working type the layer's value is rounded to (bf16, or float for
-// no rounding), Q the int8 form (Quant). Null pointers switch parts off.
-template <typename W, int Q = Q_DIV>
+// no rounding). Null pointers switch parts off.
+template <typename W>
 struct Epilogue {
-  const float* bias;      // (N,); unread under Q_WRAP
+  const float* bias;      // (N,)
   const float* wscale;    // (N,) int8 per-output-channel weight scale, or null
   const float* in_amax;   // per-group amax of the layer input (dynamic int8)
   float in_scale;         // static activation scale (int8, in_amax null)
@@ -218,8 +218,7 @@ struct Epilogue {
   W* out;                 // (M, N) in the working type, or null
   bf16* out_bf16;         // (M, N) the value rounded to bf16, or null
   int8_t* out_q;          // (M, N) the value quantised with q_scale, or null
-  float q_scale;          // the next layer's static activation scale (Q_MUL:
-                          // the multiplier)
+  float q_scale;          // the next layer's static activation scale
   float* out_amax;        // per-group amax of the value, or null
   unsigned* done;         // group-synchronous tiles only: per-group count of
   int8_t* dyn_q;          // finished tiles, and where the value goes as int8
@@ -239,12 +238,8 @@ struct Epilogue {
   template <int V>
   __device__ __forceinline__ void load_cols(int row, int col,
                                             Cols<V>& c) const {
-    if constexpr (Q != Q_WRAP) load_vec(bias + col, c.b);
-    if constexpr (Q == Q_DIV) {
-      if (out_q) c.q = make_scale(q_scale);
-    } else if constexpr (Q == Q_MUL) {
-      c.q = Scale{0.0f, q_scale};
-    }
+    load_vec(bias + col, c.b);
+    if (out_q) c.q = make_scale(q_scale);
     if (wscale) {
       const float s = in_amax
                           ? scale_of_amax(__ldcg(in_amax + row / group_rows))
@@ -270,15 +265,14 @@ struct Epilogue {
 #pragma unroll
     for (int i = 0; i < V; ++i) {
       if (wscale) y[i] = __fmul_rn(y[i], c.sw[i]);
-      if constexpr (Q != Q_WRAP) y[i] = __fadd_rn(y[i], c.b[i]);
+      y[i] = __fadd_rn(y[i], c.b[i]);
       if (relu) y[i] = fmaxf(y[i], 0.0f);
       y[i] = rnd<W>(y[i]);
       if (skip) y[i] = rnd<W>(__fadd_rn(y[i], sk[i]));
-      if constexpr (Q == Q_SAT || Q == Q_WRAP) y[i] = convert_as<Q>(y[i]);
     }
     if (out) store_vec(out + idx, y);
     if (out_bf16) store_vec(out_bf16 + idx, y);
-    if (out_q) store_quantized<V, Q>(out_q + idx, y, c.q);
+    if (out_q) store_quantized<V>(out_q + idx, y, c.q);
     float m = 0.0f;
 #pragma unroll
     for (int i = 0; i < V; ++i) m = fmaxf(m, y[i]);
@@ -288,12 +282,12 @@ struct Epilogue {
 
 // One layer: Y (M, N) = epilogue(A (M, K) @ B), with B the K-contiguous
 // (N, K) weight for the wgmma kernels and the (K, N) one for the f32 kernel.
-template <typename W, int Q = Q_DIV>
+template <typename W>
 struct Layer {
   const void* A;
   const void* B;
   int M, N, K;
-  Epilogue<W, Q> ep;
+  Epilogue<W> ep;
 };
 
 // ---- asynchronous copies ----------------------------------------------------
@@ -503,8 +497,8 @@ __device__ __forceinline__ void load_staged(const int* p, float (&y)[8]) {
 // quantises its own tile with the group's scale into ep.dyn_q, so the
 // activation never makes an f32 round trip to be quantised.
 template <typename TC, typename W, int NWG, int BN, int DEPTH,
-          bool GROUPSYNC = false, int Q = Q_DIV>
-__device__ __forceinline__ void gemm_tile(const Layer<W, Q>& L, int m0, int n0,
+          bool GROUPSYNC = false>
+__device__ __forceinline__ void gemm_tile(const Layer<W>& L, int m0, int n0,
                                           unsigned char* ring) {
   using C = Tile<NWG, BN, DEPTH>;
   using acc_t = typename MmaOf<TC, BN>::acc_t;
@@ -564,7 +558,7 @@ __device__ __forceinline__ void gemm_tile(const Layer<W, Q>& L, int m0, int n0,
   static_assert(C::BM % (STEP * UNROLL) == 0, "whole row groups per thread");
   const int c = tid % CHUNKS, col = n0 + 8 * c;
   if (col < L.N) {
-    typename Epilogue<W, Q>::template Cols<8> cols;
+    typename Epilogue<W>::template Cols<8> cols;
     L.ep.template load_cols<8>(m0, col, cols);
     for (int r = tid / CHUNKS; r < C::BM; r += STEP * UNROLL) {
       float sk[UNROLL][8];
@@ -627,22 +621,20 @@ __device__ __forceinline__ void gemm_tile(const Layer<W, Q>& L, int m0, int n0,
 // One layer, one launch: block b computes row tile b / tiles_n, column tile
 // b % tiles_n, so the column tiles of a row tile run together (A comes from
 // device memory once, the weights from L2).
-template <typename TC, typename W, int NWG, int BN, int DEPTH, int MINB,
-          int Q = Q_DIV>
+template <typename TC, typename W, int NWG, int BN, int DEPTH, int MINB>
 __global__ void __launch_bounds__(128 * NWG, MINB)
-gemm_wgmma(const __grid_constant__ Layer<W, Q> L) {
+gemm_wgmma(const __grid_constant__ Layer<W> L) {
   extern __shared__ unsigned char smem_raw[];
   const int tiles_n = (L.N + BN - 1) / BN;
-  gemm_tile<TC, W, NWG, BN, DEPTH, false, Q>(
+  gemm_tile<TC, W, NWG, BN, DEPTH>(
       L, (int)(blockIdx.x / tiles_n) * Tile<NWG, BN, DEPTH>::BM,
       (int)(blockIdx.x % tiles_n) * BN, align_ring(smem_raw));
 }
 
-template <typename TC, typename W, int NWG, int BN, int DEPTH, int MINB = 1,
-          int Q = Q_DIV>
-inline cudaError_t launch_layer(const Layer<W, Q>& L, cudaStream_t stream) {
+template <typename TC, typename W, int NWG, int BN, int DEPTH, int MINB = 1>
+inline cudaError_t launch_layer(const Layer<W>& L, cudaStream_t stream) {
   using C = Tile<NWG, BN, DEPTH>;
-  auto kernel = gemm_wgmma<TC, W, NWG, BN, DEPTH, MINB, Q>;
+  auto kernel = gemm_wgmma<TC, W, NWG, BN, DEPTH, MINB>;
   cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (attr != cudaSuccess) return attr;
@@ -655,11 +647,11 @@ inline cudaError_t launch_layer(const Layer<W, Q>& L, cudaStream_t stream) {
 // The bulk tile: 2 warpgroups, 128 rows x 128 columns, two blocks per SM
 // with 3-slab rings, so that one block's epilogue runs under the other's
 // products. The decode's 48 columns take a 64-column tile.
-template <typename TC, typename W, int Q = Q_DIV>
-inline cudaError_t launch_bulk(const Layer<W, Q>& L, cudaStream_t stream) {
+template <typename TC, typename W>
+inline cudaError_t launch_bulk(const Layer<W>& L, cudaStream_t stream) {
   if (L.N <= 64)  // decode
-    return launch_layer<TC, W, 2, 64, 6, 1, Q>(L, stream);
-  return launch_layer<TC, W, 2, 128, 3, 2, Q>(L, stream);
+    return launch_layer<TC, W, 2, 64, 6, 1>(L, stream);
+  return launch_layer<TC, W, 2, 128, 3, 2>(L, stream);
 }
 
 // Dynamic int8, one launch per layer without a quantise pass: a persistent

@@ -34,11 +34,13 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    inputs fixed within K2 static's gates, and mxu from its own first int8
    activation on bit for bit (rows whose first activation differs from
    the plain version's are counted, not gated: the encode sums in another
-   order). Then the probe's seven rows (scripts/torch_int8_scale_probe.py:
-   dynamic K2 at 256-, 512- and 1024-row groups, fixed, mxu-bound,
-   lifting_forward_int8 dynamic and static) at n = 256 and 65536 by CUDA
-   events beside the bound, the plain version and K2 static, with K5's
-   launches counted.
+   order); every K5 call one launch, its output the same bits without the
+   activation copies. Then the probe's seven rows
+   (scripts/torch_int8_scale_probe.py: dynamic K2 at 256-, 512- and
+   1024-row groups, fixed, mxu-bound, lifting_forward_int8 dynamic and
+   static) at n = 256 and 65536 by CUDA events beside the bound, the plain
+   version and K2 static, with K5's launches counted; then K5 by a profiler
+   trace at both n: one device kernel a call.
 4. The lifting slice: a synthetic H36M dataset and an epoch-1 checkpoint
    written by the port; for each serving mode the daemon of cli/serve.py
    answers /v1/lift requests (JSON and .npy, concurrent ones coalesced)
@@ -596,6 +598,24 @@ def _activations_equal(name, got, want):
                                  f"plain version's in {bad} values")
 
 
+def _copies_change_nothing(prepared, x, variant, out):
+    """K5 ``variant`` on rows ``x`` without its activation copies: the
+    output ``out`` of the call with them, bit for bit, in one launch."""
+    import torch
+    from bilinear_tpu_torch.ops import int8_scale_probe as kp
+
+    before = kp.LAUNCHES[variant]
+    bare = kp.probe_forward(prepared, x, variant)
+    torch.cuda.synchronize()
+    if kp.LAUNCHES[variant] != before + 1:
+        raise AssertionError(f"K5 {variant}: {kp.LAUNCHES[variant] - before} "
+                             f"launches in one call")
+    if not torch.equal(bare, out):
+        raise AssertionError(f"K5 {variant} n={x.shape[0]}: the output "
+                             f"without the activation copies differs in "
+                             f"{int((bare != out).sum())} values")
+
+
 def check_probe(params, stats):
     """Phase 3c's checks of K5. Returns {kernel: max_abs_err}."""
     import torch
@@ -621,8 +641,10 @@ def check_probe(params, stats):
             raise AssertionError(f"K5 mxu dyadic n={n}: output differs from "
                                  f"the plain version's in "
                                  f"{int((out != ref).sum())} values")
+        _copies_change_nothing(exact, x, "mxu", out)
         out, acts = kp.probe_forward(exact, x, "fixed", activations=True)
         torch.cuda.synchronize()
+        _copies_change_nothing(exact, x, "fixed", out)
         want = []
         ref = kp.fixed_chain_ref(exact, x, want)
         _activations_equal(f"K5 fixed dyadic n={n}", acts, want)
@@ -632,13 +654,16 @@ def check_probe(params, stats):
                                              mx)
     log(f"  K5 on dyadic inputs at n = {PROBE_ROWS}: mxu bit-equal "
         f"(output and all five int8 activations), fixed's four int8 "
-        f"activations bit-equal; first mxu activation spans {list(span)}")
+        f"activations bit-equal; first mxu activation spans {list(span)}; "
+        f"both outputs the same bits without the activation copies, one "
+        f"launch a call")
 
     x_all = torch.randn((max(PROBE_ROWS), IN_F), generator=gen, device=dev)
     for n in PROBE_ROWS:
         x = x_all[:n]
         out, acts = kp.probe_forward(wq, x, "fixed", activations=True)
         torch.cuda.synchronize()
+        _copies_change_nothing(wq, x, "fixed", out)
         want = []
         ref = kp.fixed_chain_ref(wq, x, want)
         moved = sum(int((a != w).sum()) for a, w in zip(acts["q"], want))
@@ -650,6 +675,7 @@ def check_probe(params, stats):
                                              mx)
         out, acts = kp.probe_forward(wq, x, "mxu", activations=True)
         torch.cuda.synchronize()
+        _copies_change_nothing(wq, x, "mxu", out)
         plain = []
         kp.mxu_chain_ref(wq, x, plain)
         rows_apart = int((acts["q"][0] != plain[0]).any(dim=1).sum())
@@ -775,9 +801,40 @@ def time_probe(params, stats, card, ns=TIME_NS):
     return rows
 
 
+def trace_probe(params, stats, ns=TIME_NS):
+    """K5 fixed and mxu at each n of ``ns`` by a profiler trace: {(variant,
+    n): (device ms per call, device kernels per call)}. Asserts one device
+    kernel a call, K5's own."""
+    import torch
+    from bilinear_tpu_torch.ops import int8_scale_probe as kp
+    from bilinear_tpu_torch.ops import lifting_int8 as pq
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    wq = pq.prepare_weights_int8(params, stats, device="cuda")
+    out = {}
+    for n in ns:
+        # bf16 rows, as the kernel reads them: no cast in the trace
+        x = torch.randn((n, IN_F), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        for variant in ("fixed", "mxu"):
+            per = _trace_whole(lambda: kp.probe_forward(wq, x, variant), 3)
+            ms = sum(t for t, _ in per.values())
+            count = round(sum(c for _, c in per.values()))
+            log(f"  K5 {variant} n={n} by trace: {ms:.4f} ms, {count} device "
+                f"kernel(s) a call: " + "; ".join(
+                    f"{_short(k)} {t * 1e3:.1f} us ({c:.0f})"
+                    for k, (t, c) in per.items()))
+            if count != 1 or any("chain_kernel" not in k for k in per):
+                raise AssertionError(f"K5 {variant} n={n}: not one launch of "
+                                     f"its kernel a call: {list(per)}")
+            out[variant, n] = (ms, count)
+    return out
+
+
 def drive_probe(params, stats, card):
     """Phase 3c: K5's checks, then the probe's rows (its main path) with
-    K5's launches counted. Returns (errs, rows, launches by kernel)."""
+    K5's launches counted, then K5's trace (one device kernel a call).
+    Returns (errs, rows, launches by kernel)."""
     from bilinear_tpu_torch.ops import int8_scale_probe as kp
 
     errs = check_probe(params, stats)
@@ -789,6 +846,11 @@ def drive_probe(params, stats, card):
     for k, n in launches.items():
         if not n:
             raise AssertionError(f"{k}: the kernel was not launched")
+    traced = trace_probe(params, stats)
+    for row in rows:
+        v = {"fixed": "fixed", "mxu-bound": "mxu"}.get(row["variant"])
+        if v is not None:
+            row["trace_ms"], row["device_kernels_per_call"] = traced[v, row["n"]]
     return errs, rows, launches
 
 
@@ -7214,7 +7276,7 @@ def _run_after_phase5(card, keep, errs, launches, table, end_to_end, probe):
         at = {r["n"]: r for r in probe_rows if r["variant"] == variant}
         main, big = at[TIME_NS[0]], at[TIME_NS[1]]
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "k2_static_ms",
-                "poses_per_sec")
+                "poses_per_sec", "trace_ms", "device_kernels_per_call")
         kernels.append({
             "name": name, "route": "cuda",
             "source": "bilinear_tpu_torch/csrc/int8_scale_probe.cu",
@@ -7224,6 +7286,8 @@ def _run_after_phase5(card, keep, errs, launches, table, end_to_end, probe):
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
             "yardstick_k2_static_ms": main["k2_static_ms"],
+            "trace_ms": main["trace_ms"],
+            "device_kernels_per_call": main["device_kernels_per_call"],
             f"at_{TIME_NS[1]}": {k: big[k] for k in keys}})
     log(json.dumps({"int8_scale_probe": probe_rows}))
     log(json.dumps({"end2end": e2e_result}))

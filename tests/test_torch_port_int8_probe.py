@@ -265,3 +265,168 @@ def test_probe_script_refuses_to_run_without_a_card():
         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert proc.returncode == 2, proc.stderr[-2000:]
     assert "no CUDA device" in proc.stdout and "{" not in proc.stdout
+
+
+# ---- K5's one launch: the plan and the weight stream ------------------------
+
+PLAN_ROWS = (1, 63, 64, 65, 255, 4096, 65536)
+
+
+@pytest.mark.parametrize("capacity", [kp.SMS // kp.CLUSTER, 30, 1])
+@pytest.mark.parametrize("n", PLAN_ROWS)
+def test_plan_covers_every_row_once(n, capacity):
+    plan = kp.plan_probe(n, capacity)
+    seen = np.zeros(n, np.int32)
+    for block in range(plan.grid):
+        for lo, hi in plan.rows_of(block, n):
+            assert 0 < hi - lo <= plan.block_rows == 64
+            seen[lo:hi] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("n", PLAN_ROWS)
+def test_plan_fits_one_block_per_sm(n):
+    plan = kp.plan_probe(n)
+    assert plan.smem_bytes == 1024 + 2 * 64 * 1024 + 6 * 16384 + 112
+    assert plan.smem_bytes <= kp.SMEM_LIMIT == 232448
+    assert plan.grid <= kp.SMS and plan.grid % plan.cluster == 0
+    assert plan.cluster == 2 and plan.threads == 384
+    assert plan.clusters == min(kp.SMS // 2, -(-n // 128))
+
+
+def test_plan_refuses_no_rows():
+    with pytest.raises(ValueError):
+        kp.plan_probe(0)
+
+
+def test_plan_constants_are_the_kernels():
+    """ops/int8_scale_probe.py's plan and csrc/int8_scale_probe.cu's
+    constants must agree: the wrapper sizes the grid and the skip scratch,
+    the kernel walks the tiles."""
+    with open(os.path.join(ROOT, "bilinear_tpu_torch", "csrc",
+                           "int8_scale_probe.cu")) as f:
+        src = f.read()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("CL") == kp.CLUSTER
+    assert const("BM") == kp.BLOCK_ROWS
+    assert const("BN") == kp.STAGE_COLS
+    assert const("SLAB") == kp.SLAB
+    assert const("STAGES") == kp.STAGES
+    assert const("THREADS") == kp.THREADS
+
+
+def _image_offsets():
+    """Where each weight byte lies in K5's stream, by a plain index map:
+    {part: (offsets, (rows, K bytes))} for the encode, hidden layers 0-3 and
+    the decode, each over all rows and K bytes of the weight's K-contiguous
+    copy, and the encode's zero padding. Stages of 128 output columns x 128
+    bytes of K; a decode stage: 2 slabs of 48 rows x 128 bytes."""
+    stage, dec_sub = 128 * 128, 48 * 128
+    dec_stage = 2 * dec_sub
+
+    def in_stage(row, kb):
+        return row * 128 + ((kb // 16) ^ (row % 8)) * 16 + kb % 16
+
+    o, k = np.meshgrid(np.arange(1024), np.arange(64), indexing="ij")
+    out = {"encode": ((o // 128) * stage + in_stage(o % 128, k), (1024, 64)),
+           "pad": ((o // 128) * stage + in_stage(o % 128, k + 64), None)}
+    o, k = np.meshgrid(np.arange(1024), np.arange(1024), indexing="ij")
+    for layer in range(4):
+        p, s = o // 128, k // 128
+        base = 8 * stage + layer * 64 * stage + p * 8 * stage + s * stage
+        if layer == 3:
+            base = base + p * dec_stage
+        out[f"hidden{layer}"] = (base + in_stage(o % 128, k % 128),
+                                 (1024, 1024))
+    o, k = np.meshgrid(np.arange(48), np.arange(2048), indexing="ij")
+    p, d = k // 256, (k % 256) // 128
+    base = 8 * stage + 3 * 64 * stage + (p + 1) * 8 * stage + p * dec_stage
+    out["decode"] = (base + d * dec_sub + in_stage(o, k % 128), (48, 2048))
+    return out
+
+
+def test_weight_image_is_the_index_map(variables):
+    _, tp = variables
+    image = kp.weight_image(tp).numpy()
+    assert image.dtype == np.uint8 and image.shape == (kp.IMAGE_BYTES,)
+    enc, *hidden, dec = (t.contiguous().view(torch.uint8).numpy()
+                         for t in tp["kmajor"])
+    want = {"encode": enc, "decode": dec,
+            **{f"hidden{i}": h for i, h in enumerate(hidden)}}
+    covered = np.zeros(kp.IMAGE_BYTES, np.int32)
+    for part, (offsets, shape) in _image_offsets().items():
+        covered[offsets.ravel()] += 1
+        if part == "pad":
+            assert (image[offsets] == 0).all()
+            continue
+        assert want[part].shape == shape
+        np.testing.assert_array_equal(image[offsets], want[part], err_msg=part)
+    assert (covered == 1).all()  # every byte of the stream is one weight's
+
+
+def test_weight_image_is_kept_while_the_weights_are(variables):
+    _, tp = variables
+    prepared = pq.PreparedInt8(tp)
+    first = kp._image(prepared)
+    assert kp._image(prepared) is first
+    prepared["kmajor"] = [t.clone() for t in prepared["kmajor"]]
+    again = kp._image(prepared)
+    assert again is not first and torch.equal(again, first)
+
+
+def test_swizzle_rows_moves_chunk_j_of_row_r_to_j_xor_r():
+    rows = torch.arange(16 * 128, dtype=torch.int32).reshape(16, 128)
+    out = kp.swizzle_rows(rows)
+    for r in range(16):
+        for j in range(8):
+            np.testing.assert_array_equal(
+                out[r, ((j ^ (r % 8)) * 16):((j ^ (r % 8)) * 16 + 16)],
+                rows[r, j * 16:j * 16 + 16])
+
+
+def test_fixed_rounding_without_conversions_is_rint():
+    """csrc/lifting_common.cuh::quantize_mul rounds clip(rint(v * r), -127,
+    127) for v >= 0 by adding 1.5 * 2^23 (after clamping to 128) and reading
+    the integer off the float's bits: the same int8 as the plain version's
+    round-half-to-even on every such input, ties and infinity included."""
+    rs = np.random.RandomState(0)
+    v = np.concatenate([
+        rs.uniform(0, 10, 1_000_000), rs.uniform(0, 1e6, 10_000),
+        (np.arange(0, 140) + 0.5) / 20, np.arange(0, 140) / 20,
+        [0.0, np.inf, np.finfo(np.float32).max]]).astype(np.float32)
+    with np.errstate(over="ignore"):
+        v = np.concatenate([v, np.nextafter(v, np.float32(0)),
+                            np.nextafter(v, np.float32(np.inf))])
+        x = (v * np.float32(kp.INV_FIXED_SCALE)).astype(np.float32)
+    want = kp.quantize_fixed(torch.from_numpy(v)).numpy().astype(np.int32)
+    t = (np.minimum(x, np.float32(128)) + np.float32(12582912.0))
+    got = np.minimum(t.astype(np.float32).view(np.int32) - 0x4B400000, 127)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_sweep_script_builds_what_the_source_holds():
+    """scripts/torch_k5_sweep.py rewrites the kernel's constants and, for
+    its clock build, named call sites: each must still be in the source."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_k5_sweep", os.path.join(ROOT, "scripts", "torch_k5_sweep.py"))
+    sweep = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sweep)
+    with open(os.path.join(ROOT, "bilinear_tpu_torch", "csrc",
+                           "int8_scale_probe.cu")) as f:
+        src = f.read()
+    out = sweep.variant_source(src, 4, 5, clocks=True)
+    assert "constexpr int CL = 4;" in out and "constexpr int STAGES = 5;" in out
+    assert out.count("clock64()") >= 2 * (len(sweep.CLOCK_SITES) - 3)
+    assert "k5_clocks_read" in out
+
+
+def test_sweep_script_refuses_to_run_without_a_card():
+    proc = subprocess.run(
+        [sys.executable, os.path.join("scripts", "torch_k5_sweep.py")],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode == 2, proc.stderr[-2000:]
+    assert "no CUDA device" in proc.stdout and "{" not in proc.stdout
