@@ -37,6 +37,11 @@ statistics are updated once, with the global count; dgamma and dbeta stay
 this rank's share (the trainer sums every parameter gradient over the
 group), and only the data gradient uses the global sums. Without an
 exchange (one rank, or no mesh) the call is the one-entry call.
+
+Spans (``utils/profiling.py::span``, recorded only while a profiler
+records), ``SPANS``: ``k3.forward`` is one forward call, train or eval
+(argument checks, the slot array and the C entry with its launches on the
+card; the plain version on the CPU), ``k4.backward`` one backward.
 """
 from __future__ import annotations
 
@@ -49,8 +54,10 @@ from torch.overrides import handle_torch_function, has_torch_function_unary
 
 from bilinear_tpu_torch.ops import _build
 from bilinear_tpu_torch.utils import debug
+from bilinear_tpu_torch.utils.profiling import span
 
 EPS = 1e-5
+SPANS = ("k3.forward", "k4.backward")
 TAPS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
 
 # ResModule calls that went through the CUDA kernels: one per call of the
@@ -746,15 +753,17 @@ class _ResBlockTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x4d, dtype, running, exchange, *params):
         p = ResParams(*params)
-        if x4d.device.type == "cpu":
-            out, st = res_block_ref(x4d, p, train=True, dtype=dtype,
-                                    exchange=exchange)
-            if running is not None:
-                b, h, w, _ = x4d.shape
-                rows = b if exchange is None else exchange.rows
-                update_running_ref(running, st, rows * h * w)
-        else:
-            out, st = _fwd_cuda(x4d, p, True, None, dtype, running, exchange)
+        with span("k3.forward"):
+            if x4d.device.type == "cpu":
+                out, st = res_block_ref(x4d, p, train=True, dtype=dtype,
+                                        exchange=exchange)
+                if running is not None:
+                    b, h, w, _ = x4d.shape
+                    rows = b if exchange is None else exchange.rows
+                    update_running_ref(running, st, rows * h * w)
+            else:
+                out, st = _fwd_cuda(x4d, p, True, None, dtype, running,
+                                    exchange)
         ctx.dtype = dtype
         ctx.exchange = exchange
         ctx.where = debug.where()
@@ -774,11 +783,14 @@ class _ResBlockTrain(torch.autograd.Function):
         p = ResParams(*vals)
         st = BatchStats(*saved[1 + n_p:])
         g_out = g_out.contiguous()
-        if x4d.device.type == "cpu":
-            gx, grads = res_block_bwd_ref(x4d, g_out, p, st, dtype=ctx.dtype,
-                                          exchange=ctx.exchange)
-        else:
-            gx, grads = _bwd_cuda(x4d, g_out, p, st, ctx.dtype, ctx.exchange)
+        with span("k4.backward"):
+            if x4d.device.type == "cpu":
+                gx, grads = res_block_bwd_ref(x4d, g_out, p, st,
+                                              dtype=ctx.dtype,
+                                              exchange=ctx.exchange)
+            else:
+                gx, grads = _bwd_cuda(x4d, g_out, p, st, ctx.dtype,
+                                      ctx.exchange)
         debug.check((gx, *grads), f"K4's outputs (g_x, gradients) in "
                                   f"{ctx.where}")
         return (gx, None, None, None, *grads)
@@ -818,10 +830,13 @@ def res_block_eval(x4d: torch.Tensor, p: ResParams, stats: BatchStats, *,
     if has_torch_function_unary(x4d):
         return handle_torch_function(res_block_eval, (x4d,), x4d, p, stats,
                                      dtype=dtype)
-    if x4d.device.type == "cpu":
-        return res_block_ref(x4d, p, train=False, stats=stats, dtype=dtype)[0]
-    if torch.is_grad_enabled() and (x4d.requires_grad or any(
-            t is not None and t.requires_grad for t in p)):
-        raise RuntimeError("res_block_eval has no backward; run it under "
-                           "torch.no_grad() or use res_block_train")
-    return _fwd_cuda(x4d, p, False, stats, dtype)[0]
+    with span("k3.forward"):
+        if x4d.device.type == "cpu":
+            return res_block_ref(x4d, p, train=False, stats=stats,
+                                 dtype=dtype)[0]
+        if torch.is_grad_enabled() and (x4d.requires_grad or any(
+                t is not None and t.requires_grad for t in p)):
+            raise RuntimeError("res_block_eval has no backward; run it "
+                               "under torch.no_grad() or use "
+                               "res_block_train")
+        return _fwd_cuda(x4d, p, False, stats, dtype)[0]

@@ -25,6 +25,15 @@ assignment on hot reload), a batch is split into equal row blocks (lifting
 pads the rows with zeros to a multiple of the devices, as JAX does), each
 block runs on its device through that device's kernels (K1/K2; K3 eval or
 K6/K7), and the blocks are joined in order.
+
+Spans (``utils/profiling.py::span``, recorded only while a profiler
+records), ``SPANS``: ``e2e.predict`` is one ``End2EndServer.predict`` call,
+and inside it, per chunk, ``e2e.h2d`` (frames, centres and scales to the
+device, the padding, u8 -> f32) and ``e2e.forward`` (the model's host
+dispatch of the chunk), then once ``e2e.d2h`` (the answers to the host:
+the wait for the device, then the copy); the numpy work before the first
+chunk and after the copy is ``e2e.predict``'s own time. ``lift.call`` is
+one ``LiftingServer.lift`` or ``lift_normalized`` call.
 """
 from __future__ import annotations
 
@@ -45,8 +54,10 @@ from bilinear_tpu_torch.ops.lifting_int8 import (
     prepare_weights_int8,
 )
 from bilinear_tpu_torch.parallel.mesh import as_local_mesh
+from bilinear_tpu_torch.utils.profiling import span
 
 QUANTIZE_MODES = (None, "int8", "int8-static")
+SPANS = ("e2e.predict", "e2e.h2d", "e2e.forward", "e2e.d2h", "lift.call")
 
 
 class _LiftingEngine(NamedTuple):
@@ -213,14 +224,16 @@ class LiftingServer:
         """(N, 16, 2) image-space keypoints (H36M 16-joint order, nose
         dropped) -> (N, 16, 3) root-centered 3D mm, f32 on the server's
         device."""
-        kp = self._rows(keypoints_2d, 32)
-        x = (kp - self._mean_part) / self._std_part
-        mm = self._forward(x) * self._std_s + self._mean_s
-        return mm.reshape(-1, 16, 3)
+        with span("lift.call"):
+            kp = self._rows(keypoints_2d, 32)
+            x = (kp - self._mean_part) / self._std_part
+            mm = self._forward(x) * self._std_s + self._mean_s
+            return mm.reshape(-1, 16, 3)
 
     def lift_normalized(self, x_norm) -> torch.Tensor:
         """(N, 32) pre-normalized inputs -> (N, 48) normalized outputs."""
-        return self._forward(self._rows(x_norm, 32))
+        with span("lift.call"):
+            return self._forward(self._rows(x_norm, 32))
 
     def warm(self, row_counts) -> list:
         """Run the forward once for each row count, so the kernels are
@@ -287,6 +300,7 @@ class End2EndServer:
         self.batch_sizes = tuple(sorted(set(int(b) for b in batch_sizes)))
         self.parameter_dir = parameter_dir
         self.epoch = epoch
+        self.frames_padded = 0  # zero frames added to fill a batch size
         self._model = self._build(variables)
 
         def stat(a, dev=self.device):
@@ -376,43 +390,50 @@ class End2EndServer:
 
         u8 frames stay u8 until they reach the device and are divided by
         255 there (a quarter of the f32 bytes over the bus)."""
-        frames = np.asarray(frames)
-        if frames.dtype != np.uint8:
-            frames = np.asarray(frames, np.float32)
-        n = frames.shape[0]
-        if centers is None:
-            centers = np.full((n, 2), 128.0, np.float32)
-        if scales is None:
-            scales = np.full((n,), 256.0 / 200.0, np.float32)
-        centers = np.asarray(centers, np.float32)
-        scales = np.asarray(scales, np.float32)
-        model = self._model  # ONE read: every chunk on the same weights
-        dev = self.device
-        outs = []
-        done = 0
-        with torch.no_grad():
-            for take, batch in self._chunks(n):
-                f = torch.from_numpy(np.ascontiguousarray(
-                    frames[done:done + take])).to(dev)
-                c = torch.from_numpy(np.ascontiguousarray(
-                    centers[done:done + take])).to(dev)
-                s = torch.from_numpy(np.ascontiguousarray(
-                    scales[done:done + take])).to(dev)
-                if take < batch:
-                    pad = batch - take
-                    f = torch.cat([f, f.new_zeros((pad,) + f.shape[1:])])
-                    c = torch.cat([c, c.new_full((pad, 2), 128.0)])
-                    s = torch.cat([s, s.new_ones(pad)])
-                if f.dtype == torch.uint8:
-                    f = f.float() / self._255
-                _, p2, p3 = self._run(model, f, c, s)
-                outs.append((take, p2[:take], p3[:take]))
-                done += take
-            # Every chunk is queued before the first copy back waits.
-            pose2d = torch.cat([p for _, p, _ in outs]).float().cpu().numpy()
-            pose3d = torch.cat([p for _, _, p in outs]).float().cpu().numpy()
-        mm = pose3d * self._std_s + self._mean_s
-        return pose2d, mm.reshape(n, 16, 3)
+        with span("e2e.predict"):
+            frames = np.asarray(frames)
+            if frames.dtype != np.uint8:
+                frames = np.asarray(frames, np.float32)
+            n = frames.shape[0]
+            if centers is None:
+                centers = np.full((n, 2), 128.0, np.float32)
+            if scales is None:
+                scales = np.full((n,), 256.0 / 200.0, np.float32)
+            centers = np.asarray(centers, np.float32)
+            scales = np.asarray(scales, np.float32)
+            model = self._model  # ONE read: every chunk on the same weights
+            dev = self.device
+            outs = []
+            done = 0
+            with torch.no_grad():
+                for take, batch in self._chunks(n):
+                    with span("e2e.h2d"):
+                        f = torch.from_numpy(np.ascontiguousarray(
+                            frames[done:done + take])).to(dev)
+                        c = torch.from_numpy(np.ascontiguousarray(
+                            centers[done:done + take])).to(dev)
+                        s = torch.from_numpy(np.ascontiguousarray(
+                            scales[done:done + take])).to(dev)
+                        if take < batch:
+                            pad = batch - take
+                            self.frames_padded += pad
+                            f = torch.cat([f, f.new_zeros((pad,)
+                                                          + f.shape[1:])])
+                            c = torch.cat([c, c.new_full((pad, 2), 128.0)])
+                            s = torch.cat([s, s.new_ones(pad)])
+                        if f.dtype == torch.uint8:
+                            f = f.float() / self._255
+                    with span("e2e.forward"):
+                        _, p2, p3 = self._run(model, f, c, s)
+                    outs.append((take, p2[:take], p3[:take]))
+                    done += take
+                # Every chunk is queued before the first copy back waits.
+                with span("e2e.d2h"):
+                    pose2d, pose3d = (
+                        torch.cat([o[i] for o in outs]).float().cpu().numpy()
+                        for i in (1, 2))
+            mm = pose3d * self._std_s + self._mean_s
+            return pose2d, mm.reshape(n, 16, 3)
 
     def _run(self, model, f, c, s):
         """One chunk through the model, or its equal row blocks through

@@ -16,6 +16,12 @@ End2End servers (counterpart of ``bilinear_tpu/serving_http.py``).
   and polls the run dir(s) for new checkpoints every ``reload_every`` s
   (in-flight batches finish on the old weights). A route whose model is
   not loaded answers 404.
+
+The dispatcher's work on one batch (joining the riders, the backend call,
+scattering the answers) is the span ``batcher.dispatch``
+(``utils/profiling.py::span``), over the interval ``dispatch_seconds``
+counts. It runs on the dispatcher thread, so a profile shows it when it
+records every thread (``profile_all_threads``).
 """
 from __future__ import annotations
 
@@ -29,6 +35,9 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 
 from bilinear_tpu_torch.ops.lifting_int8 import GROUP
+from bilinear_tpu_torch.utils.profiling import span
+
+SPANS = ("batcher.dispatch",)
 
 # ---------------------------------------------------------------------------
 # Dynamic batching
@@ -54,9 +63,10 @@ class BackendError(Exception):
 
 class _Pending:
     __slots__ = ("arrays", "n_rows", "taken", "pieces", "event", "result",
-                 "error")
+                 "error", "submitted")
 
     def __init__(self, arrays: Sequence[np.ndarray]):
+        self.submitted = time.monotonic()
         self.arrays = arrays
         self.n_rows = int(arrays[0].shape[0])
         self.taken = 0  # rows already claimed by dispatches (split requests)
@@ -124,6 +134,10 @@ class DynamicBatcher:
         self.rows_served = 0
         self.rows_rejected = 0
         self.dispatch_seconds = 0.0
+        # Requests whose first rows reached a dispatch, and their summed
+        # wait from submit to the start of that dispatch.
+        self.requests_dispatched = 0
+        self.queue_wait_seconds = 0.0
         self._thread = threading.Thread(
             target=self._run, name="batcher", daemon=True
         )
@@ -213,23 +227,28 @@ class DynamicBatcher:
                 return
             try:
                 t0 = time.monotonic()
-                joined = []
-                for i in range(self._n_inputs):
-                    arrs = [r.arrays[i][start:start + n]
-                            for r, start, n in batch]
-                    if i in self._coerce:
-                        arrs = self._coerce[i](arrs)
-                    joined.append(np.concatenate(arrs, axis=0))
-                joined = tuple(joined)
-                outs = self._fn(*joined)
-                if not isinstance(outs, tuple):
-                    outs = (outs,)
-                outs = tuple(np.asarray(o) for o in outs)
-                offset = 0
-                for r, start, n in batch:
-                    piece = tuple(o[offset:offset + n] for o in outs)
-                    r.complete_piece(start, piece)
-                    offset += n
+                for r, start, _ in batch:
+                    if start == 0:  # the request's first slice
+                        self.requests_dispatched += 1
+                        self.queue_wait_seconds += t0 - r.submitted
+                with span("batcher.dispatch"):
+                    joined = []
+                    for i in range(self._n_inputs):
+                        arrs = [r.arrays[i][start:start + n]
+                                for r, start, n in batch]
+                        if i in self._coerce:
+                            arrs = self._coerce[i](arrs)
+                        joined.append(np.concatenate(arrs, axis=0))
+                    joined = tuple(joined)
+                    outs = self._fn(*joined)
+                    if not isinstance(outs, tuple):
+                        outs = (outs,)
+                    outs = tuple(np.asarray(o) for o in outs)
+                    offset = 0
+                    for r, start, n in batch:
+                        piece = tuple(o[offset:offset + n] for o in outs)
+                        r.complete_piece(start, piece)
+                        offset += n
                 self.batches_dispatched += 1
                 self.rows_served += offset
                 self.dispatch_seconds += time.monotonic() - t0
@@ -599,6 +618,14 @@ class PoseHTTPServer:
             "# TYPE bilinear_dispatch_seconds_total counter",
             "# HELP bilinear_model_epoch Checkpoint epoch being served.",
             "# TYPE bilinear_model_epoch gauge",
+            "# HELP bilinear_queue_wait_seconds_total Seconds requests "
+            "waited from submit to their first dispatch.",
+            "# TYPE bilinear_queue_wait_seconds_total counter",
+            "# HELP bilinear_requests_total Requests dispatched per route.",
+            "# TYPE bilinear_requests_total counter",
+            "# HELP bilinear_rows_padded_total Zero rows added to fill a "
+            "batch size.",
+            "# TYPE bilinear_rows_padded_total counter",
         ]
         for name, b, server in self._routes():
             tag = f'{{route="{name}"}}'
@@ -609,7 +636,13 @@ class PoseHTTPServer:
                 f"bilinear_dispatch_seconds_total{tag} "
                 f"{b.dispatch_seconds:.6f}",
                 f"bilinear_model_epoch{tag} {server.epoch}",
+                f"bilinear_queue_wait_seconds_total{tag} "
+                f"{b.queue_wait_seconds:.6f}",
+                f"bilinear_requests_total{tag} {b.requests_dispatched}",
             ]
+        if self.end2end is not None:
+            lines.append(f'bilinear_rows_padded_total{{route="pose"}} '
+                         f"{self.end2end.frames_padded}")
         return "\n".join(lines) + "\n"
 
     # ---------------------------------------------------------- hot reload

@@ -48,6 +48,7 @@ from bilinear_tpu_torch.ops.joints import FROM_H36M_TO_MPII
 from bilinear_tpu_torch.parallel.mesh import all_reduce_grads, local_rows
 from bilinear_tpu_torch.train import hourglass as th
 from bilinear_tpu_torch.train.hourglass import TrainState
+from bilinear_tpu_torch.utils.profiling import span
 
 
 class E2EAugment(NamedTuple):
@@ -139,31 +140,39 @@ class End2EndTrainer:
         (mean_part, std_part) on the device. Returns (loss, heatmap loss,
         3D loss) as device scalars (not synced). Under a mesh every rank
         passes the global batch and draws; the losses are the global
-        ones."""
+        ones. Its four phases are the spans ``th.STEP_RANGES``, as the
+        detector trainer's."""
+        preprocess, forward, backward, optimizer = th.STEP_RANGES
         mean_part, std_part = stats
         total = None
         if self.mesh is not None:
             total = batch["images"].shape[0]
             self.shard.place(self.mesh.rows(total)[0], total)
             batch, augment = local_rows(self.mesh, (batch, augment))
-        factor = augment.geometry.scale_factor.to(self.device)
-        crops, targets, _ = th.preprocess_batch(
-            batch["images"], batch["centers"], batch["scales"],
-            batch["keypoints"], batch["valid"],
-            th.Augment(augment.geometry, augment.jitter))
-        targets = targets[:, self.remap]
-        state.model.train()
-        heatmaps, _, pose_3d = state.model(
-            crops, batch["decode_centers"], batch["decode_scales"] * factor,
-            mean_part, std_part, augment.dropout)
-        loss, hm_loss, loss_3d = e2e_loss(heatmaps, pose_3d, targets,
-                                          batch["s_norm"], self.lambda_3d,
-                                          total)
-        state.optimizer.zero_grad()
-        loss.backward()
-        if self.mesh is not None:
-            all_reduce_grads(state.model.parameters(), self.mesh.data_group)
-        state.optimizer.step()
+        with span(preprocess):
+            factor = augment.geometry.scale_factor.to(self.device)
+            crops, targets, _ = th.preprocess_batch(
+                batch["images"], batch["centers"], batch["scales"],
+                batch["keypoints"], batch["valid"],
+                th.Augment(augment.geometry, augment.jitter))
+            targets = targets[:, self.remap]
+        with span(forward):
+            state.model.train()
+            heatmaps, _, pose_3d = state.model(
+                crops, batch["decode_centers"],
+                batch["decode_scales"] * factor, mean_part, std_part,
+                augment.dropout)
+            loss, hm_loss, loss_3d = e2e_loss(heatmaps, pose_3d, targets,
+                                              batch["s_norm"],
+                                              self.lambda_3d, total)
+        with span(backward):
+            state.optimizer.zero_grad()
+            loss.backward()
+            if self.mesh is not None:
+                all_reduce_grads(state.model.parameters(),
+                                 self.mesh.data_group)
+        with span(optimizer):
+            state.optimizer.step()
         state.step += 1
         return tuple(th.global_loss(v, self.mesh)
                      for v in (loss, hm_loss, loss_3d))

@@ -41,7 +41,6 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 import torch.distributed as dist
 
@@ -58,9 +57,11 @@ from bilinear_tpu_torch.ops.heatmap import keypoints_to_heatmap_space, \
 from bilinear_tpu_torch.ops.joints import MPII_FLIP_SWAP
 from bilinear_tpu_torch.parallel.mesh import all_reduce_grads, local_rows
 from bilinear_tpu_torch.utils import weights as wt
+from bilinear_tpu_torch.utils.profiling import span
 
-# Profiler ranges of HourglassTrainer.train_step, in order: augmentation and
-# targets, forward + loss, zero_grad + backward, clip + RMSprop.
+# Spans (utils/profiling.py::span) of HourglassTrainer.train_step and
+# End2EndTrainer.train_step, in order: augmentation and targets, forward +
+# loss, zero_grad + backward, clip + RMSprop.
 STEP_RANGES = ("train_step/preprocess", "train_step/forward",
                "train_step/backward", "train_step/optimizer")
 
@@ -278,8 +279,8 @@ class HourglassTrainer:
     def train_step(self, state: TrainState, batch: dict,
                    augment: Augment) -> torch.Tensor:
         """One update; returns the loss (a device scalar, not synced). Its
-        four phases are ``STEP_RANGES`` under ``torch.profiler`` (the ranges
-        do nothing outside a profile). Under a mesh every rank passes the
+        four phases are the spans ``STEP_RANGES`` (recorded only while a
+        profiler records). Under a mesh every rank passes the
         global batch and its draws; the loss returned is the global one."""
         preprocess, forward, backward, optimizer = STEP_RANGES
         total = None
@@ -287,22 +288,22 @@ class HourglassTrainer:
             total = batch["images"].shape[0]
             self.shard.place(self.mesh.rows(total)[0], total)
             batch, augment = local_rows(self.mesh, (batch, augment))
-        with record_function(preprocess):
+        with span(preprocess):
             crops, targets, _ = preprocess_batch(
                 batch["images"], batch["centers"], batch["scales"],
                 batch["keypoints"], batch["valid"], augment)
             if self.remap is not None:
                 targets = targets[:, self.remap]
-        with record_function(forward):
+        with span(forward):
             state.model.train()
             loss = heatmap_loss(state.model(crops), targets, total)
-        with record_function(backward):
+        with span(backward):
             state.optimizer.zero_grad()
             loss.backward()
             if self.mesh is not None:
                 all_reduce_grads(state.model.parameters(),
                                  self.mesh.data_group)
-        with record_function(optimizer):
+        with span(optimizer):
             state.optimizer.step()
         state.step += 1
         return global_loss(loss, self.mesh)
