@@ -38,6 +38,7 @@ one ``LiftingServer.lift`` or ``lift_normalized`` call.
 from __future__ import annotations
 
 import os
+import threading
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -250,6 +251,25 @@ class LiftingServer:
 FRAME_DTYPES = {"uint8": np.uint8, "u8": np.uint8, "float32": np.float32}
 
 
+def memory_order(a: np.ndarray) -> Tuple[int, ...]:
+    """The axes of ``a`` by descending absolute byte stride, so that
+    ``a.transpose(order)`` read in C order walks ``a``'s memory in runs as
+    long as its layout allows (a negative-stride axis backwards).
+    The identity for C-contiguous ``a``, and for a layout whose strides
+    repeat or overlap memory (``np.broadcast_to``), which no order places."""
+    identity = tuple(range(a.ndim))
+    if a.flags.c_contiguous:
+        return identity
+    order = sorted(identity, key=lambda i: -abs(a.strides[i]))
+    inner = a.itemsize  # bytes one step of the next axis out must clear
+    for i in reversed(order):
+        if a.shape[i] > 1:
+            if abs(a.strides[i]) < inner:
+                return identity
+            inner = abs(a.strides[i]) * a.shape[i]
+    return tuple(order)
+
+
 class End2EndServer:
     """Batched frame->3D serving over the End2End model.
 
@@ -257,6 +277,12 @@ class End2EndServer:
       greedy largest-first chunks of ``batch_sizes``, the remainder
       zero-padded up to the smallest size that fits, so the card only ever
       sees those batch sizes.
+    - Each chunk's frames reach the device in one copy from one staging
+      buffer (pinned on the card), in the caller's own memory order (a
+      strided view is read in runs, not gathered), restored to (batch, 256,
+      256, 3) by the u8 -> f32 kernel. ``frames_reordered`` counts the
+      frames staged in another order than C order, and ``frames_padded``
+      the zero frames added.
     - ``reload()`` loads a newer epoch of ``parameter_dir`` into a NEW
       model built off to the side and publishes it with one assignment;
       ``predict`` reads the model once per call, so one response never
@@ -301,6 +327,13 @@ class End2EndServer:
         self.parameter_dir = parameter_dir
         self.epoch = epoch
         self.frames_padded = 0  # zero frames added to fill a batch size
+        self.frames_reordered = 0  # frames staged in another order than C
+        # One staging buffer (pinned on the card); the event marks the end
+        # of the copy that last read it.
+        self._stage_lock = threading.Lock()
+        self._staging = None
+        self._copied = (torch.cuda.Event() if self.device.type == "cuda"
+                        else None)
         self._model = self._build(variables)
 
         def stat(a, dev=self.device):
@@ -402,27 +435,14 @@ class End2EndServer:
             centers = np.asarray(centers, np.float32)
             scales = np.asarray(scales, np.float32)
             model = self._model  # ONE read: every chunk on the same weights
-            dev = self.device
             outs = []
             done = 0
             with torch.no_grad():
                 for take, batch in self._chunks(n):
                     with span("e2e.h2d"):
-                        f = torch.from_numpy(np.ascontiguousarray(
-                            frames[done:done + take])).to(dev)
-                        c = torch.from_numpy(np.ascontiguousarray(
-                            centers[done:done + take])).to(dev)
-                        s = torch.from_numpy(np.ascontiguousarray(
-                            scales[done:done + take])).to(dev)
-                        if take < batch:
-                            pad = batch - take
-                            self.frames_padded += pad
-                            f = torch.cat([f, f.new_zeros((pad,)
-                                                          + f.shape[1:])])
-                            c = torch.cat([c, c.new_full((pad, 2), 128.0)])
-                            s = torch.cat([s, s.new_ones(pad)])
-                        if f.dtype == torch.uint8:
-                            f = f.float() / self._255
+                        f, c, s = self._stage(frames[done:done + take],
+                                              centers[done:done + take],
+                                              scales[done:done + take], batch)
                     with span("e2e.forward"):
                         _, p2, p3 = self._run(model, f, c, s)
                     outs.append((take, p2[:take], p3[:take]))
@@ -434,6 +454,57 @@ class End2EndServer:
                         for i in (1, 2))
             mm = pose3d * self._std_s + self._mean_s
             return pose2d, mm.reshape(n, 16, 3)
+
+    def _stage(self, frames, centers, scales, batch: int):
+        """One chunk to the device. ``frames`` (take of them) are copied in
+        their own memory order (``memory_order``, negative-stride axes
+        flipped) into the staging buffer and sent in one copy; on the
+        device one kernel writes the model's C-contiguous f32 input from a
+        view that restores the (take, 256, 256, 3) layout (u8 divided by
+        255; a flipped axis adds a flip), and zero frames fill the batch,
+        their centres 128 and scales 1. Returns (frames, centres, scales)
+        on the device."""
+        dev = self.device
+        take = len(frames)
+        # Before the frames: a pageable copy waits for the stream.
+        c = torch.from_numpy(np.ascontiguousarray(centers)).to(dev)
+        s = torch.from_numpy(np.ascontiguousarray(scales)).to(dev)
+        if take < batch:
+            pad = batch - take
+            c = torch.cat([c, c.new_full((pad, 2), 128.0)])
+            s = torch.cat([s, s.new_ones(pad)])
+        flips = tuple(i for i in range(frames.ndim) if frames.strides[i] < 0)
+        frames = np.flip(frames, flips)  # torch takes no negative stride
+        order = memory_order(frames)
+        src = torch.from_numpy(frames.transpose(order))
+        nbytes = src.numel() * src.element_size()
+        f = torch.empty((batch,) + frames.shape[1:], dtype=torch.float32,
+                        device=dev)
+        with self._stage_lock:
+            if order != tuple(range(frames.ndim)):
+                self.frames_reordered += take
+            self.frames_padded += batch - take
+            if self._copied is not None:
+                self._copied.synchronize()  # the last copy has read it
+            if self._staging is None or self._staging.numel() < nbytes:
+                self._staging = torch.empty(  # for the largest batch size
+                    max(self.batch_sizes) * (nbytes // take),
+                    dtype=torch.uint8, pin_memory=dev.type == "cuda")
+            x = self._staging[:nbytes].view(src.dtype).view(src.shape)
+            x.copy_(src)
+            x = x.to(dev, non_blocking=True)  # on the CPU, the buffer itself
+            if self._copied is not None:
+                self._copied.record(torch.cuda.current_stream(dev))
+            x = x.permute([order.index(i) for i in range(len(order))])
+            if flips:
+                x = x.flip(flips)
+            if take < batch:
+                f[take:].zero_()
+            if x.dtype == torch.uint8:
+                torch.div(x, self._255, out=f[:take])
+            else:
+                f[:take].copy_(x)
+        return f, c, s
 
     def _run(self, model, f, c, s):
         """One chunk through the model, or its equal row blocks through
