@@ -23,7 +23,9 @@ Endpoints: GET /healthz, GET /metrics, POST /v1/lift (JSON
 (N,256,256,3) u8 or f32 [+ centers, scales]), POST /admin/reload. --warm
 runs every lifting row count and each End2End batch size on u8 frames
 before the first request. The torch7 detector's ResModules run through
-kernel K3; the preact detector has no fused blocks. ``--quantize int8``
+kernel K3; the preact and HRNet detectors have no fused blocks
+(``--variant hrnet`` serves HRNet-W48 on cuDNN and torch's ops, and
+refuses ``--quantize``). ``--quantize int8``
 (or int8-static, which maps to int8 for End2End as in JAX) with --kind
 end2end|both serves the detector's body convs as int8 convolutions
 (kernels K6/K7; no K3). ``--aot`` serves artifacts instead: each one's
@@ -144,7 +146,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "split; required unless --aot)")
     p.add_argument("--protocol", default=Protocol.GT)
     p.add_argument("--variant", default="torch7",
-                   help="End2End's detector: torch7 or preact")
+                   help="End2End's detector: torch7, preact or hrnet")
     p.add_argument("--dtype", default="bfloat16", choices=list(DTYPES))
     p.add_argument("--quantize", default="",
                    choices=["", "int8", "int8-static"])

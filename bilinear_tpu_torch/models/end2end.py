@@ -3,7 +3,8 @@ module (counterpart of ``bilinear_tpu/models/end2end.py``).
 
 Per batch:
   images (B, 256, 256, 3) -> the detector (``hourglass``: torch7 or
-  preact, 8 stacks) -> last-stack heatmaps -> softargmax (x10 temperature)
+  preact, 8 stacks, or HRNet-W48, one stage) -> last-stack heatmaps ->
+  softargmax (x10 temperature)
   -> heatmap space -> image space (centre/scale) -> MPII -> H36M-16 (nose
   deleted) -> z-score with the H36M train-split part statistics ->
   ``bilinear`` (BilinearUnit) -> normalized 48-d 3D pose.
@@ -23,10 +24,12 @@ names>`` and independently trained checkpoints assemble into this module
 (``assemble_variables``, ``utils/weights.py::end2end_from_jax``).
 
 ``fused=True`` runs the torch7 detector's ResModules through kernels K3
-(forward) and K4 (backward) on a CUDA tensor; the preact detector has no
-kernel path and raises. ``quantize="int8"`` gives either detector its
-eval-mode int8 convolutions (``ops/int8.py``, kernels K6/K7; an int8 eval
-forward launches no K3). The lifting half stays in ``dtype`` and never
+(forward) and K4 (backward) on a CUDA tensor; the preact and HRNet
+detectors have no kernel path and raise. ``quantize="int8"`` gives either
+hourglass its eval-mode int8 convolutions (``ops/int8.py``, kernels
+K6/K7; an int8 eval forward launches no K3); HRNet has none and raises.
+The submodule keeps the name ``hourglass`` for every variant, so each
+variant's tree sits under the same key. The lifting half stays in ``dtype`` and never
 goes through the lifting kernels K1/K2 (as in JAX). Train-mode dropout
 draws its masks from the ``generator`` given to ``forward``, on the
 activations' device.
@@ -53,8 +56,10 @@ class End2End(nn.Module):
                  fused: bool = False, quantize: Optional[str] = None,
                  n_modules: Optional[int] = None,
                  generator: Optional[torch.Generator] = None):
-        """Size overrides of None keep the reference detector (8 stacks,
-        256 features, depth 4). ``quantize="int8"``: the detector's int8
+        """``variant``: "torch7", "preact" or "hrnet"
+        (``train/hourglass.py::make_model``). Size overrides of None keep
+        the reference detector (8 stacks, 256 features, depth 4; HRNet's
+        width 48, which ``features`` overrides). ``quantize="int8"``: the detector's int8
         convolutions in eval mode (the lifter stays in ``dtype``, as in
         JAX). ``generator`` seeds the initialisation of both halves."""
         super().__init__()

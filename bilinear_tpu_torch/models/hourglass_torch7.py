@@ -67,9 +67,12 @@ def _conv(cin, cout, kernel, stride=1) -> nn.Conv2d:
 
 
 def conv_in(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
-    """The conv in ``dtype``: round(conv(x, W)) + round(b), in ``dtype``."""
+    """The conv in ``dtype``: round(conv(x, W)) + round(b), in ``dtype``
+    (a bias-free conv adds nothing)."""
     y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, conv.stride,
                  conv.padding)
+    if conv.bias is None:
+        return y
     return y + conv.bias.to(dtype).view(1, -1, 1, 1)
 
 

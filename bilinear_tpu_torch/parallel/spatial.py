@@ -370,6 +370,10 @@ def make_spatial_fn(model, mesh):
     moved to the mesh's first device and its weights copied once to each
     other device (``Weights``). A model in train mode, or a mesh of the
     CPU and cards, is refused: the JAX package has no such path."""
+    if getattr(model, "variant", None) == "hrnet":
+        raise ValueError("the 'hrnet' variant has no spatially sharded "
+                         "forward: its exchange units join every "
+                         "resolution")
     mesh = as_local_mesh(mesh)
     if len({d.type for d in mesh.devices}) > 1:
         raise ValueError("a spatial mesh is all cards or all the CPU: the "

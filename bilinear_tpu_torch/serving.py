@@ -10,11 +10,13 @@ frame->3D over the End2End model (``End2EndServer``).
 Weights are folded (and quantized, and calibrated) once per checkpoint.
 ``from_run_dir`` serves the newest ``{run_dir}/parameter/{epoch}.save``,
 written by the JAX trainer or by the port, and ``reload`` swaps in a newer
-one. ``End2EndServer`` runs frames through hourglass -> soft-argmax ->
-lifting at fixed batch sizes; with ``model_kw={"fused": True}`` and the
-torch7 detector its ResModules run through kernel K3 (eval), and with
-``quantize="int8"`` the detector's body convs run as int8 convolutions
-(kernels K6/K7, no K3). Both servers run on the card unless
+one. ``End2EndServer`` runs frames through the detector (``variant``
+"torch7", "preact" or "hrnet") -> soft-argmax -> lifting at fixed batch
+sizes; with ``model_kw={"fused": True}`` and the torch7 detector its
+ResModules run through kernel K3 (eval), and with ``quantize="int8"`` an
+hourglass's body convs run as int8 convolutions (kernels K6/K7, no K3).
+HRNet-W48 runs on cuDNN's convolutions and torch's ops, and refuses
+``fused`` and ``quantize``. Both servers run on the card unless
 ``device="cpu"`` is passed.
 
 ``mesh=`` (a list of local devices or ``parallel/mesh.py::LocalMesh``; a
@@ -295,8 +297,10 @@ class End2EndServer:
                  model_kw: Optional[dict] = None,
                  parameter_dir: Optional[str] = None, epoch: int = 0,
                  quantize: Optional[str] = None, device=None, mesh=None):
-        """``variables``: ``{"params", "batch_stats"}``, the JAX package's
-        End2End trees (numpy leaves, as a ``.save`` holds them).
+        """``variables``: ``{"params", "batch_stats"}``, End2End's trees
+        (numpy leaves, as a ``.save`` holds them): the JAX package's for
+        the hourglasses, HRNet's published names for ``variant="hrnet"``
+        (``utils/weights.py``).
         ``model_kw`` goes to ``End2End`` (``{"fused": True}`` serves the
         torch7 detector through K3). ``quantize="int8"`` serves the
         detector's body convs as dynamic int8 convolutions (the same

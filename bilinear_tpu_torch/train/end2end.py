@@ -91,7 +91,11 @@ class End2EndTrainer:
                  model_kw: Optional[dict] = None, device=None):
         """``model_kw``: End2End's detector overrides (``n_stacks``,
         ``features``, ``depth``, ``n_modules``, ``fused``). ``device``:
-        None is the card, and raises when there is none."""
+        None is the card, and raises when there is none. The 'hrnet'
+        detector is served, not trained: it raises."""
+        if variant == "hrnet":
+            raise ValueError("the 'hrnet' variant has no End2End trainer: "
+                             "the port serves HRNet, it does not train it")
         self.mesh = th.check_mesh(mesh)
         self.shard = None if self.mesh is None else \
             DataShard(self.mesh.data_group)

@@ -1,8 +1,8 @@
 """Carry weights between the JAX package's parameter trees and the port's
 ``state_dict``s: ``BilinearUnit``, the torch7 detector and the
 pre-activation detector (the port's own copy of those halves of
-``bilinear_tpu/utils/torch_compat.py``; ``HOURGLASS`` names each detector
-variant's converters).
+``bilinear_tpu/utils/torch_compat.py``), and HRNet's tree, which JAX does
+not have (``HOURGLASS`` names each detector variant's converters).
 
 JAX tree -> state_dict:
 - Dense ``kernel`` (in, out)            -> Linear ``weight`` (out, in)
@@ -542,6 +542,106 @@ def hourglass_preact_to_jax(state_dict: Mapping[str, Any]):
     return params, stats
 
 
+# ---------------------------------------------------------------------------
+# HRNet (models/hrnet.py), which JAX does not have. Its ``.save`` tree keeps
+# the ``{"params", "batch_stats"}`` form under the published module names,
+# one tree level per dotted component (``stage2.0.branches.1.3.conv1`` is
+# params["stage2"]["0"]["branches"]["1"]["3"]["conv1"]): a conv is
+# ``{kernel (kh, kw, in, out)[, bias]}``, a BN ``{scale, bias}`` with
+# ``{mean, var, count}`` in the statistics.
+# ---------------------------------------------------------------------------
+
+def hrnet_config_of_jax(params: Mapping[str, Any]) -> Dict[str, int]:
+    """width and n_joints of an HRNet tree (its ``final_layer``)."""
+    shape = np.shape(params["final_layer"]["kernel"])
+    return dict(width=int(shape[2]), n_joints=int(shape[3]))
+
+
+def hrnet_config_of_state_dict(sd: Mapping[str, Any]) -> Dict[str, int]:
+    """The same, of a PoseHighResolutionNet state_dict."""
+    shape = tuple(sd["final_layer.weight"].shape)
+    return dict(width=int(shape[1]), n_joints=int(shape[0]))
+
+
+def hrnet_param_paths(cfg: Mapping[str, int]):
+    """(state_dict key, tree path, kind) of every trained parameter of
+    PoseHighResolutionNet, as ``torch7_param_paths``, in its registration
+    order (the model built on the meta device)."""
+    from bilinear_tpu_torch.models.hrnet import PoseHighResolutionNet
+
+    with torch.device("meta"):
+        model = PoseHighResolutionNet(cfg["width"], cfg["n_joints"])
+    for key, p in model.named_parameters():
+        prefix, name = key.rsplit(".", 1)
+        path = tuple(prefix.split("."))
+        if p.dim() == 4:
+            yield key, path + ("kernel",), "conv_w"
+        elif p.dim() == 1 and name == "weight":
+            yield key, path + ("scale",), "plain"
+        else:
+            yield key, path + ("bias",), "plain"
+
+
+def _walk(tree: Mapping[str, Any], path: tuple = ()):
+    """(path, node) of every conv (a ``kernel``) and BN (a ``scale``) node."""
+    if "kernel" in tree or "scale" in tree:
+        yield path, tree
+        return
+    for key, sub in tree.items():
+        yield from _walk(sub, path + (key,))
+
+
+def hrnet_from_jax(params: Mapping[str, Any],
+                   batch_stats: Mapping[str, Any]
+                   ) -> Dict[str, torch.Tensor]:
+    """An HRNet ``{params, batch_stats}`` tree (numpy leaves) -> the port's
+    PoseHighResolutionNet ``state_dict``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, node in _walk(params):
+        prefix = ".".join(path)
+        if "scale" in node:
+            st = get_leaf(batch_stats, path)
+            sd[prefix + ".weight"] = _tensor(node["scale"])
+            sd[prefix + ".bias"] = _tensor(node["bias"])
+            sd[prefix + ".running_mean"] = _tensor(st["mean"])
+            sd[prefix + ".running_var"] = _tensor(st["var"])
+            sd[prefix + ".num_batches_tracked"] = torch.tensor(
+                int(np.asarray(st["count"])), dtype=torch.int64)
+            continue
+        sd[prefix + ".weight"] = conv_from_jax(node["kernel"])
+        if "bias" in node:
+            sd[prefix + ".bias"] = _tensor(node["bias"])
+    return sd
+
+
+def hrnet_to_jax(state_dict: Mapping[str, Any]):
+    """Port PoseHighResolutionNet ``state_dict`` -> ``(params,
+    batch_stats)`` numpy trees; exact inverse of ``hrnet_from_jax``
+    (``count`` comes back int32)."""
+    sd = state_dict
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for key, t in sd.items():
+        prefix, name = key.rsplit(".", 1)
+        path = tuple(prefix.split("."))
+        if prefix + ".running_mean" in sd:  # a BN
+            if name == "weight":
+                put_leaf(params, path + ("scale",), _numpy(t))
+            elif name == "bias":
+                put_leaf(params, path + ("bias",), _numpy(t))
+            elif name == "num_batches_tracked":
+                put_leaf(stats, path + ("count",),
+                         _numpy(t).astype(np.int32))
+            else:
+                put_leaf(stats, path + (name[len("running_"):],),
+                         _numpy(t))
+        elif name == "weight":
+            put_leaf(params, path + ("kernel",), conv_to_jax(t))
+        else:
+            put_leaf(params, path + ("bias",), _numpy(t))
+    return params, stats
+
+
 class HourglassConverters(NamedTuple):
     """One model's converters between the two packages (a detector
     variant's, or End2End's: ``end2end_converters``)."""
@@ -562,17 +662,23 @@ HOURGLASS = {
         hourglass_preact_from_jax, hourglass_preact_to_jax,
         preact_config_of_jax, preact_config_of_state_dict,
         preact_param_paths),
+    "hrnet": HourglassConverters(
+        hrnet_from_jax, hrnet_to_jax, hrnet_config_of_jax,
+        hrnet_config_of_state_dict, hrnet_param_paths),
 }
 
 
 def detector_variant_of_jax(params: Mapping[str, Any]) -> str:
-    """'torch7' or 'preact': which detector a JAX parameter tree holds."""
+    """'torch7', 'preact' or 'hrnet': which detector a parameter tree
+    holds."""
     if "htmap_0" in params:
         return "torch7"
     if "heatmap_0" in params:
         return "preact"
-    raise ValueError("the tree is neither detector's (no htmap_0 or "
-                     "heatmap_0)")
+    if "final_layer" in params:
+        return "hrnet"
+    raise ValueError("the tree is no detector's (no htmap_0, heatmap_0 or "
+                     "final_layer)")
 
 
 # ---------------------------------------------------------------------------
