@@ -24,8 +24,8 @@ Endpoints: GET /healthz, GET /metrics, POST /v1/lift (JSON
 runs every lifting row count and each End2End batch size on u8 frames
 before the first request. The torch7 detector's ResModules run through
 kernel K3; the preact and HRNet detectors have no fused blocks
-(``--variant hrnet`` serves HRNet-W48 on cuDNN and torch's ops, and
-refuses ``--quantize``). ``--quantize int8``
+(``--variant hrnet`` serves HRNet-W48 on cuDNN's convolutions and kernel
+K8's epilogues, and refuses ``--quantize``). ``--quantize int8``
 (or int8-static, which maps to int8 for End2End as in JAX) with --kind
 end2end|both serves the detector's body convs as int8 convolutions
 (kernels K6/K7; no K3). ``--aot`` serves artifacts instead: each one's

@@ -29,10 +29,21 @@ in f32, convs in ``dtype``, each BN (``core.norm.BatchNorm2d``) in f32 on
 the rounded conv output and rounded back; the adds, ReLUs and upsamples
 in ``dtype``. Activations are NCHW tensors in ``torch.channels_last``.
 
-The model runs on cuDNN's convolutions and torch's ops: it has no fused
-kernel path, no int8 path and no spatially sharded forward, and it is
-served, not trained, by the port (``train/hourglass.py::make_model``
-refuses the rest).
+Eval plan. ``build_eval_plan`` (``End2EndServer`` calls it on each model
+it builds, after ``.eval()`` and the move to its device) casts every conv
+weight to ``dtype`` in channels_last once (``conv_in`` casts it at each
+call, and cuDNN then copies each 3x3 into the activations' layout) and
+turns every BN into an f32 (scale, shift) table
+(``ops.conv_epilogue.bn_affine``); ``train()`` drops it. An eval
+forward with a plan runs each conv on its prepared weight and everything
+after it up to the next conv (the BN, a residual or exchange sum of up to
+four terms with their own BNs and nearest upsamples, the ReLU; the head's
+bias and its f32 output) as one ``ops.conv_epilogue.conv_epilogue`` call,
+kernel K8 on the card, at the same rounding points: 262 a forward at W48.
+Without a plan, or in train mode, the forward is the composition above,
+op by op. The model has no int8 path and no spatially sharded forward,
+and it is served, not trained, by the port (``train/hourglass.py::
+make_model`` refuses the rest).
 
 Spans (``utils/profiling.py::span``), ``SPANS``: ``hrnet.stem`` (the stem
 and ``layer1``), ``hrnet.transition`` (each transition), ``hrnet.branches``
@@ -41,13 +52,15 @@ and ``hrnet.head`` (``final_layer``): 21 a forward.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from bilinear_tpu_torch.core.norm import BatchNorm2d
 from bilinear_tpu_torch.models.hourglass_torch7 import CL, bn_in, conv_in
+from bilinear_tpu_torch.ops.conv_epilogue import bn_affine, conv_epilogue
 from bilinear_tpu_torch.utils.profiling import span
 
 WIDTH = 48
@@ -62,6 +75,22 @@ SPANS = ("hrnet.stem", "hrnet.transition", "hrnet.branches",
          "hrnet.exchange", "hrnet.head")
 
 
+class EvalPlan(NamedTuple):
+    """What an eval forward reads in place of the parameters: each conv's
+    weight in the model's dtype and in channels_last (the activations'
+    layout, which cuDNN would otherwise copy the weight into at every
+    call), each BN's (2, C) (scale, shift) table, and the head's (scale 1,
+    its bias rounded to the dtype)."""
+
+    weights: Dict[nn.Conv2d, torch.Tensor]
+    affines: Dict[nn.Module, torch.Tensor]
+
+
+# A term of a sum: an activation, or a conv's output with the BN it has
+# still to go through.
+Term = Union[torch.Tensor, Tuple[torch.Tensor, BatchNorm2d]]
+
+
 def _conv3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False)
 
@@ -74,17 +103,58 @@ def _bn(c: int) -> BatchNorm2d:
     return BatchNorm2d(c, momentum=BN_MOMENTUM)
 
 
-def _conv_bn(conv: nn.Conv2d, bn: BatchNorm2d, x: torch.Tensor, dtype
-             ) -> torch.Tensor:
-    return bn_in(bn, conv_in(conv, x, dtype), dtype)
+def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype,
+          plan: Optional[EvalPlan]) -> torch.Tensor:
+    """``conv_in``, or with a plan the conv on its prepared weight (the
+    head's bias is left to its epilogue)."""
+    if plan is None:
+        return conv_in(conv, x, dtype)
+    return F.conv2d(x, plan.weights[conv], None, conv.stride, conv.padding)
 
 
-def _seq(seq: nn.Sequential, x: torch.Tensor, dtype) -> torch.Tensor:
-    """A published (conv, BN[, ReLU[, Upsample]]) Sequential in ``dtype``."""
-    y = _conv_bn(seq[0], seq[1], x, dtype)
-    for m in seq[2:]:
-        y = torch.relu(y) if isinstance(m, nn.ReLU) else m(y)
-    return y
+def _pending(conv: nn.Conv2d, bn: BatchNorm2d, x: torch.Tensor, dtype,
+             plan: Optional[EvalPlan]) -> Term:
+    return _conv(conv, x, dtype, plan), bn
+
+
+def _sum(terms: Sequence[Term], dtype, plan: Optional[EvalPlan],
+         relu: bool = True) -> torch.Tensor:
+    """The ReLU (``relu``) of the terms' sum in their order, at the first
+    term's resolution: a pending term goes through its BN first and, at a
+    lower resolution, is upsampled (nearest). With a plan, one
+    ``conv_epilogue`` call."""
+    if plan is not None:
+        return conv_epilogue([(t, None) if torch.is_tensor(t) else
+                              (t[0], plan.affines[t[1]]) for t in terms],
+                             relu)
+    y = None
+    for t in terms:
+        if not torch.is_tensor(t):
+            t = bn_in(t[1], t[0], dtype)
+        if y is not None and t.shape[-1] != y.shape[-1]:
+            t = F.interpolate(t, scale_factor=y.shape[-1] // t.shape[-1],
+                              mode="nearest")
+        y = t if y is None else y + t
+    return torch.relu(y) if relu else y
+
+
+def _chain(layer: nn.Sequential, x: torch.Tensor, dtype,
+           plan: Optional[EvalPlan]) -> Term:
+    """A transition's, an exchange's or a downsample's entry: one (conv,
+    BN[, ReLU]) Sequential or a chain of them. A step with a ReLU is
+    applied; the last step's BN, where it has none, is left pending."""
+    steps = [layer] if isinstance(layer[0], nn.Conv2d) else list(layer)
+    for step in steps:
+        x = _pending(step[0], step[1], x, dtype, plan)
+        if isinstance(step[-1], nn.ReLU):
+            x = _sum([x], dtype, plan)
+    return x
+
+
+def _run(seq: nn.Sequential, x, plan: Optional[EvalPlan]):
+    for module in seq:
+        x = module(x, plan)
+    return x
 
 
 class Bottleneck(nn.Module):
@@ -103,13 +173,15 @@ class Bottleneck(nn.Module):
         self.downsample = None if inplanes == out else nn.Sequential(
             _conv1(inplanes, out), _bn(out))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                plan: Optional[EvalPlan] = None) -> torch.Tensor:
         dt = self.dtype
-        h = torch.relu(_conv_bn(self.conv1, self.bn1, x, dt))
-        h = torch.relu(_conv_bn(self.conv2, self.bn2, h, dt))
-        h = _conv_bn(self.conv3, self.bn3, h, dt)
-        skip = x if self.downsample is None else _seq(self.downsample, x, dt)
-        return torch.relu(h + skip)
+        h = _sum([_pending(self.conv1, self.bn1, x, dt, plan)], dt, plan)
+        h = _sum([_pending(self.conv2, self.bn2, h, dt, plan)], dt, plan)
+        h = _pending(self.conv3, self.bn3, h, dt, plan)
+        skip = x if self.downsample is None else _chain(self.downsample, x,
+                                                        dt, plan)
+        return _sum([h, skip], dt, plan)
 
 
 class BasicBlock(nn.Module):
@@ -121,15 +193,18 @@ class BasicBlock(nn.Module):
         self.conv1, self.bn1 = _conv3(channels, channels), _bn(channels)
         self.conv2, self.bn2 = _conv3(channels, channels), _bn(channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                plan: Optional[EvalPlan] = None) -> torch.Tensor:
         dt = self.dtype
-        h = torch.relu(_conv_bn(self.conv1, self.bn1, x, dt))
-        return torch.relu(_conv_bn(self.conv2, self.bn2, h, dt) + x)
+        h = _sum([_pending(self.conv1, self.bn1, x, dt, plan)], dt, plan)
+        return _sum([_pending(self.conv2, self.bn2, h, dt, plan), x], dt,
+                    plan)
 
 
 class HighResolutionModule(nn.Module):
     """One multi-branch module: ``branches.{i}`` (BasicBlock chains), then
-    the exchange ``fuse_layers.{i}.{j}`` (None for j = i)."""
+    the exchange ``fuse_layers.{i}.{j}`` (None for j = i; for j > i the
+    1x1 conv and its BN, upsampled by the sum)."""
 
     def __init__(self, channels: Sequence[int], blocks: int,
                  multi_scale_output: bool = True, dtype=torch.float32):
@@ -147,8 +222,7 @@ class HighResolutionModule(nn.Module):
     def _fuse(channels: Sequence[int], i: int, j: int):
         ci, cj = channels[i], channels[j]
         if j > i:
-            return nn.Sequential(_conv1(cj, ci), _bn(ci), nn.Upsample(
-                scale_factor=2 ** (j - i), mode="nearest"))
+            return nn.Sequential(_conv1(cj, ci), _bn(ci))
         if j == i:
             return None
         steps = []
@@ -160,20 +234,18 @@ class HighResolutionModule(nn.Module):
                                            nn.ReLU()))
         return nn.Sequential(*steps)
 
-    def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    def forward(self, xs: List[torch.Tensor],
+                plan: Optional[EvalPlan] = None) -> List[torch.Tensor]:
+        dt = self.dtype
         with span("hrnet.branches"):
-            xs = [branch(x) for branch, x in zip(self.branches, xs)]
+            xs = [_run(branch, x, plan)
+                  for branch, x in zip(self.branches, xs)]
         if self.fuse_layers is None:
             return xs
         with span("hrnet.exchange"):
-            out = []
-            for i, row in enumerate(self.fuse_layers):
-                y = None
-                for j, x in enumerate(xs):
-                    t = x if j == i else _chain(row[j], x, self.dtype)
-                    y = t if y is None else y + t
-                out.append(torch.relu(y))
-        return out
+            return [_sum([x if j == i else _chain(row[j], x, dt, plan)
+                          for j, x in enumerate(xs)], dt, plan)
+                    for i, row in enumerate(self.fuse_layers)]
 
 
 class PoseHighResolutionNet(nn.Module):
@@ -188,6 +260,7 @@ class PoseHighResolutionNet(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.width = width
+        self.plan: Optional[EvalPlan] = None
         c0 = STEM_CHANNELS
         self.conv1, self.bn1 = _conv3(3, c0, 2), _bn(c0)
         self.conv2, self.bn2 = _conv3(c0, c0, 2), _bn(c0)
@@ -207,22 +280,53 @@ class PoseHighResolutionNet(nn.Module):
         self.final_layer = nn.Conv2d(width, n_joints, 1)
         init_weights(self, generator)
 
+    @torch.no_grad()
+    def build_eval_plan(self) -> "PoseHighResolutionNet":
+        """Prepare the eval plan from the parameters and running statistics
+        as they are now, on their device: build it after loading and
+        moving the model. Returns the model."""
+        dt = self.dtype
+        at = torch.promote_types(torch.float32, dt)
+        weights, affines = {}, {}
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                weights[m] = m.weight.to(dt).contiguous(memory_format=CL)
+            elif isinstance(m, nn.BatchNorm2d):
+                affines[m] = bn_affine(m, at)
+        bias = self.final_layer.bias.to(dt).to(at)
+        affines[self.final_layer] = torch.stack([torch.ones_like(bias),
+                                                 bias])
+        self.plan = EvalPlan(weights, affines)
+        return self
+
+    def train(self, mode: bool = True) -> "PoseHighResolutionNet":
+        if mode:
+            self.plan = None
+        return super().train(mode)
+
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
+        plan = None if self.training else self.plan
         x = images.permute(0, 3, 1, 2).to(dt).contiguous(memory_format=CL)
         with span("hrnet.stem"):
-            x = torch.relu(_conv_bn(self.conv1, self.bn1, x, dt))
-            x = torch.relu(_conv_bn(self.conv2, self.bn2, x, dt))
-            xs = [self.layer1(x)]
+            x = _sum([_pending(self.conv1, self.bn1, x, dt, plan)], dt, plan)
+            x = _sum([_pending(self.conv2, self.bn2, x, dt, plan)], dt, plan)
+            xs = [_run(self.layer1, x, plan)]
         for s in range(2, len(STAGES) + 2):
             with span("hrnet.transition"):
-                xs = [xs[i] if t is None else _chain(t, xs[-1], dt)
+                xs = [xs[i] if t is None else _chain(t, xs[-1], dt, plan)
                       for i, t in enumerate(getattr(self,
                                                     f"transition{s - 1}"))]
-            xs = getattr(self, f"stage{s}")(xs)
+            xs = _run(getattr(self, f"stage{s}"), xs, plan)
         with span("hrnet.head"):
-            heat = conv_in(self.final_layer, xs[0], dt)
-            out = heat.to(torch.promote_types(torch.float32, dt))
+            out_dt = torch.promote_types(torch.float32, dt)
+            heat = _conv(self.final_layer, xs[0], dt, plan)
+            if plan is None:
+                out = heat.to(out_dt)
+            else:
+                out = conv_epilogue(
+                    [(heat, plan.affines[self.final_layer])],
+                    out_dtype=out_dt)
             return out.permute(0, 2, 3, 1).unsqueeze(0)
 
 
@@ -245,16 +349,6 @@ def _transition(pre: Sequence[int], cur: Sequence[int]) -> nn.ModuleList:
                                        nn.ReLU()))
         layers.append(nn.Sequential(*steps))
     return nn.ModuleList(layers)
-
-
-def _chain(layer: nn.Sequential, x: torch.Tensor, dtype) -> torch.Tensor:
-    """A transition's or an exchange's entry: one (conv, BN, ...) Sequential,
-    or a chain of them."""
-    if isinstance(layer[0], nn.Conv2d):
-        return _seq(layer, x, dtype)
-    for step in layer:
-        x = _seq(step, x, dtype)
-    return x
 
 
 @torch.no_grad()

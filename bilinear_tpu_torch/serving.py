@@ -15,8 +15,9 @@ one. ``End2EndServer`` runs frames through the detector (``variant``
 sizes; with ``model_kw={"fused": True}`` and the torch7 detector its
 ResModules run through kernel K3 (eval), and with ``quantize="int8"`` an
 hourglass's body convs run as int8 convolutions (kernels K6/K7, no K3).
-HRNet-W48 runs on cuDNN's convolutions and torch's ops, and refuses
-``fused`` and ``quantize``. Both servers run on the card unless
+HRNet-W48 runs on cuDNN's convolutions, each followed by one epilogue
+(its BN, sums, upsamples and ReLU; kernel K8), and refuses ``fused`` and
+``quantize``. Both servers run on the card unless
 ``device="cpu"`` is passed.
 
 ``mesh=`` (a list of local devices or ``parallel/mesh.py::LocalMesh``; a
@@ -354,13 +355,19 @@ class End2EndServer:
 
     def _build(self, variables):
         """A new eval-mode End2End holding ``variables``, on the device;
-        under a mesh a tuple of them, one per device."""
+        under a mesh a tuple of them, one per device. A detector with an
+        eval plan (HRNet's ``build_eval_plan``) builds it here, so each
+        reload brings its own."""
         from bilinear_tpu_torch.models.end2end import End2End
 
         def one(dev):
             model = End2End(variant=self.variant, dtype=self.dtype,
                             quantize=self.quantize, **self.model_kw)
-            return model.load_jax(variables).to(dev).eval()
+            model = model.load_jax(variables).to(dev).eval()
+            plan = getattr(model.hourglass, "build_eval_plan", None)
+            if plan is not None:
+                plan()
+            return model
 
         if self._mesh is None:
             return one(self.device)

@@ -7,8 +7,8 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
 1. Card: name and power limit from nvidia-smi; TF32 switched off for
    matmuls and cuDNN, so the plain f32 versions run in full f32.
 2. Build: every CUDA source (csrc/lifting.cu, csrc/lifting_int8.cu,
-   csrc/resmodule.cu, csrc/int8_conv.cu, csrc/int8_scale_probe.cu), one
-   nvcc each, in parallel.
+   csrc/resmodule.cu, csrc/int8_conv.cu, csrc/int8_scale_probe.cu,
+   csrc/conv_epilogue.cu), one nvcc each, in parallel.
 3. Kernels vs their plain PyTorch versions, on the card, in the working
    type: K1 bf16 and f32, K2 dynamic and static, at every n of row_counts()
    (both sides of every boundary between kernel paths and tiles), full-width
@@ -41,6 +41,16 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    static) at n = 256 and 65536 by CUDA events beside the bound, the plain
    version and K2 static, with K5's launches counted; then K5 by a profiler
    trace at both n: one device kernel a call.
+   3d. K8, HRNet's conv epilogue (ops/conv_epilogue.py), against its plain
+   version at HRNet-W48's served epilogues (batch 128: the branches'
+   BasicBlock sums at 48x64..384x8, exchange rows with up- and
+   down-sampled terms, the stem, a Bottleneck's downsample, the f32 head)
+   in bf16 and f32, one launch a call; a planted fault (a term read at the
+   wrong resolution step) must be caught; 262 launches in one served
+   128-frame HRNet chunk; then its times at a BasicBlock's (128, 48, 64,
+   64) and exchange row 0 of stage 4 beside its bound (bytes), its plain
+   version and the wrapper's host time (``phase3d_alone()`` runs phases
+   1, 2 and 3d alone).
 4. The lifting slice: a synthetic H36M dataset and an epoch-1 checkpoint
    written by the port; for each serving mode the daemon of cli/serve.py
    answers /v1/lift requests (JSON and .npy, concurrent ones coalesced)
@@ -215,7 +225,7 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    2, 4 and one S = 2 fused forward by trace. The slabs share one card:
    no scaling figure.
 
-Phases run in the order 1-3, 3b, 3c, 4, 5, 9, 6-8, 10-14, 16g, 17, 15, 16. The line before the last is the kernels' JSON record; the last line is
+Phases run in the order 1-3, 3b, 3c, 3d, 4, 5, 9, 6-8, 10-14, 16g, 17, 15, 16. The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or bilinear_tpu.
 """
 import json
@@ -6972,6 +6982,271 @@ SOURCES = {
 }
 
 
+# ------------------------------------------------------------ phase 3d
+
+# HRNet-W48's epilogues (K8) at its served batch of 128: name -> (channels,
+# size, terms, ReLU). A term is ("bn", m), a raw conv output at 1/2^m of
+# the size with its BN table, or ("x", m), an activation; "head" is the
+# 1x1 head's output with scale 1 and its bias, written in f32.
+K8_BATCH = 128
+K8_SHAPES = {
+    "basic_block_48x64": (48, 64, [("bn", 0), ("x", 0)], True),
+    "exchange_row0_stage4": (48, 64, [("x", 0), ("bn", 1), ("bn", 2),
+                                      ("bn", 3)], True),
+    "basic_block_96x32": (96, 32, [("bn", 0), ("x", 0)], True),
+    "basic_block_192x16": (192, 16, [("bn", 0), ("x", 0)], True),
+    "basic_block_384x8": (384, 8, [("bn", 0), ("x", 0)], True),
+    "exchange_row3_stage4": (384, 8, [("bn", 0), ("bn", 0), ("bn", 0),
+                                      ("x", 0)], True),
+    "stem_64x128": (64, 128, [("bn", 0)], True),
+    "bottleneck_downsample_256x64": (256, 64, [("bn", 0), ("bn", 0)], True),
+    "head_16x64": (16, 64, [("head", 0)], False),
+}
+K8_TIME_SHAPES = ("basic_block_48x64", "exchange_row0_stage4")
+K8_SOURCE = ("bilinear_tpu_torch/csrc/conv_epilogue.cu",
+             "none: port kernel, no Pallas counterpart (the JAX package has "
+             "no HRNet)")
+
+
+def k8_case(name: str, dtype, seed: int):
+    """(terms, relu, out dtype, bytes the call must move) of one shape of
+    ``K8_SHAPES`` on the card, seeded: activations N(0, 1) in ``dtype``,
+    BN tables with scales U(0.2, 2) and shifts N(0, 0.5)."""
+    import torch
+
+    c, size, kinds, relu = K8_SHAPES[name]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    terms, nbytes = [], 0
+    for kind, m in kinds:
+        s = size >> m
+        x = torch.randn(K8_BATCH, c, s, s, device="cuda", generator=gen)
+        x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+        table = None
+        if kind == "bn":
+            table = torch.stack([
+                torch.rand(c, device="cuda", generator=gen) * 1.8 + 0.2,
+                torch.randn(c, device="cuda", generator=gen) * 0.5])
+        elif kind == "head":
+            table = torch.stack([
+                torch.ones(c, device="cuda"),
+                (torch.randn(c, device="cuda", generator=gen) * 0.5).to(
+                    dtype).float()])
+        terms.append((x, table))
+        nbytes += x.numel() * x.element_size()
+    out_dtype = torch.float32 if kinds[0][0] == "head" else None
+    out_size = (4 if out_dtype is not None else
+                torch.empty((), dtype=dtype).element_size())
+    nbytes += K8_BATCH * c * size * size * out_size
+    return terms, relu, out_dtype, nbytes
+
+
+def _k8_gate(name: str, terms, got, want, dtype) -> float:
+    """K8 against its plain version on the same tensors: f32 within 1e-6
+    of the largest; bf16 equal but for at most 1e-3 of the elements, each
+    off by at most one bf16 unit of the largest magnitude along the
+    element's way (a term's x * scale, the term after its BN, either sum)
+    per rounding of a term: the kernel's BN is one fused multiply-add, the
+    plain version's a multiply rounded to f32 and an add, so a term may
+    round the other way (most often where the shift cancels the product),
+    and each later rounded add may move the two sums one unit further apart
+    (two ties rounded to even in opposite directions). The head (scale 1)
+    bit for bit. Returns the largest absolute difference."""
+    import torch
+    from bilinear_tpu_torch.ops.conv_epilogue import conv_epilogue_ref
+
+    d = (got.float() - want.float()).abs()
+    err = float(d.max())
+    if name.startswith("head") and not torch.equal(got, want):
+        raise AssertionError(f"K8 {name}: the head is not its plain "
+                             f"version bit for bit (max {err})")
+    if dtype == torch.float32:
+        if err > 1e-6 * float(want.abs().max()):
+            raise AssertionError(f"K8 {name} f32: max abs err {err}")
+        return err
+    share = float((d > 0).float().mean())
+    mags = torch.maximum(want.float().abs(), got.float().abs())
+    zero = torch.zeros_like(terms[0][0])
+    for x, table in terms:
+        parts = [table] if table is None else [table, torch.stack(
+            [table[0], torch.zeros_like(table[1])])]
+        for t in parts:
+            mags = torch.maximum(mags, conv_epilogue_ref(
+                [(zero.float(), None), (x.float(), t)]).abs())
+    _, e = torch.frexp(mags)
+    ulp = torch.ldexp(torch.ones_like(d), e - 8) * len(terms)
+    if share > 1e-3 or bool((d > ulp).any()):
+        bad = (d > ulp).nonzero()[:3].tolist()
+        raise AssertionError(
+            f"K8 {name} bf16: {share:.2e} of the elements differ, max {err}, "
+            f"beyond one bf16 unit: {int((d > ulp).sum())}, e.g. at "
+            f"{bad}: kernel, plain, largest magnitude " + str(
+                [(float(got[tuple(i)]), float(want[tuple(i)]),
+                  float(mags[tuple(i)])) for i in bad]))
+    return err
+
+
+def check_k8() -> tuple:
+    """K8 at every shape of ``K8_SHAPES`` in bf16 and f32 against its plain
+    version, one launch a call; a planted fault (a term read at the wrong
+    resolution step) must be caught. Returns (max abs err, launches)."""
+    import torch
+    from bilinear_tpu_torch.ops import conv_epilogue as ce
+
+    err, launches = 0.0, 0
+    for i, name in enumerate(K8_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            terms, relu, out_dtype, _ = k8_case(name, dtype, SEED + i)
+            before = ce.LAUNCHES
+            got = ce.conv_epilogue(terms, relu, out_dtype)
+            torch.cuda.synchronize()
+            if ce.LAUNCHES != before + 1:
+                raise AssertionError(f"K8 {name}: {ce.LAUNCHES - before} "
+                                     f"launches for one call")
+            launches += 1
+            want = ce.conv_epilogue_ref(terms, relu, out_dtype)
+            err = max(err, _k8_gate(name, terms, got, want, dtype))
+            log(f"  K8 {name} {str(dtype)[6:]}: max abs err vs plain "
+                f"{float((got.float() - want.float()).abs().max()):.3g}")
+    terms, relu, out_dtype, _ = k8_case("exchange_row0_stage4",
+                                        torch.bfloat16, SEED)
+    x, table = terms[1]
+    wrong = x.repeat_interleave(2, 2).repeat_interleave(2, 3)
+    planted = ce.conv_epilogue([terms[0], (wrong[:, :, :32, :32]
+                                           .contiguous(memory_format=
+                                                       torch.channels_last),
+                                           table)] + terms[2:], relu)
+    launches += 1
+    want = ce.conv_epilogue_ref(terms, relu)
+    try:
+        _k8_gate("planted fault", terms, planted, want, torch.bfloat16)
+    except AssertionError:
+        log("  K8: the planted fault (a term read at the wrong step) is "
+            "caught")
+    else:
+        raise AssertionError("K8: the planted fault passed the gate")
+    return err, launches
+
+
+def k8_served_chunk() -> int:
+    """One 128-frame chunk of a full-width HRNet (seeded init) through
+    End2EndServer: K8 launches a chunk (262 expected) and finite answers."""
+    import numpy as np
+    import torch
+    from bilinear_tpu_torch.models.end2end import End2End
+    from bilinear_tpu_torch.ops import conv_epilogue as ce
+    from bilinear_tpu_torch.serving import End2EndServer
+    from bilinear_tpu_torch.utils import weights as wt
+
+    model = End2End(variant="hrnet",
+                    generator=torch.Generator().manual_seed(SEED))
+    params, stats = wt.end2end_to_jax(model.state_dict(), "hrnet")
+    server = End2EndServer(
+        {"params": params, "batch_stats": stats}, np.zeros(32), np.ones(32),
+        np.zeros(48), np.ones(48), variant="hrnet", dtype=torch.bfloat16,
+        batch_sizes=(K8_BATCH,), device="cuda")
+    frames = np.random.default_rng(SEED).integers(
+        0, 256, (K8_BATCH, 256, 256, 3), np.uint8)
+    before = ce.LAUNCHES
+    pose2d, pose3d = server.predict(frames)
+    n = ce.LAUNCHES - before
+    if n != 262 or not (np.isfinite(pose2d).all() and
+                        np.isfinite(pose3d).all()):
+        raise AssertionError(f"K8: {n} launches in a served HRNet chunk "
+                             f"(262 expected), finite answers: "
+                             f"{np.isfinite(pose2d).all()}")
+    log(f"  K8: {n} launches in one served 128-frame HRNet-W48 chunk")
+    return n
+
+
+def time_k8() -> dict:
+    """K8 at ``K8_TIME_SHAPES`` in bf16: ms a call by CUDA events and by a
+    profiler trace (one device kernel a call), the bound (its bytes at HBM
+    bandwidth), the plain version's ms by events, the wrapper's host us a
+    call."""
+    import torch
+    from bilinear_tpu_torch.ops import conv_epilogue as ce
+
+    rows = {}
+    for name in K8_TIME_SHAPES:
+        terms, relu, out_dtype, nbytes = k8_case(name, torch.bfloat16, SEED)
+
+        def kernel():
+            ce.conv_epilogue(terms, relu, out_dtype)
+
+        def plain():
+            ce.conv_epilogue_ref(terms, relu, out_dtype)
+
+        ms = cuda_ms(kernel, 200)
+        per = _trace(kernel, 20)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            kernel()
+        host_us = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        rows[name] = {
+            "shape_bchw": [K8_BATCH] + list(K8_SHAPES[name][:1]) + [
+                K8_SHAPES[name][1]] * 2,
+            "terms": len(terms), "ms": ms, "plain_ms": cuda_ms(plain, 20),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes,
+            "trace_ms": sum(t for t, _ in per.values()),
+            "device_kernels_per_call": sum(c for _, c in per.values()),
+            "host_us_per_call": host_us}
+        if rows[name]["device_kernels_per_call"] != 1:
+            raise AssertionError(f"K8 {name}: not one device kernel a call: "
+                                 f"{per}")
+        log(f"  K8 {name}: {ms:.4f} ms by events, "
+            f"{rows[name]['trace_ms']:.4f} by trace, bound "
+            f"{rows[name]['bound_ms']:.4f} ({nbytes} bytes), plain "
+            f"{rows[name]['plain_ms']:.4f}, host {host_us:.1f} us a call")
+    return rows
+
+
+def drive_k8() -> tuple:
+    """Phase 3d: K8's checks, a served chunk's launches, its times.
+    Returns (max abs err, launches by path, time rows)."""
+    err, launches = check_k8()
+    served = k8_served_chunk()
+    return err, {"phase3d_checks": launches,
+                 "phase3d_served_hrnet_chunk": served}, time_k8()
+
+
+def k8_entry(err: float, launches: dict, rows: dict) -> dict:
+    """K8's record in the kernels line."""
+    main = rows[K8_TIME_SHAPES[0]]
+    return {
+        "name": "conv_epilogue", "route": "cuda", "source": K8_SOURCE[0],
+        "replaces": K8_SOURCE[1], "launches": sum(launches.values()),
+        "launches_by_path": launches, "max_abs_err": err,
+        "shape_bchw": main["shape_bchw"], "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "trace_ms": main["trace_ms"],
+        "device_kernels_per_call": main["device_kernels_per_call"],
+        "host_us_per_call": main["host_us_per_call"],
+        "at_" + K8_TIME_SHAPES[1]: rows[K8_TIME_SHAPES[1]]}
+
+
+def phase3d_alone() -> int:
+    """Phases 1, 2 (K8's source alone) and 3d: ``python3 -c "import
+    chip_smoke, sys; sys.exit(chip_smoke.phase3d_alone())"``."""
+    import torch
+    from bilinear_tpu_torch.ops import _build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    secs = _build.build_all(["conv_epilogue"])
+    log(f"card: {card}; built in {secs:.1f} s")
+    err, launches, rows = drive_k8()
+    log(json.dumps({"kernels": [k8_entry(err, launches, rows)]}))
+    return 0
+
+
 PROBE_SOURCES = {  # K5's modes: (the probe's row, the Pallas body)
     "int8_scale_probe_fixed": ("fixed", "benchmarks/int8_scale_probe.py:65"),
     "int8_scale_probe_mxu": ("mxu-bound", "benchmarks/int8_scale_probe.py:85"),
@@ -6999,10 +7274,11 @@ def run() -> dict:
 
     # phase 2: build
     secs = _build.build_all(["lifting", "lifting_int8", "resmodule",
-                             "int8_conv", "int8_scale_probe"])
+                             "int8_conv", "int8_scale_probe",
+                             "conv_epilogue"])
     log(f"phase 2: built csrc/lifting.cu, csrc/lifting_int8.cu, "
-        f"csrc/resmodule.cu, csrc/int8_conv.cu and csrc/int8_scale_probe.cu "
-        f"in {secs:.1f} s")
+        f"csrc/resmodule.cu, csrc/int8_conv.cu, csrc/int8_scale_probe.cu "
+        f"and csrc/conv_epilogue.cu in {secs:.1f} s")
 
     # phase 3: kernels vs plain versions
     log("phase 3: kernels vs plain versions")
@@ -7015,6 +7291,9 @@ def run() -> dict:
     probe_errs, probe_rows, probe_launches = drive_probe(params, stats, card)
     for name, e in probe_errs.items():
         errs[name] = max(errs.get(name, 0.0), e)
+    log("phase 3d: K8, HRNet's conv epilogue, vs its plain version; a "
+        "served HRNet chunk; its times")
+    k8 = drive_k8()
 
     # phase 4: the slice
     log("phase 4: serving over HTTP")
@@ -7034,8 +7313,10 @@ def run() -> dict:
 
     keep = tempfile.mkdtemp(prefix="chip_smoke_keep_")
     try:
-        return _run_after_phase5(card, keep, errs, launches, table,
-                                 end_to_end, (probe_rows, probe_launches))
+        result = _run_after_phase5(card, keep, errs, launches, table,
+                                   end_to_end, (probe_rows, probe_launches))
+        result["kernels"].append(k8_entry(*k8))
+        return result
     finally:
         shutil.rmtree(keep, ignore_errors=True)
 

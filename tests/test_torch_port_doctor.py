@@ -54,8 +54,8 @@ def test_doctor_on_the_cpu(tmp_path, capsys):
     assert report["platform"]["device"] == "cpu"
     assert report["matmul"]["note"].startswith("CPU requested")
     assert set(report["kernels"]["cuda"]) == {
-        "int8_conv", "int8_scale_probe", "lifting", "lifting_int8",
-        "resmodule"}
+        "conv_epilogue", "int8_conv", "int8_scale_probe", "lifting",
+        "lifting_int8", "resmodule"}
     assert report["checkpoints"] == jax_doctor.probe_checkpoints(run)
 
 
