@@ -89,7 +89,7 @@ def reference_checkpoint(payload: dict, family: str, epoch: int,
         moments = {"exp_avg": opt["mu"], "exp_avg_sq": opt["nu"]}
         optimizer_cls = torch.optim.Adam
     else:
-        from bilinear_tpu_torch.train.hourglass import make_model
+        from bilinear_tpu_torch.models.detectors import make_model
 
         variant = _variant(family)
         conv = wt.HOURGLASS[variant]

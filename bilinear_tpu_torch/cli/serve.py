@@ -43,6 +43,7 @@ import torch
 
 from bilinear_tpu_torch.data.h36m import Protocol, Task, load_h36m
 from bilinear_tpu_torch.device import disable_tf32
+from bilinear_tpu_torch.models.detectors import detector
 from bilinear_tpu_torch.serving import End2EndServer, LiftingServer
 from bilinear_tpu_torch.serving_http import PoseHTTPServer
 
@@ -64,7 +65,7 @@ def build_server(args, logger=None) -> PoseHTTPServer:
             logger.info("lifting model: epoch %d on %s", epoch,
                         lifting.device)
     if args.kind in ("end2end", "both"):
-        model_kw = {"fused": args.variant == "torch7"}
+        model_kw = {"fused": detector(args.variant).fused_blocks}
         if args.n_stacks:
             model_kw.update(n_stacks=args.n_stacks, features=args.features,
                             depth=args.depth)

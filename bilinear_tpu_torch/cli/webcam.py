@@ -31,6 +31,7 @@ import torch
 
 from bilinear_tpu_torch.device import disable_tf32, resolve_device
 from bilinear_tpu_torch.io.checkpoint import latest_epoch, load_checkpoint
+from bilinear_tpu_torch.models.detectors import detector
 from bilinear_tpu_torch.train.end2end import End2EndTrainer
 
 
@@ -105,7 +106,8 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
 
     model_kw = dict(n_stacks=args.n_stacks, features=args.features,
-                    depth=args.depth, fused=args.variant == "torch7")
+                    depth=args.depth,
+                    fused=detector(args.variant).fused_blocks)
     forward, _, epoch = build_forward(
         args.variant, args.save_root, args.comment,
         device=resolve_device(args.device), model_kw=model_kw)

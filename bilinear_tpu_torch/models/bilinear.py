@@ -37,15 +37,11 @@ from torch import nn
 
 from bilinear_tpu_torch.core.initializers import init_linear
 from bilinear_tpu_torch.core.norm import active_shard, batch_norm
+from bilinear_tpu_torch.core.precision import wide
 
 NUM_JOINTS = 17 - 1
 IN_FEATURES = 2 * NUM_JOINTS  # 32
 OUT_FEATURES = 3 * NUM_JOINTS  # 48
-
-
-def _wide(dtype) -> torch.dtype:
-    """BN's and the output's type: f32, or f64 for a model in f64."""
-    return torch.promote_types(torch.float32, dtype)
 
 
 def linear_in(linear: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
@@ -104,7 +100,7 @@ class HeavyLinear(nn.Sequential):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         lin, bn, _, drop = self
         h = linear_in(lin, x, self.dtype)
-        h = torch.relu(batch_norm(bn, h.to(_wide(self.dtype)))
+        h = torch.relu(batch_norm(bn, h.to(wide(self.dtype)))
                        .to(self.dtype))
         return dropout(h, drop.p, self.training, generator,
                        row_window(h, active_shard(self)))
@@ -145,4 +141,4 @@ class BilinearUnit(nn.Module):
             for layer in block:
                 x = layer(x, generator)
             x = x + skip
-        return linear_in(self.decode, x, self.dtype).to(_wide(self.dtype))
+        return linear_in(self.decode, x, self.dtype).to(wide(self.dtype))

@@ -24,13 +24,13 @@ names>`` and independently trained checkpoints assemble into this module
 (``assemble_variables``, ``utils/weights.py::end2end_from_jax``).
 
 ``fused=True`` runs the torch7 detector's ResModules through kernels K3
-(forward) and K4 (backward) on a CUDA tensor; the preact and HRNet
-detectors have no kernel path and raise. ``quantize="int8"`` gives either
-hourglass its eval-mode int8 convolutions (``ops/int8.py``, kernels
-K6/K7; an int8 eval forward launches no K3); HRNet has none and raises.
-The submodule keeps the name ``hourglass`` for every variant, so each
-variant's tree sits under the same key. The lifting half stays in ``dtype`` and never
-goes through the lifting kernels K1/K2 (as in JAX). Train-mode dropout
+(forward) and K4 (backward) on a CUDA tensor; ``quantize="int8"`` gives a
+hourglass its eval-mode int8 convolutions (``ops/int8.py``, kernels K6/K7;
+an int8 eval forward launches no K3). A detector without them raises
+(``models/detectors.py``). The submodule keeps the name ``hourglass`` for
+every variant, so each variant's tree sits under the same key. The lifting
+half stays in ``dtype`` and never goes through the lifting kernels K1/K2
+(as in JAX). Train-mode dropout
 draws its masks from the ``generator`` given to ``forward``, on the
 activations' device.
 """
@@ -42,8 +42,8 @@ import torch
 from torch import nn
 
 from bilinear_tpu_torch.models.bilinear import BilinearUnit
+from bilinear_tpu_torch.models.detectors import make_model
 from bilinear_tpu_torch.ops.decode import decode_to_normalized
-from bilinear_tpu_torch.train.hourglass import make_model
 from bilinear_tpu_torch.utils.weights import end2end_from_jax
 
 
@@ -56,12 +56,11 @@ class End2End(nn.Module):
                  fused: bool = False, quantize: Optional[str] = None,
                  n_modules: Optional[int] = None,
                  generator: Optional[torch.Generator] = None):
-        """``variant``: "torch7", "preact" or "hrnet"
-        (``train/hourglass.py::make_model``). Size overrides of None keep
-        the reference detector (8 stacks, 256 features, depth 4; HRNet's
-        width 48, which ``features`` overrides). ``quantize="int8"``: the detector's int8
-        convolutions in eval mode (the lifter stays in ``dtype``, as in
-        JAX). ``generator`` seeds the initialisation of both halves."""
+        """``variant`` and the size overrides: the detector's
+        (``models/detectors.py::make_model``). ``quantize="int8"``: the
+        detector's int8 convolutions in eval mode (the lifter stays in
+        ``dtype``, as in JAX). ``generator`` seeds the initialisation of
+        both halves."""
         super().__init__()
         self.variant = variant
         self.temperature = temperature

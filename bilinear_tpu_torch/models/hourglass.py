@@ -26,9 +26,9 @@ tree's ``{slot}_m{k}``.
 ``forward`` takes (B, H, W, 3) images and returns (S, B, H/4, W/4, J)
 heatmaps in f32; inside, activations are NCHW tensors in
 ``torch.channels_last``. Precision as in JAX: parameters are f32; convs run
-in ``dtype`` (inputs, weights and the bias cast), each BN runs in f32 on
-its input and is rounded back to ``dtype``. The fused ResModule kernels
-are the torch7 variant's.
+in ``dtype`` (``core/precision.py``), each BN runs in f32 on its input in
+``BatchNorm2d``'s own formulation, on the card too, and is rounded back to
+``dtype``. The fused ResModule kernels are the torch7 variant's.
 
 ``quantize="int8"`` runs, in eval mode, the three LightConvs of every
 ResUnit (the stem's, the hourglasses' and each ``prev_heatmap``'s) as
@@ -49,28 +49,13 @@ from torch import nn
 
 from bilinear_tpu_torch.core import remat
 from bilinear_tpu_torch.core.norm import BatchNorm2d
+from bilinear_tpu_torch.core.precision import CL, conv_in, wide
 from bilinear_tpu_torch.ops import int8
 
 N_STACKS = 8
 N_FEATURES = 256
 N_JOINTS = 16
 N_DEPTH = 4
-
-CL = torch.channels_last
-
-
-def _wide(dtype) -> torch.dtype:
-    """BN's type: f32, or f64 for a model in f64."""
-    return torch.promote_types(torch.float32, dtype)
-
-
-def conv_in(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
-    """The conv in ``dtype``: round(conv(x, W)) + round(b), in ``dtype``."""
-    y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, conv.stride,
-                 conv.padding)
-    if conv.bias is None:
-        return y
-    return y + conv.bias.to(dtype).view(1, -1, 1, 1)
 
 
 class LightConv(nn.Sequential):
@@ -89,7 +74,7 @@ class LightConv(nn.Sequential):
         self.quantize = quantize
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = torch.relu(self[0](x.to(_wide(self.dtype))).to(self.dtype))
+        h = torch.relu(self[0](x.to(wide(self.dtype))).to(self.dtype))
         if self.quantize == "int8" and not self.training:
             return int8.conv2d(self[2], h, self.dtype)
         return conv_in(self[2], h, self.dtype)
@@ -179,6 +164,10 @@ class StackedHourglass(nn.Module):
     """The full detector (model/hourglass.py:92-151)."""
 
     variant = "preact"
+    fused_blocks = False  # the K3/K4 blocks are the torch7 ResModule's
+    int8_convs = True
+    trainable = True
+    spatial_sharding = True
 
     def __init__(self, n_stacks: int = N_STACKS, features: int = N_FEATURES,
                  n_joints: int = N_JOINTS, depth: int = N_DEPTH,
@@ -229,7 +218,7 @@ class StackedHourglass(nn.Module):
         skip = self.skip_intermediate[i](h)
         pred = self.heatmap_intermediate[i](h)
         h = self.after_heatmap[i](pred) + skip + prev
-        return pred.to(_wide(self.dtype)).permute(0, 2, 3, 1), h
+        return pred.to(wide(self.dtype)).permute(0, 2, 3, 1), h
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         call = remat.runner(self)

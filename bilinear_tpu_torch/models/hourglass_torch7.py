@@ -13,17 +13,9 @@ heatmaps, the JAX package's layout. Inside, activations are NCHW tensors in
 ``torch.channels_last``: a (B, C, H, W) tensor is then a (B*H*W, C) row
 matrix in memory, which the fused ResModule kernels read without a copy.
 
-Precision as in JAX: parameters are f32; convs run in ``dtype`` (inputs and
-weights cast, the bias rounded to ``dtype`` and added in ``dtype``), BN runs
-in f32 on the conv output and is rounded back to ``dtype``; heatmaps are
-returned in f32. Every BN module is ``core.norm.BatchNorm2d`` (torch's
-parameters, buffers and running update). ``bn_in`` applies it through
-torch's own BN on a CUDA tensor (cuDNN) and through the module's own
-formulation on a CPU tensor (the statistics by ``torch.var_mean``, the
-normalisation in autograd's own ops): torch's CPU BN backward loses the
-per-channel sums when the upstream gradient has a large mean, as End2End's
-soft-argmax gives it, where cuDNN's keeps them. In the fused ResModules the
-BNs hold parameters and buffers only.
+Precision is ``core/precision.py``'s; heatmaps are returned in f32. Every BN
+module is ``core.norm.BatchNorm2d`` (torch's parameters, buffers and running
+update); in the fused ResModules the BNs hold parameters and buffers only.
 
 ``fused=True`` runs every ResModule through kernels K3/K4
 (``ops/resmodule.py``) on a CUDA tensor, and through their plain versions
@@ -50,6 +42,7 @@ from torch import nn
 from bilinear_tpu_torch.core import remat
 from bilinear_tpu_torch.core.norm import BatchNorm2d, active_shard, \
     update_running_stats
+from bilinear_tpu_torch.core.precision import CL, bn_in, conv_in, wide
 from bilinear_tpu_torch.ops import int8
 from bilinear_tpu_torch.ops import resmodule as rk
 
@@ -58,43 +51,10 @@ N_FEATURES = 256
 N_JOINTS = 16
 N_DEPTH = 4
 
-CL = torch.channels_last
-
 
 def _conv(cin, cout, kernel, stride=1) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, kernel, stride=stride,
                      padding=(kernel - 1) // 2, bias=True)
-
-
-def conv_in(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
-    """The conv in ``dtype``: round(conv(x, W)) + round(b), in ``dtype``
-    (a bias-free conv adds nothing)."""
-    y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, conv.stride,
-                 conv.padding)
-    if conv.bias is None:
-        return y
-    return y + conv.bias.to(dtype).view(1, -1, 1, 1)
-
-
-def bn_in(bn: BatchNorm2d, x: torch.Tensor, dtype) -> torch.Tensor:
-    """BN in f32 (f64 for a model in f64) on the ``dtype`` activation,
-    rounded back to ``dtype``: torch's own on the card, ``bn``'s own
-    formulation on the CPU and under a data group of more than one rank
-    (the global batch's statistics)."""
-    x = x.to(torch.promote_types(torch.float32, dtype))
-    own = not x.is_cuda or (bn.training and active_shard(bn) is not None)
-    if own:
-        return bn(x).to(dtype)
-    if not (bn.training and remat.recomputing()):
-        return nn.BatchNorm2d.forward(bn, x).to(dtype)
-    # A recomputation (core/remat.py): torch's BN updates its buffers
-    # itself, so they are put back.
-    kept = [t.clone() for t in bn.buffers()]
-    y = nn.BatchNorm2d.forward(bn, x)
-    with torch.no_grad():
-        for t, v in zip(bn.buffers(), kept):
-            t.copy_(v)
-    return y.to(dtype)
 
 
 class ResModule(nn.Module):
@@ -231,6 +191,10 @@ class MainModel(nn.Module):
     """The full detector (reference model/hourglass_torch7.py:78-129)."""
 
     variant = "torch7"
+    fused_blocks = True  # K3/K4
+    int8_convs = True
+    trainable = True
+    spatial_sharding = True
 
     def __init__(self, n_stacks: int = N_STACKS, features: int = N_FEATURES,
                  n_joints: int = N_JOINTS, depth: int = N_DEPTH,
@@ -286,8 +250,7 @@ class MainModel(nn.Module):
         lin = self.linArray[i]
         ll = torch.relu(bn_in(lin[1], conv_in(lin[0], ll, dt), dt))
         htmap = conv_in(self.htmapArray[i], ll, dt)
-        out = htmap.to(torch.promote_types(torch.float32, dt)) \
-            .permute(0, 2, 3, 1)
+        out = htmap.to(wide(dt)).permute(0, 2, 3, 1)
         if i < self.n_stacks - 1:
             inter = (inter + conv_in(self.llBarArray[i], ll, dt)
                      + conv_in(self.htmapBarArray[i], htmap, dt))

@@ -24,7 +24,7 @@ checkpoint maps onto it by name.
 Every other conv is bias-free, as published. ``forward`` takes (B, H, W,
 3) images and returns (1, B, H/4, W/4, J) f32 heatmaps: the detectors'
 layout, with one stage where the hourglasses have one per stack. Precision
-is the hourglasses' (``hourglass_torch7.conv_in`` / ``bn_in``): parameters
+is the hourglasses' (``core/precision.py::conv_in`` / ``bn_in``): parameters
 in f32, convs in ``dtype``, each BN (``core.norm.BatchNorm2d``) in f32 on
 the rounded conv output and rounded back; the adds, ReLUs and upsamples
 in ``dtype``. Activations are NCHW tensors in ``torch.channels_last``.
@@ -41,9 +41,8 @@ four terms with their own BNs and nearest upsamples, the ReLU; the head's
 bias and its f32 output) as one ``ops.conv_epilogue.conv_epilogue`` call,
 kernel K8 on the card, at the same rounding points: 262 a forward at W48.
 Without a plan, or in train mode, the forward is the composition above,
-op by op. The model has no int8 path and no spatially sharded forward,
-and it is served, not trained, by the port (``train/hourglass.py::
-make_model`` refuses the rest).
+op by op. The class attributes say what the port runs it with: no int8
+path, no spatially sharded forward, served and not trained.
 
 Spans (``utils/profiling.py::span``), ``SPANS``: ``hrnet.stem`` (the stem
 and ``layer1``), ``hrnet.transition`` (each transition), ``hrnet.branches``
@@ -59,7 +58,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bilinear_tpu_torch.core.norm import BatchNorm2d
-from bilinear_tpu_torch.models.hourglass_torch7 import CL, bn_in, conv_in
+from bilinear_tpu_torch.core.precision import CL, bn_in, conv_in, wide
 from bilinear_tpu_torch.ops.conv_epilogue import bn_affine, conv_epilogue
 from bilinear_tpu_torch.utils.profiling import span
 
@@ -252,7 +251,12 @@ class PoseHighResolutionNet(nn.Module):
     """The whole detector. ``width`` is the first branch's (48 for W48); the
     others double it."""
 
+    # No spatial sharding: its exchange units join every resolution.
     variant = "hrnet"
+    fused_blocks = False
+    int8_convs = False
+    trainable = False
+    spatial_sharding = False
 
     def __init__(self, width: int = WIDTH, n_joints: int = N_JOINTS,
                  dtype=torch.float32,
@@ -286,7 +290,7 @@ class PoseHighResolutionNet(nn.Module):
         as they are now, on their device: build it after loading and
         moving the model. Returns the model."""
         dt = self.dtype
-        at = torch.promote_types(torch.float32, dt)
+        at = wide(dt)
         weights, affines = {}, {}
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
@@ -319,7 +323,7 @@ class PoseHighResolutionNet(nn.Module):
                                                     f"transition{s - 1}"))]
             xs = _run(getattr(self, f"stage{s}"), xs, plan)
         with span("hrnet.head"):
-            out_dt = torch.promote_types(torch.float32, dt)
+            out_dt = wide(dt)
             heat = _conv(self.final_layer, xs[0], dt, plan)
             if plan is None:
                 out = heat.to(out_dt)

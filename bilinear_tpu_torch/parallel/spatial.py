@@ -57,6 +57,7 @@ from typing import List, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from bilinear_tpu_torch.core.precision import CL
 from bilinear_tpu_torch.ops import int8
 from bilinear_tpu_torch.ops import resmodule as rk
 from bilinear_tpu_torch.parallel.mesh import as_local_mesh, \
@@ -65,8 +66,6 @@ from bilinear_tpu_torch.parallel.mesh import as_local_mesh, \
 EXCHANGES = 0
 EXCHANGE_BYTES = 0
 COPIED_BYTES = 0
-
-CL = torch.channels_last
 
 
 class Slabs:
@@ -370,10 +369,9 @@ def make_spatial_fn(model, mesh):
     moved to the mesh's first device and its weights copied once to each
     other device (``Weights``). A model in train mode, or a mesh of the
     CPU and cards, is refused: the JAX package has no such path."""
-    if getattr(model, "variant", None) == "hrnet":
-        raise ValueError("the 'hrnet' variant has no spatially sharded "
-                         "forward: its exchange units join every "
-                         "resolution")
+    if not model.spatial_sharding:
+        raise ValueError(f"the {model.variant!r} variant has no spatially "
+                         "sharded forward")
     mesh = as_local_mesh(mesh)
     if len({d.type for d in mesh.devices}) > 1:
         raise ValueError("a spatial mesh is all cards or all the CPU: the "

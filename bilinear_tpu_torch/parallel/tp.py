@@ -36,12 +36,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from bilinear_tpu_torch.core.norm import active_shard, batch_norm
+from bilinear_tpu_torch.core.precision import wide
 from bilinear_tpu_torch.models.bilinear import (
     IN_FEATURES,
     OUT_FEATURES,
     BilinearUnit,
     HeavyLinear,
-    _wide,
     dropout,
     linear_in,
 )
@@ -130,7 +130,7 @@ class TPBilinearUnit(nn.Module):
     def _finish(self, layer: HeavyLinear, h: torch.Tensor, gen,
                 cols: Optional[slice]) -> torch.Tensor:
         bn = layer[1]
-        h = torch.relu(batch_norm(bn, h.to(_wide(self.dtype))).to(self.dtype))
+        h = torch.relu(batch_norm(bn, h.to(wide(self.dtype))).to(self.dtype))
         return dropout(h, self.p, self.training, gen, self._window(h, cols))
 
     def _column(self, layer: HeavyLinear, x, gen) -> torch.Tensor:
@@ -159,7 +159,7 @@ class TPBilinearUnit(nn.Module):
             skip = x
             x = self._row(second, self._column(first, x, generator),
                           generator) + skip
-        return linear_in(self.decode, x, self.dtype).to(_wide(self.dtype))
+        return linear_in(self.decode, x, self.dtype).to(wide(self.dtype))
 
     # ------------------------------------------------------- the update
     def sync_grads(self) -> None:

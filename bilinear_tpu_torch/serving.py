@@ -10,15 +10,14 @@ frame->3D over the End2End model (``End2EndServer``).
 Weights are folded (and quantized, and calibrated) once per checkpoint.
 ``from_run_dir`` serves the newest ``{run_dir}/parameter/{epoch}.save``,
 written by the JAX trainer or by the port, and ``reload`` swaps in a newer
-one. ``End2EndServer`` runs frames through the detector (``variant``
-"torch7", "preact" or "hrnet") -> soft-argmax -> lifting at fixed batch
-sizes; with ``model_kw={"fused": True}`` and the torch7 detector its
-ResModules run through kernel K3 (eval), and with ``quantize="int8"`` an
-hourglass's body convs run as int8 convolutions (kernels K6/K7, no K3).
-HRNet-W48 runs on cuDNN's convolutions, each followed by one epilogue
-(its BN, sums, upsamples and ReLU; kernel K8), and refuses ``fused`` and
-``quantize``. Both servers run on the card unless
-``device="cpu"`` is passed.
+one. ``End2EndServer`` runs frames through the detector (``variant``,
+``models/detectors.py``) -> soft-argmax -> lifting at fixed batch sizes;
+with ``model_kw={"fused": True}`` the torch7 detector's ResModules run
+through kernel K3 (eval), and with ``quantize="int8"`` an hourglass's body
+convs run as int8 convolutions (kernels K6/K7, no K3); a detector without
+them refuses. HRNet-W48 runs on cuDNN's convolutions, each followed by one
+epilogue (its BN, sums, upsamples and ReLU; kernel K8). Both servers run on
+the card unless ``device="cpu"`` is passed.
 
 ``mesh=`` (a list of local devices or ``parallel/mesh.py::LocalMesh``; a
 device may repeat) serves one request over several devices, as JAX's

@@ -42,6 +42,7 @@ import torch
 from bilinear_tpu_torch.core.norm import DataShard, set_data_shard
 from bilinear_tpu_torch.core.optim import hourglass_optimizer
 from bilinear_tpu_torch.device import resolve_device
+from bilinear_tpu_torch.models.detectors import check_trainable
 from bilinear_tpu_torch.models.end2end import End2End
 from bilinear_tpu_torch.ops import augment as aug
 from bilinear_tpu_torch.ops.joints import FROM_H36M_TO_MPII
@@ -91,11 +92,9 @@ class End2EndTrainer:
                  model_kw: Optional[dict] = None, device=None):
         """``model_kw``: End2End's detector overrides (``n_stacks``,
         ``features``, ``depth``, ``n_modules``, ``fused``). ``device``:
-        None is the card, and raises when there is none. The 'hrnet'
-        detector is served, not trained: it raises."""
-        if variant == "hrnet":
-            raise ValueError("the 'hrnet' variant has no End2End trainer: "
-                             "the port serves HRNet, it does not train it")
+        None is the card, and raises when there is none. A detector that
+        is not ``trainable`` (HRNet, which the port serves) raises."""
+        check_trainable(variant)
         self.mesh = th.check_mesh(mesh)
         self.shard = None if self.mesh is None else \
             DataShard(self.mesh.data_group)

@@ -48,9 +48,7 @@ from bilinear_tpu_torch.core.norm import DataShard, set_data_shard
 from bilinear_tpu_torch.core.optim import HourglassOptimizer, \
     hourglass_optimizer
 from bilinear_tpu_torch.device import resolve_device
-from bilinear_tpu_torch.models.hourglass import StackedHourglass
-from bilinear_tpu_torch.models.hourglass_torch7 import MainModel
-from bilinear_tpu_torch.models import hrnet
+from bilinear_tpu_torch.models import detectors
 from bilinear_tpu_torch.ops import augment as aug
 from bilinear_tpu_torch.ops.affine import crop_batch, hflip
 from bilinear_tpu_torch.ops.heatmap import keypoints_to_heatmap_space, \
@@ -65,43 +63,6 @@ from bilinear_tpu_torch.utils.profiling import span
 # loss, zero_grad + backward, clip + RMSprop.
 STEP_RANGES = ("train_step/preprocess", "train_step/forward",
                "train_step/backward", "train_step/optimizer")
-
-
-def make_model(variant: str = "torch7", dtype=torch.float32, n_stacks=None,
-               features=None, depth=None, fused=False, n_modules=None,
-               generator: Optional[torch.Generator] = None, quantize=None):
-    """'torch7' = the MainModel the MPII training trains, 'preact' = the
-    StackedHourglass the H36M fine-tuning trains, 'hrnet' = HRNet-W48
-    (``models/hrnet.py``), which the port serves. Size overrides of None
-    keep the reference's 8 stacks, 256 features, depth 4 (HRNet's 48-wide
-    first branch; ``features`` is its width, and it takes no other
-    override). ``fused`` (the ResModule kernels) exists for torch7 only:
-    the other variants raise rather than ignore it. ``quantize="int8"``:
-    the eval-mode int8 convs of either hourglass; HRNet has none and
-    raises."""
-    kw = {k: v for k, v in dict(n_stacks=n_stacks, features=features,
-                                depth=depth, n_modules=n_modules).items()
-          if v is not None}
-    if variant == "hrnet":
-        if fused or quantize is not None:
-            raise ValueError(
-                "the 'hrnet' variant has no fused blocks and no int8 "
-                f"convolutions (fused={fused!r}, quantize={quantize!r})")
-        other = sorted(set(kw) - {"features"})
-        if other:
-            raise ValueError(f"the 'hrnet' variant takes no {other}")
-        return hrnet.PoseHighResolutionNet(kw.get("features", hrnet.WIDTH),
-                                           dtype=dtype, generator=generator)
-    if variant == "torch7":
-        return MainModel(dtype=dtype, fused=fused, generator=generator,
-                         quantize=quantize, **kw)
-    if variant == "preact":
-        if fused:
-            raise ValueError("fused blocks exist for the torch7 variant "
-                             "only; the preact variant has no kernel path")
-        return StackedHourglass(dtype=dtype, generator=generator,
-                                quantize=quantize, **kw)
-    raise ValueError(f"unknown hourglass variant {variant!r}")
 
 
 class Augment(NamedTuple):
@@ -259,6 +220,7 @@ class HourglassTrainer:
                  features=None, depth=None, fused_blocks: bool = False,
                  n_modules=None, device=None, joint_remap=None,
                  flip_prob: float = 0.4):
+        detectors.check_trainable(variant)
         self.mesh = check_mesh(mesh)
         self.shard = None if self.mesh is None else \
             DataShard(self.mesh.data_group)
@@ -278,7 +240,7 @@ class HourglassTrainer:
 
     def init_state(self, seed: int = 0) -> TrainState:
         gen = torch.Generator().manual_seed(seed)
-        model = make_model(self.variant, self.dtype, generator=gen,
+        model = detectors.make_model(self.variant, self.dtype, generator=gen,
                            **self.model_kw).to(self.device)
         model.train()
         model.remat = self.remat

@@ -230,7 +230,7 @@ FAMILIES = {
 def _family_tree(family):
     if family == "bilinear":
         return _lifting_tree(6)
-    from bilinear_tpu_torch.train.hourglass import make_model
+    from bilinear_tpu_torch.models.detectors import make_model
 
     variant = "torch7" if family == "hourglass" else "preact"
     model = make_model(variant, generator=torch.Generator().manual_seed(7),

@@ -15,7 +15,7 @@ import torch
 from bilinear_tpu_torch.cli import export_torch
 from bilinear_tpu_torch.io import checkpoint as ckpt
 from bilinear_tpu_torch.models.bilinear import BilinearUnit
-from bilinear_tpu_torch.train.hourglass import make_model
+from bilinear_tpu_torch.models.detectors import make_model
 from bilinear_tpu_torch.utils import weights as wt
 from torch_port_fixtures import one_torch_thread
 

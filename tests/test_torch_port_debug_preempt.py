@@ -39,6 +39,7 @@ from bilinear_tpu_torch.cli import train_bilinear, train_hourglass
 from bilinear_tpu_torch.data.synthetic import write_h36m_dataset, \
     write_mpii_dataset
 from bilinear_tpu_torch.io import checkpoint as pckpt
+from bilinear_tpu_torch.models.detectors import make_model
 from bilinear_tpu_torch.train import hourglass as th
 from bilinear_tpu_torch.utils import debug, preempt, profiling
 from bilinear_tpu_torch.utils import weights as wt
@@ -101,8 +102,8 @@ def test_debug_nans_names_the_fused_block(tmp_path):
             "1", "--debug-nans", "true"]
     train_hourglass.main(argv)
     pdir = str(tmp_path / "save" / "hg" / "parameter")
-    sd = dict(th.make_model("torch7", n_stacks=1, features=64, depth=1)
-              .named_parameters())
+    sd = dict(make_model("torch7", n_stacks=1, features=64, depth=1)
+           .named_parameters())
     key = "hgArray.0.res1.0.resSeq.2.weight"  # its first 1x1 conv
     path = {k: p for k, p, _ in wt.torch7_param_paths(
         dict(n_stacks=1, features=64, depth=1, n_modules=1))}[key]

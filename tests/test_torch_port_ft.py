@@ -1,6 +1,6 @@
 """The port's pre-activation hourglass (bilinear_tpu_torch:
 core/norm.BatchNorm2d, models/hourglass.py, the preact converters of
-utils/weights, train/hourglass.make_model, the H36M joint maps) against the
+utils/weights, models/detectors.make_model, the H36M joint maps) against the
 JAX package on the CPU, at a tiny size (2 stacks, 16 features, depth 2,
 64-pixel inputs, batch 2), with n_modules 1 and 2.
 
@@ -27,6 +27,7 @@ from bilinear_tpu.models.hourglass import StackedHourglass as JaxHourglass
 from bilinear_tpu.ops import joints as jjoints
 from bilinear_tpu.utils.torch_compat import hourglass_to_torch_state
 from bilinear_tpu_torch.core.norm import BatchNorm2d
+from bilinear_tpu_torch.models.detectors import make_model
 from bilinear_tpu_torch.models.hourglass import StackedHourglass
 from bilinear_tpu_torch.ops import joints as pjoints
 from bilinear_tpu_torch.train import hourglass as th
@@ -336,10 +337,10 @@ def test_gradients_match_jax(jax_vars):
 
 
 def test_make_model_builds_the_preact_variant_and_refuses_fused():
-    model = th.make_model("preact", **SIZE)
+    model = make_model("preact", **SIZE)
     assert isinstance(model, StackedHourglass) and model.variant == "preact"
     with pytest.raises(ValueError, match="torch7 variant only"):
-        th.make_model("preact", fused=True, **SIZE)
+        make_model("preact", fused=True, **SIZE)
     with pytest.raises(ValueError, match="fused blocks exist"):
         th.HourglassTrainer(variant="preact", fused_blocks=True,
                             device="cpu", **SIZE).init_state(0)

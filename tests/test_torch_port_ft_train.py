@@ -35,6 +35,7 @@ from bilinear_tpu_torch.data.h36m_images import H36MImageRecords
 from bilinear_tpu_torch.data.pipeline import MPIIHostPipeline
 from bilinear_tpu_torch.data.synthetic import write_h36m_dataset
 from bilinear_tpu_torch.io import checkpoint as pckpt
+from bilinear_tpu_torch.models.detectors import make_model
 from bilinear_tpu_torch.ops.joints import FROM_H36M_TO_MPII
 from bilinear_tpu_torch.train import hourglass as th
 from bilinear_tpu_torch.utils import weights as wt
@@ -161,8 +162,8 @@ def run(h36m, tmp_path_factory):
     jtrainer = JaxTrainer(variant="preact", joint_remap=J_REMAP,
                           flip_prob=0.0, **SIZE)
     jstate = JaxTrainState.create(*wt.hourglass_preact_to_jax(
-        th.make_model("preact", generator=torch.Generator().manual_seed(0),
-                      **SIZE).state_dict()), jtrainer.tx)
+        make_model("preact", generator=torch.Generator().manual_seed(0),
+                   **SIZE).state_dict()), jtrainer.tx)
     fixed = _FixedDraws()
     rng = jax.random.PRNGKey(1)
     sync = str(tmp_path_factory.mktemp("sync"))

@@ -22,7 +22,8 @@ from bilinear_tpu_torch.models.hrnet import SPANS, PoseHighResolutionNet
 from bilinear_tpu_torch.parallel.spatial import spatial_forward
 from bilinear_tpu_torch.serving import End2EndServer
 from bilinear_tpu_torch.train.end2end import End2EndTrainer
-from bilinear_tpu_torch.train.hourglass import make_model
+from bilinear_tpu_torch.train.hourglass import HourglassTrainer
+from bilinear_tpu_torch.models.detectors import make_model
 from bilinear_tpu_torch.utils import weights as wt
 from portbench import seeds
 from torch_port_fixtures import one_torch_thread  # noqa: F401
@@ -160,8 +161,9 @@ def _tree_of_hrnet() -> dict:
     lambda: spatial_forward(PoseHighResolutionNet(width=WIDTH).eval(),
                             torch.zeros(1, 64, 64, 3), ["cpu", "cpu"]),
     lambda: End2EndTrainer(variant="hrnet", device="cpu"),
+    lambda: HourglassTrainer(variant="hrnet", device="cpu").init_state(0),
 ], ids=["fused", "int8", "stacks", "end2end-fused", "server-int8",
-        "spatial", "trainer"])
+        "spatial", "trainer", "hourglass-trainer"])
 def test_refusals_name_the_variant(refusal):
     with pytest.raises(ValueError, match="hrnet"):
         refusal()

@@ -24,7 +24,7 @@ from torch.profiler import ProfilerActivity, profile
 from bilinear_tpu_torch.core.norm import BatchNorm2d
 from bilinear_tpu_torch.io.checkpoint import save_checkpoint
 from bilinear_tpu_torch.models import hrnet
-from bilinear_tpu_torch.models.hourglass_torch7 import CL, bn_in, conv_in
+from bilinear_tpu_torch.core.precision import CL, bn_in, conv_in
 from bilinear_tpu_torch.ops import conv_epilogue as ce
 from bilinear_tpu_torch.serving import End2EndServer
 from portbench import pose_hrnet, seeds

@@ -130,3 +130,22 @@ def test_imports_without_jax_or_reference_package(extra):
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert f"imported {len(names)}" in proc.stdout
+
+
+def test_models_import_no_layer_above_them():
+    """The model layer sits under the trainers, the servers, the CLIs and
+    the parallel wrappers: importing every module of ``models/`` loads
+    none of ``train``, ``serving``, ``cli`` or ``parallel``."""
+    models = [n for n in _port_modules()
+              if n.startswith("bilinear_tpu_torch.models.")]
+    assert "bilinear_tpu_torch.models.detectors" in models
+    above = ("train", "serving", "cli", "parallel")
+    code = ("import importlib, sys\n"
+            f"for n in {models!r}: importlib.import_module(n)\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] == "
+            f"'bilinear_tpu_torch' and m.split('.')[1:2] in "
+            f"{[[a] for a in above]!r}))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.split() == ["[]"]

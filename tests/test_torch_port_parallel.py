@@ -69,6 +69,7 @@ from bilinear_tpu.train import hourglass as jhourglass
 from bilinear_tpu_torch.cli import train_bilinear
 from bilinear_tpu_torch.data.synthetic import write_h36m_dataset
 from bilinear_tpu_torch.io import checkpoint as pckpt
+from bilinear_tpu_torch.models.detectors import make_model
 from bilinear_tpu_torch.ops import augment as aug
 from bilinear_tpu_torch.parallel import mesh as pmesh
 from bilinear_tpu_torch.serving import End2EndServer, LiftingServer
@@ -136,8 +137,8 @@ def runs(tmp_path_factory):
     rng = np.random.RandomState(0)
     jt = JaxBilinear(batch_size=16, learning_rate=1e-3, dropout=0.0)
     jstate = jax.device_get(jt.init_state(jax.random.PRNGKey(0)))
-    hg_model = th.make_model("torch7", generator=torch.Generator()
-                             .manual_seed(0), **HG_SIZE)
+    hg_model = make_model("torch7", generator=torch.Generator()
+                          .manual_seed(0), **HG_SIZE)
     hg_params, hg_stats = wt.hourglass_torch7_to_jax(hg_model.state_dict())
     draws = th.sample_augment(th.step_generator(0, 1, 1), 8)
     inputs = dict(

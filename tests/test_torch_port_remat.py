@@ -30,6 +30,7 @@ import torch
 from bilinear_tpu.core.state import TrainState as JaxTrainState
 from bilinear_tpu.train import hourglass as jhourglass
 from bilinear_tpu.train.hourglass import HourglassTrainer as JaxTrainer
+from bilinear_tpu_torch.models.detectors import make_model
 from bilinear_tpu_torch.ops import resmodule as rk
 from bilinear_tpu_torch.train import hourglass as th
 from bilinear_tpu_torch.utils import weights as wt
@@ -100,8 +101,8 @@ def test_remat_step_matches_jax_remat(fused):
     loss, _, _, state = _port_step("torch7", fused, remat=True)
     jtrainer = JaxTrainer(variant="torch7", remat=True, fused_blocks=fused,
                           **SIZE)
-    model = th.make_model("torch7", generator=torch.Generator()
-                          .manual_seed(0), **SIZE)
+    model = make_model("torch7", generator=torch.Generator()
+                       .manual_seed(0), **SIZE)
     jstate = JaxTrainState.create(*wt.hourglass_torch7_to_jax(
         model.state_dict()), jtrainer.tx)
     d = {k: torch.from_numpy(v) for k, v in _batch().items()}
