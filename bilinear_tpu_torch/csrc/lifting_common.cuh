@@ -27,17 +27,27 @@
 // made once per checkpoint, so both operands reach wgmma as 128-byte swizzled
 // rows of K (64 bf16 or 128 int8 values: the loaders and descriptors count
 // bytes and serve both types). A block is NWG warpgroups, each owning 64
-// rows x BN columns of accumulators in registers. Bulk: 2 x (64 x 128) with
-// two blocks to an SM, so that one block's epilogue and load latency run
-// under the other's products (2 x (64 x 256) with one block to an SM moves
-// a quarter less from L2 per product and measured slower all the same: on
-// this card the layer is held by the latency of its L2 reads and by its
-// epilogue, not by L2 bytes alone); serving: 1 x (64 x 64). All threads
-// copy slabs into a DEPTH-stage cp.async ring, ahead of the product; one
-// block barrier per slab publishes a stage. Every path runs the k-steps
-// of one output in the same order with the same instruction family, so a
-// row's result does not depend on the batch it came in (checked on the
-// card, bit for bit).
+// rows x BN columns of accumulators in registers. All threads copy slabs
+// into a DEPTH-stage cp.async ring, ahead of the product; one block barrier
+// per slab publishes a stage. Per-layer bulk (launch_bulk: K2's layers, the
+// decode of K1 and K2, K1's bf16 layers below PERSISTENT_MIN_ROWS in
+// ops/lifting.py): 2 x (64 x 128) with two blocks to an SM, whose ring of 3
+// waits for each slab's product, so that one block's epilogue and load
+// latency run under the other's products; serving: 1 x (64 x 64).
+// What bounds a bulk bf16 hidden layer on an H100 is its products (137
+// GFLOP at n = 65536, 139 us at the card's peak), with 256-384 MB of device
+// memory to flow under them, and at bulk size this tile holds the tensor
+// cores to a third of that: every thread spends instruction slots on copies
+// and barriers, a block never has two products in flight, and nothing
+// multiplies on a block during its epilogue. So K1's bf16 bulk layers run in
+// lifting.cu's gemm_wgmma_persistent instead: one block to an SM walks 128 x
+// 256 tiles, a producer thread keeps TMA loads in flight into an mbarrier
+// ring, two consumer warpgroups multiply, and the epilogue's skip and store
+// move by TMA under the products (lifting.cu has its design and the timings
+// that chose it: 900 us against 1,336 for the four hidden layers at n =
+// 65536). Every path runs the k-steps of one output in the same order with
+// the same instruction family, so a row's result does not depend on the
+// batch it came in (checked on the card, bit for bit).
 //
 // Epilogue: accumulators are staged through the freed ring, then every
 // thread finishes 8 consecutive columns of a row: [dequant] + bias, [ReLU],

@@ -10,7 +10,10 @@ the same arithmetic. There is no fallback from one to the other.
 The kernel has two paths, chosen by row count in ``choose_path``: one
 cooperative launch that runs all six layers (a serving batch), or one
 ``wgmma`` GEMM launch per layer (bulk batches; the f32 mode always, with a
-SIMT GEMM). Both give the same bits for a row.
+SIMT GEMM). From ``PERSISTENT_MIN_ROWS`` bf16 rows up, the per-layer
+path runs the encode and the four hidden layers in a persistent,
+warp-specialised TMA kernel (``choose_route``: "persistent"). Every route
+gives the same bits for a row.
 
 Numerics (the TPU kernel's): matmuls accumulate in f32; each
 ``dense_relu`` output and each residual sum is rounded to the working type;
@@ -37,6 +40,8 @@ LAYER_NAMES = ["encode", "bilinear_0_0", "bilinear_0_1", "bilinear_1_0",
 # Forwards that went through the CUDA kernels (one per call of the C entry,
 # which launches the one serving kernel or the six layer kernels).
 LAUNCHES = 0
+# The same calls by route (choose_route).
+ROUTE_CALLS = {"fused": 0, "layers": 0, "persistent": 0}
 
 # The kernel's paths. "fused": one cooperative launch for all six layers;
 # "layers": one launch per layer; "empty": nothing to launch.
@@ -54,6 +59,26 @@ def choose_path(n: int, fused_ok: bool = True) -> str:
     if fused_ok and n <= FUSED_MAX_ROWS:
         return "fused"
     return "layers"
+
+
+# K1's routes: the paths, with bf16's per-layer path split by the kernel
+# its encode and hidden layers run in ("layers": the per-layer wgmma GEMM;
+# "persistent": the persistent TMA kernel, bf16 only).
+ROUTES = PATHS + ("persistent",)
+# Fewest rows the persistent kernel takes: at 2,048 rows the per-layer GEMM
+# measured faster on an H100 (its 128 x 128 tiles fill the SMs, the
+# persistent kernel's 128 x 256 tiles half of them), from 2,049 up slower
+# (chip_smoke.py times both).
+PERSISTENT_MIN_ROWS = 2049
+
+
+def choose_route(n: int, dtype: torch.dtype) -> str:
+    """The kernel route for ``n`` rows in ``dtype``, one of ``ROUTES``."""
+    bf16 = dtype == torch.bfloat16
+    path = choose_path(n, fused_ok=bf16)
+    if path == "layers" and bf16 and n >= PERSISTENT_MIN_ROWS:
+        return "persistent"
+    return path
 
 
 class Prepared(list):
@@ -223,11 +248,16 @@ def _check_weights(weights: Prepared, x: torch.Tensor) -> None:
                                  "its weight")
 
 
+# The C entry's number for each route.
+_ROUTE_ARG = {"layers": 0, "fused": 1, "persistent": 2}
+
+
 def lifting_forward_cuda(weights: Prepared, x: torch.Tensor,
                          path: Optional[str] = None) -> torch.Tensor:
     """Launch the kernel on the current stream. ``x``: (n, 32) CUDA tensor
-    in the weights' type (bf16 or f32). ``path`` ("fused" or "layers")
-    overrides ``choose_path``, to time both sides of their boundary."""
+    in the weights' type (bf16 or f32). ``path`` (a route: "fused",
+    "layers" or "persistent") overrides ``choose_route``, to time both
+    sides of a boundary."""
     global LAUNCHES
     if x.device.type != "cuda":
         raise ValueError("lifting_forward_cuda needs a CUDA tensor")
@@ -243,8 +273,8 @@ def lifting_forward_cuda(weights: Prepared, x: torch.Tensor,
         return out
     bf16 = x.dtype == torch.bfloat16
     if path is None:
-        path = choose_path(n, fused_ok=bf16)
-    if path not in ("fused", "layers") or (path == "fused" and not bf16):
+        path = choose_route(n, x.dtype)
+    if path not in _ROUTE_ARG or (path != "layers" and not bf16):
         raise ValueError(f"no kernel path {path!r} for {x.dtype}")
     scratch = torch.empty((3, n, HIDDEN), dtype=x.dtype, device=x.device)
     h0 = scratch.data_ptr()
@@ -252,10 +282,11 @@ def lifting_forward_cuda(weights: Prepared, x: torch.Tensor,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with on_device(x.device):
         rc = _lib()(int(bf16), x.data_ptr(), *weight_ptrs, out.data_ptr(),
-                    h0, h0 + step, h0 + 2 * step, n, int(path == "fused"),
+                    h0, h0 + step, h0 + 2 * step, n, _ROUTE_ARG[path],
                     stream)
     _build.check(rc, "lifting_forward")
     LAUNCHES += 1
+    ROUTE_CALLS[path] += 1
     return out
 
 

@@ -13,7 +13,8 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    type: K1 bf16 and f32, K2 dynamic and static, at every n of row_counts()
    (both sides of every boundary between kernel paths and tiles), full-width
    weights with scrambled BN statistics from a seeded torch.Generator; K1's
-   rows must be the same bits whatever batch and path they came through,
+   rows must be the same bits whatever batch and route they came through
+   (one launch, the per-layer GEMM, the persistent kernel up to 65573 rows),
    K2's quantisation the plain version's bit for bit, its two kernel paths
    the same bits on the same rows, and dynamic mode's quantise-pass route
    (one scale group of more rows than the card holds tiles for) is held
@@ -63,7 +64,11 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    and, as a labelled yardstick, the cuBLAS chain of six F.linear calls;
    from a torch.profiler trace the device kernels per call (asserted: one
    launch for a serving batch, six per bulk call, plus dynamic mode's
-   memset, the bf16 and int8 products in this repo's wgmma kernels) and the microseconds per kernel of a bulk call; both kernel
+   memset, the bf16 and int8 products in this repo's wgmma kernels) and the microseconds per kernel of a bulk call; K1's route
+   counter (asserted: every bf16 call at n = 65536 through the persistent
+   kernel, a serving batch through the one-launch kernel); K1 bf16 through
+   its per-layer GEMM and its persistent kernel at 1025, 2048, 2049, 4097
+   and 65536 rows (trace and events); both kernel
    paths around the boundary between them; the host's time per call on the
    wrappers' weight checks; poses/s of LiftingServer end to
    end at n = 65536 and the wall latency of /v1/lift at 1, 16 and 256 rows
@@ -246,12 +251,14 @@ def row_counts():
     """Row counts of phase 3: a single row, ragged counts, the daemon's
     max_rows, whole and partial 512-row groups, both sides of the boundary
     between the one-launch and the per-layer path (of the rows and of
-    dynamic mode's rows + 1) and of the f32 kernel's tile changes (512,
-    4096), and the bulk size."""
+    dynamic mode's rows + 1), of the one between K1's per-layer GEMM and its
+    persistent kernel and of the f32 kernel's tile changes (512, 4096), the
+    bulk size, and a bulk count whose last 128 x 256 tile is ragged."""
     from bilinear_tpu_torch.ops.lifting import FUSED_MAX_ROWS as top
+    from bilinear_tpu_torch.ops.lifting import PERSISTENT_MIN_ROWS as bulk
 
     return tuple(sorted({1, 100, 256, 512, 513, 700, top - 1, top, top + 1,
-                         4096, 4097, 65536}))
+                         bulk - 1, bulk, 4096, 4097, 65536, 65573}))
 
 
 SERVE_ROWS = (1, 16, 256)
@@ -335,8 +342,8 @@ def check_kernels(params, stats):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     ns = row_counts()
-    log(f"  row counts {ns}; paths " + ", ".join(
-        f"{n}: {pl.choose_path(n)}" for n in ns))
+    log(f"  row counts {ns}; K1 bf16 routes " + ", ".join(
+        f"{n}: {pl.choose_route(n, torch.bfloat16)}" for n in ns))
     x_all = torch.randn((max(ns), IN_F), generator=gen, device=dev)
     errs = {}
 
@@ -1709,6 +1716,64 @@ def trace_lifting(params, stats, scales, table):
                     not products or any("wgmma" not in k for k in products)):
                 raise AssertionError(f"{name} n={n}: the products do not run "
                                      f"in the wgmma kernels: {list(per)}")
+
+
+def check_bulk_route(params, stats):
+    """K1's route counter: bf16 calls of ``lifting_forward`` at the bulk
+    size take the persistent kernel, every one of them, and a serving batch
+    the one-launch kernel; nothing takes the per-layer GEMM."""
+    import torch
+    from bilinear_tpu_torch.ops import lifting as pl
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    w16 = pl.prepare_weights(params, stats, torch.bfloat16, device=dev)
+    before = dict(pl.ROUTE_CALLS)
+    for n in (TIME_NS[1],) * 3 + (TIME_NS[0],):
+        x = torch.randn((n, IN_F), generator=gen, device=dev)
+        pl.lifting_forward(None, None, x, prepared=w16)
+    torch.cuda.synchronize()
+    moved = {k: pl.ROUTE_CALLS[k] - before[k] for k in before}
+    log(f"  K1 routes taken by 3 calls at n={TIME_NS[1]} and 1 at "
+        f"n={TIME_NS[0]}: {moved}")
+    if moved != {"fused": 1, "layers": 0, "persistent": 3}:
+        raise AssertionError(f"K1's bulk calls took other routes: {moved}")
+
+
+def time_bulk_routes(params, stats):
+    """K1 bf16 through the per-layer GEMM ("layers") and through the
+    persistent kernel ("persistent") at row counts on both sides of
+    ops.lifting.PERSISTENT_MIN_ROWS and at the bulk size: device time from a
+    trace and CUDA events (layers, persistent, persistent, layers). The
+    boundary stands where the two meet. Measurement only."""
+    import torch
+    from bilinear_tpu_torch.ops import lifting as pl
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    w16 = pl.prepare_weights(params, stats, torch.bfloat16, device=dev)
+    out = {}
+    for n in (pl.FUSED_MAX_ROWS + 1, pl.PERSISTENT_MIN_ROWS - 1,
+              pl.PERSISTENT_MIN_ROWS, 4097, TIME_NS[1]):
+        x = torch.randn((n, IN_F), generator=gen, device=dev).to(
+            torch.bfloat16)
+        iters = 200 if n <= 4097 else 20
+        row = {}
+        for route in ("layers", "persistent", "persistent", "layers"):
+            row.setdefault(route, []).append(cuda_ms(
+                lambda r=route: pl.lifting_forward_cuda(w16, x, path=r), iters))
+        for route in ("layers", "persistent"):
+            per = _trace_whole(
+                lambda r=route: pl.lifting_forward_cuda(w16, x, path=r), 5)
+            row[route] = {"events_ms": sum(row[route]) / 2,
+                          "trace_ms": sum(ms for ms, _ in per.values())}
+        out[n] = row
+        log(f"  K1 bf16 n={n}: per-layer GEMM {row['layers']['trace_ms']:.4f} "
+            f"ms by trace ({row['layers']['events_ms']:.4f} by events), "
+            f"persistent kernel {row['persistent']['trace_ms']:.4f} "
+            f"({row['persistent']['events_ms']:.4f}); default route "
+            f"{pl.choose_route(n, torch.bfloat16)}")
+    return out
 
 
 def time_path_boundary(params, stats, scales):
@@ -7305,6 +7370,8 @@ def run() -> dict:
         log(f"phase 5: times on {card}")
         table = time_kernels(params, stats, scales)
         trace_lifting(params, stats, scales, table)
+        check_bulk_route(params, stats)
+        table["lifting_bf16"]["routes"] = time_bulk_routes(params, stats)
         time_path_boundary(params, stats, scales)
         time_weight_checks(params, stats)
         end_to_end = time_end_to_end(work)
@@ -7493,6 +7560,7 @@ def _run_after_phase5(card, keep, errs, launches, table, end_to_end, probe):
             "trace_ms": main["trace_ms"],
             "device_kernels_per_call": main["device_kernels_per_call"],
             f"at_{TIME_NS[1]}": big,
+            "bulk_routes": at.get("routes"),
         })
     log(json.dumps({"lifting_end_to_end": end_to_end}))
     log(json.dumps({"detector": {"losses": losses, "step_parity": parity,

@@ -222,3 +222,74 @@ def test_weights_are_checked_again_when_a_tensor_is_replaced(variables):
         assert len(runs) == 2
     finally:
         pl._check_weights = real
+
+
+ROUTE_NS = sorted({*PATH_NS, pl.PERSISTENT_MIN_ROWS - 1,
+                   pl.PERSISTENT_MIN_ROWS, 65573})
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", ROUTE_NS)
+def test_choose_route_takes_the_persistent_kernel_for_bulk_bf16_only(n, dtype):
+    """The persistent TMA kernel takes bf16 rows from PERSISTENT_MIN_ROWS
+    up and nothing else; every other count keeps its path."""
+    route = pl.choose_route(n, dtype)
+    assert route in pl.ROUTES
+    persistent = dtype == torch.bfloat16 and n >= pl.PERSISTENT_MIN_ROWS
+    assert (route == "persistent") == persistent
+    if not persistent:
+        assert route == pl.choose_path(n, fused_ok=dtype == torch.bfloat16)
+    assert pl.PERSISTENT_MIN_ROWS > pl.FUSED_MAX_ROWS
+
+
+def test_route_counter_starts_at_zero():
+    """One count per kernel route, none of them moved by a CPU process."""
+    assert pl.ROUTE_CALLS == {"fused": 0, "layers": 0, "persistent": 0}
+    assert set(pl.ROUTE_CALLS) == set(pl.ROUTES) - {"empty"}
+    assert set(pl._ROUTE_ARG) == set(pl.ROUTE_CALLS)
+
+
+def test_refused_calls_count_no_route(variables):
+    """A call refused before its launch moves neither counter; a route
+    that does not exist for the type is refused by name."""
+    params, stats = variables
+    w32 = pl.prepare_weights(params, stats, torch.float32, device="cpu")
+    before = dict(pl.ROUTE_CALLS)
+    with pytest.raises(ValueError):
+        pl.lifting_forward_cuda(w32, torch.zeros((4, 32)), path="persistent")
+    assert pl.ROUTE_CALLS == before
+
+
+def _global_kernels(path):
+    import re
+
+    with open(path) as f:
+        src = f.read()
+    bounds = r"__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s*"
+    return re.findall(r"__global__\s+void\s+(?:" + bounds + r")?(\w+)\s*\(",
+                      src)
+
+
+@pytest.mark.parametrize("source", ["lifting.cu", "lifting_common.cuh"])
+def test_k1_kernels_are_named_as_k1_roofline_counts_them(source):
+    """k1_roofline sums the trace time of the kernels whose names hold one
+    of its KERNELS: a K1 kernel under any other name would leave its time
+    out and read an impossible share."""
+    import importlib.util
+    import os
+
+    import bilinear_tpu_torch
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "k1_roofline", os.path.join(root, "portbench", "metrics",
+                                    "k1_roofline.py"))
+    metric = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(metric)
+    csrc = os.path.join(os.path.dirname(bilinear_tpu_torch.__file__), "csrc")
+    names = _global_kernels(os.path.join(csrc, source))
+    assert names, f"no __global__ kernel found in {source}"
+    if source == "lifting.cu":
+        assert "gemm_wgmma_persistent" in names
+    for name in names:
+        assert any(k in name for k in metric.KERNELS), name
