@@ -20,12 +20,14 @@ Usage (on a machine with an NVIDIA GPU):
 
 Endpoints: GET /healthz, GET /metrics, POST /v1/lift (JSON
 {"keypoints": (N,16,2)} or application/x-npy), POST /v1/pose (npz: frames
-(N,256,256,3) u8 or f32 [+ centers, scales]), POST /admin/reload. --warm
+(N,256,256,3) u8 or f32, (N,256,192,3) for ViTPose [+ centers, scales]),
+POST /admin/reload. --warm
 runs every lifting row count and each End2End batch size on u8 frames
 before the first request. The torch7 detector's ResModules run through
-kernel K3; the preact and HRNet detectors have no fused blocks
+kernel K3; the preact, HRNet and ViTPose detectors have no fused blocks
 (``--variant hrnet`` serves HRNet-W48 on cuDNN's convolutions and kernel
-K8's epilogues, and refuses ``--quantize``). ``--quantize int8``
+K8's epilogues, ``--variant vitpose`` ViTPose-H on cuBLAS's products,
+fused attention and K8's head epilogues; both refuse ``--quantize``). ``--quantize int8``
 (or int8-static, which maps to int8 for End2End as in JAX) with --kind
 end2end|both serves the detector's body convs as int8 convolutions
 (kernels K6/K7; no K3). ``--aot`` serves artifacts instead: each one's
@@ -147,7 +149,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "split; required unless --aot)")
     p.add_argument("--protocol", default=Protocol.GT)
     p.add_argument("--variant", default="torch7",
-                   help="End2End's detector: torch7, preact or hrnet")
+                   help="End2End's detector: torch7, preact, hrnet or "
+                        "vitpose")
     p.add_argument("--dtype", default="bfloat16", choices=list(DTYPES))
     p.add_argument("--quantize", default="",
                    choices=["", "int8", "int8-static"])

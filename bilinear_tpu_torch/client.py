@@ -4,7 +4,7 @@ application/x-npy and application/x-npz wire formats.
 
     client = PoseClient("http://gpu-host:8900")
     poses_mm = client.lift(keypoints_2d)          # (N, 16, 2) -> (N, 16, 3)
-    pose2d, pose3d = client.pose(frames)          # (N, 256, 256, 3)
+    pose2d, pose3d = client.pose(frames)          # (N, H, W, 3)
     client.health()                               # dict
     client.reload()                               # hot-swap newest ckpt
 """
@@ -118,16 +118,16 @@ class PoseClient:
         centers: Optional[np.ndarray] = None,
         scales: Optional[np.ndarray] = None,
     ) -> Tuple[np.ndarray, np.ndarray]:
-        """frame->2D+3D through the End2End model. frames (N, 256, 256, 3)
-        uint8 or float in [0, 1]; optional crop centres (N, 2) and scales
-        (N,) in the reference's centre/scale convention (the server's
-        default is the full frame, webcam.py:13-25). Returns (pose2d (N,
-        16, 2) px, pose3d (N, 16, 3) mm)."""
+        """frame->2D+3D through the End2End model. frames (N, H, W, 3)
+        uint8 or float in [0, 1], (H, W) the served detector's (256 x 256;
+        ViTPose's 256 x 192; the server refuses another); optional crop
+        centres (N, 2) and scales (N,) in the reference's centre/scale
+        convention (the server's default is the full frame,
+        webcam.py:13-25). Returns (pose2d (N, 16, 2) px, pose3d (N, 16, 3)
+        mm)."""
         f = np.ascontiguousarray(frames)
-        if f.ndim != 4 or f.shape[1:] != (256, 256, 3):
-            raise ValueError(
-                f"frames must be (N, 256, 256, 3), got {f.shape}"
-            )
+        if f.ndim != 4 or f.shape[-1] != 3:
+            raise ValueError(f"frames must be (N, H, W, 3), got {f.shape}")
         arrays = {"frames": f}
         if centers is not None:
             arrays["centers"] = np.ascontiguousarray(centers, np.float32)

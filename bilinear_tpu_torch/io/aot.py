@@ -364,6 +364,8 @@ class AOTServer:
     weights: the swap is one reference assignment, and a request in flight
     finishes on the programs it started with."""
 
+    input_size = (256, 256)  # the (H, W) End2End artifacts are exported at
+
     def __init__(self, path: str):
         self.path = path
         self._sig = None

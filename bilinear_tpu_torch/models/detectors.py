@@ -1,8 +1,14 @@
 """The detectors End2End can hold, by variant name, and the one place that
 builds them. Each class says in attributes beside its ``variant`` what the
 port runs it with: ``fused_blocks`` (kernels K3/K4), ``int8_convs``
-(``quantize="int8"``), ``trainable`` and ``spatial_sharding``
-(``parallel/spatial.py``). Callers read those, never the variant's name.
+(``quantize="int8"``), ``trainable``, ``spatial_sharding``
+(``parallel/spatial.py``) and ``eval_plan`` (an eval model's
+``build_eval_plan()``, which ``End2EndServer`` calls on each model it
+builds); and what it takes and gives: ``size_args``, ``make_model``'s size
+arguments it takes, each mapped to its constructor's keyword,
+``input_size``, the (H, W) of its frames, and ``heatmap_size``, the (H, W)
+of its heatmaps (a model built at another size holds its own). Callers
+read those, never the variant's name.
 """
 from __future__ import annotations
 
@@ -12,10 +18,11 @@ import torch
 
 from bilinear_tpu_torch.models.hourglass import StackedHourglass
 from bilinear_tpu_torch.models.hourglass_torch7 import MainModel
-from bilinear_tpu_torch.models.hrnet import WIDTH, PoseHighResolutionNet
+from bilinear_tpu_torch.models.hrnet import PoseHighResolutionNet
+from bilinear_tpu_torch.models.vitpose import ViTPose
 
 DETECTORS = {"torch7": MainModel, "preact": StackedHourglass,
-             "hrnet": PoseHighResolutionNet}
+             "hrnet": PoseHighResolutionNet, "vitpose": ViTPose}
 
 
 def detector(variant: str) -> type:
@@ -34,15 +41,18 @@ def check_trainable(variant: str) -> None:
 
 def make_model(variant: str = "torch7", dtype=torch.float32, n_stacks=None,
                features=None, depth=None, fused=False, n_modules=None,
-               generator: Optional[torch.Generator] = None, quantize=None):
+               generator: Optional[torch.Generator] = None, quantize=None,
+               embed_dim=None, heads=None, image_size=None):
     """'torch7' = the MainModel the MPII training trains, 'preact' = the
-    StackedHourglass the H36M fine-tuning trains, 'hrnet' = HRNet-W48,
-    which the port serves. Size overrides of None keep the reference's 8
-    stacks, 256 features, depth 4 (HRNet's 48-wide first branch;
-    ``features`` is its width, and it takes no other override). ``fused``
-    (the ResModule kernels) and ``quantize="int8"`` (the eval-mode int8
-    convs) raise for a detector that has none, rather than being
-    ignored."""
+    StackedHourglass the H36M fine-tuning trains, 'hrnet' = HRNet-W48 and
+    'vitpose' = ViTPose-H, which the port serves. Size overrides of None
+    keep the reference's 8 stacks, 256 features, depth 4 (HRNet's 48-wide
+    first branch; ``features`` is its width, and it takes no other
+    override; ViTPose's 1280 wide, 32 deep, 16 heads at 256 x 192, which
+    ``embed_dim``, ``depth``, ``heads`` and ``image_size`` (H, W) change,
+    and it takes no other override). ``fused`` (the ResModule kernels) and
+    ``quantize="int8"`` (the eval-mode int8 convs) raise for a detector
+    that has none, rather than being ignored."""
     cls = detector(variant)
     if fused and not cls.fused_blocks:
         raise ValueError("fused blocks exist for the torch7 variant only; "
@@ -50,15 +60,16 @@ def make_model(variant: str = "torch7", dtype=torch.float32, n_stacks=None,
     if quantize is not None and not cls.int8_convs:
         raise ValueError(f"the {variant!r} variant has no int8 convolutions "
                          f"(quantize={quantize!r})")
-    kw = {k: v for k, v in dict(n_stacks=n_stacks, features=features,
-                                depth=depth, n_modules=n_modules).items()
-          if v is not None}
-    if cls is PoseHighResolutionNet:  # sized by its width alone
-        other = sorted(set(kw) - {"features"})
-        if other:
-            raise ValueError(f"the {variant!r} variant takes no {other}")
-        return cls(kw.get("features", WIDTH), dtype=dtype,
-                   generator=generator)
+    given = {k: v for k, v in dict(
+        n_stacks=n_stacks, features=features, depth=depth,
+        n_modules=n_modules, embed_dim=embed_dim, heads=heads,
+        image_size=image_size).items() if v is not None}
+    other = sorted(set(given) - set(cls.size_args))
+    if other:
+        raise ValueError(f"the {variant!r} variant takes no {other}")
+    kw = {cls.size_args[k]: v for k, v in given.items()}
     if cls.fused_blocks:
         kw["fused"] = fused
-    return cls(dtype=dtype, generator=generator, quantize=quantize, **kw)
+    if cls.int8_convs:
+        kw["quantize"] = quantize
+    return cls(dtype=dtype, generator=generator, **kw)

@@ -2,10 +2,12 @@
 module (counterpart of ``bilinear_tpu/models/end2end.py``).
 
 Per batch:
-  images (B, 256, 256, 3) -> the detector (``hourglass``: torch7 or
-  preact, 8 stacks, or HRNet-W48, one stage) -> last-stack heatmaps ->
+  images (B, H, W, 3) (the detector's ``input_size``: 256 x 256, ViTPose's
+  256 x 192) -> the detector (``hourglass``: torch7 or preact, 8 stacks,
+  HRNet-W48 or ViTPose-H, one stage) -> last-stack heatmaps ->
   softargmax (x10 temperature)
-  -> heatmap space -> image space (centre/scale) -> MPII -> H36M-16 (nose
+  -> heatmap space -> image space (centre/scale, each axis by its own
+  heatmap size) -> MPII -> H36M-16 (nose
   deleted) -> z-score with the H36M train-split part statistics ->
   ``bilinear`` (BilinearUnit) -> normalized 48-d 3D pose.
 
@@ -55,7 +57,9 @@ class End2End(nn.Module):
                  features: Optional[int] = None, depth: Optional[int] = None,
                  fused: bool = False, quantize: Optional[str] = None,
                  n_modules: Optional[int] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 embed_dim: Optional[int] = None,
+                 heads: Optional[int] = None, image_size=None):
         """``variant`` and the size overrides: the detector's
         (``models/detectors.py::make_model``). ``quantize="int8"``: the
         detector's int8 convolutions in eval mode (the lifter stays in
@@ -69,14 +73,26 @@ class End2End(nn.Module):
         self.hourglass = make_model(variant, dtype, n_stacks=n_stacks,
                                     features=features, depth=depth,
                                     fused=fused, n_modules=n_modules,
-                                    generator=generator, quantize=quantize)
+                                    generator=generator, quantize=quantize,
+                                    embed_dim=embed_dim, heads=heads,
+                                    image_size=image_size)
         self.bilinear = BilinearUnit(generator=generator, dtype=dtype)
+
+    @property
+    def input_size(self):
+        """(H, W) of the frames the detector takes."""
+        return self.hourglass.input_size
+
+    @property
+    def heatmap_size(self):
+        """(H, W) of the heatmaps it gives."""
+        return self.hourglass.heatmap_size
 
     def forward(self, images: torch.Tensor, centers: torch.Tensor,
                 scales: torch.Tensor, mean_part: torch.Tensor,
                 std_part: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
-        """images (B, 256, 256, 3) f32 in [0, 1]; centers (B, 2), scales
+        """images (B, H, W, 3) f32 in [0, 1]; centers (B, 2), scales
         (B,) of the decode box; the part statistics (32,). Train or eval
         mode from ``self.training``. Returns (per-stack heatmaps (S, B, H,
         W, J), pose_img (B, 16, 2) in MPII order, normalized pose_3d (B,
@@ -84,7 +100,7 @@ class End2End(nn.Module):
         heatmaps = self.hourglass(images)
         pose_img, normalized = decode_to_normalized(
             heatmaps[-1], centers, scales, mean_part, std_part,
-            self.temperature)
+            self.temperature, self.heatmap_size)
         return heatmaps, pose_img, self.bilinear(normalized, generator)
 
     def load_jax(self, state) -> "End2End":

@@ -168,6 +168,11 @@ class StackedHourglass(nn.Module):
     int8_convs = True
     trainable = True
     spatial_sharding = True
+    eval_plan = False
+    input_size = (256, 256)
+    heatmap_size = (64, 64)
+    size_args = {k: k for k in ("n_stacks", "features", "depth",
+                                "n_modules")}
 
     def __init__(self, n_stacks: int = N_STACKS, features: int = N_FEATURES,
                  n_joints: int = N_JOINTS, depth: int = N_DEPTH,

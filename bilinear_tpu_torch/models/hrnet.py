@@ -257,6 +257,10 @@ class PoseHighResolutionNet(nn.Module):
     int8_convs = False
     trainable = False
     spatial_sharding = False
+    eval_plan = True
+    input_size = (256, 256)
+    heatmap_size = (64, 64)
+    size_args = {"features": "width"}  # sized by its width alone
 
     def __init__(self, width: int = WIDTH, n_joints: int = N_JOINTS,
                  dtype=torch.float32,

@@ -20,12 +20,22 @@ def argmax_decode(heatmaps: torch.Tensor) -> torch.Tensor:
 
 
 def heatmap_to_image_space(pose_xy: torch.Tensor, center_xy: torch.Tensor,
-                           scale: torch.Tensor, size: int = 64
+                           scale: torch.Tensor, size=(64, 64)
                            ) -> torch.Tensor:
-    """center + (p - size/2) / size * scale * 200 (valid_hourglass.py:
-    104-106); pose (..., J, 2), center (..., 2), scale (...)."""
-    return center_xy[..., None, :] + (pose_xy - size // 2) / size * (
-        scale[..., None, None] * 200.0)
+    """center + (p - n/2) / n * box per axis (valid_hourglass.py:104-106),
+    ``size`` the heatmap's (H, W) and n its H for y and W for x: the box is
+    ``scale * 200`` px tall and ``scale * 200 * W / H`` wide. Pose (..., J,
+    2), center (..., 2), scale (...). A square heatmap takes the published
+    single expression (the same bits, the same kernels)."""
+    h, w = size
+    tall = scale[..., None, None] * 200.0
+    if h == w:
+        return center_xy[..., None, :] + (pose_xy - h // 2) / h * tall
+    x = center_xy[..., None, 0] + (pose_xy[..., 0] - w // 2) / w * (
+        tall[..., 0] * (w / h))
+    y = center_xy[..., None, 1] + (pose_xy[..., 1] - h // 2) / h * tall[
+        ..., 0]
+    return torch.stack([x, y], dim=-1)
 
 
 def softargmax(heatmaps: torch.Tensor, temperature: float = 10.0
@@ -64,7 +74,8 @@ def flip_average(heatmaps: torch.Tensor, flipped_heatmaps: torch.Tensor,
 
 def decode_to_normalized(heat_last: torch.Tensor, centers: torch.Tensor,
                          scales: torch.Tensor, mean_part: torch.Tensor,
-                         std_part: torch.Tensor, temperature: float = 10.0):
+                         std_part: torch.Tensor, temperature: float = 10.0,
+                         size=(64, 64)):
     """The detector -> lifting glue of End2End: softargmax (x10) -> image
     space -> MPII -> H36M-16 joint order (the nose slot deleted,
     ``H36M16_FROM_MPII``) -> z-score with the H36M train-split part
@@ -72,10 +83,13 @@ def decode_to_normalized(heat_last: torch.Tensor, centers: torch.Tensor,
 
     ``heat_last``: (B, H, W, J) f32, the last stack of the port's detector
     output (S, B, H, W, J), which is the JAX package's layout too; centers
-    (B, 2), scales (B,) and the statistics (32,) on its device. Returns
-    (pose_img (B, 16, 2) in MPII order, normalized (B, 32))."""
+    (B, 2), scales (B,) and the statistics (32,) on its device; ``size``
+    the (H, W) the detector decodes with (its ``heatmap_size``: the
+    published 64 x 64 for a hourglass whatever its input, as in JAX;
+    ViTPose's 64 x 48), each axis mapped by its own. Returns (pose_img (B,
+    16, 2) in MPII order, normalized (B, 32))."""
     pose_hm = softargmax(heat_last.permute(0, 3, 1, 2), temperature)
-    pose_img = heatmap_to_image_space(pose_hm, centers, scales)
+    pose_img = heatmap_to_image_space(pose_hm, centers, scales, size)
     idx = torch.as_tensor(H36M16_FROM_MPII, dtype=torch.long,
                           device=pose_img.device)
     flat = pose_img.index_select(-2, idx).reshape(pose_img.shape[0], -1)

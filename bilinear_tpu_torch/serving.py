@@ -49,6 +49,7 @@ import torch
 from bilinear_tpu_torch.data.h36m import H36MSplit
 from bilinear_tpu_torch.device import resolve_device
 from bilinear_tpu_torch.io.checkpoint import latest_epoch, load_checkpoint
+from bilinear_tpu_torch.models.detectors import detector
 from bilinear_tpu_torch.ops import int8
 from bilinear_tpu_torch.ops.lifting import lifting_forward, prepare_weights
 from bilinear_tpu_torch.ops.lifting_int8 import (
@@ -272,6 +273,25 @@ def memory_order(a: np.ndarray) -> Tuple[int, ...]:
     return tuple(order)
 
 
+def check_frames(frames: np.ndarray, input_size: Tuple[int, int]) -> None:
+    """Raise for frames that are not (N, H, W, 3), (H, W) = ``input_size``
+    (a served detector's)."""
+    want = tuple(input_size) + (3,)
+    if frames.ndim != 4 or frames.shape[1:] != want:
+        raise ValueError(f"frames must be (N, {want[0]}, {want[1]}, 3), got "
+                         f"{frames.shape}")
+
+
+def default_box(input_size: Tuple[int, int], n: int
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """(centres (n, 2), scales (n,)) of the full-frame box of (H, W) =
+    ``input_size`` frames: centred on the frame, (W/2, H/2), its scale
+    H/200 (the box H px tall)."""
+    h, w = input_size
+    return (np.tile(np.float32([w / 2.0, h / 2.0]), (n, 1)),
+            np.full((n,), h / 200.0, np.float32))
+
+
 class End2EndServer:
     """Batched frame->3D serving over the End2End model.
 
@@ -281,10 +301,11 @@ class End2EndServer:
       sees those batch sizes.
     - Each chunk's frames reach the device in one copy from one staging
       buffer (pinned on the card), in the caller's own memory order (a
-      strided view is read in runs, not gathered), restored to (batch, 256,
-      256, 3) by the u8 -> f32 kernel. ``frames_reordered`` counts the
-      frames staged in another order than C order, and ``frames_padded``
-      the zero frames added.
+      strided view is read in runs, not gathered), restored to (batch, H,
+      W, 3) by the u8 -> f32 kernel, (H, W) the detector's ``input_size``
+      (256 x 256; ViTPose's 256 x 192); frames of another shape raise.
+      ``frames_reordered`` counts the frames staged in another order than
+      C order, and ``frames_padded`` the zero frames added.
     - ``reload()`` loads a newer epoch of ``parameter_dir`` into a NEW
       model built off to the side and publishes it with one assignment;
       ``predict`` reads the model once per call, so one response never
@@ -299,8 +320,8 @@ class End2EndServer:
                  quantize: Optional[str] = None, device=None, mesh=None):
         """``variables``: ``{"params", "batch_stats"}``, End2End's trees
         (numpy leaves, as a ``.save`` holds them): the JAX package's for
-        the hourglasses, HRNet's published names for ``variant="hrnet"``
-        (``utils/weights.py``).
+        the hourglasses, HRNet's and ViTPose's published names for
+        ``variant="hrnet"`` and ``"vitpose"`` (``utils/weights.py``).
         ``model_kw`` goes to ``End2End`` (``{"fused": True}`` serves the
         torch7 detector through K3). ``quantize="int8"`` serves the
         detector's body convs as dynamic int8 convolutions (the same
@@ -339,6 +360,8 @@ class End2EndServer:
         self._copied = (torch.cuda.Event() if self.device.type == "cuda"
                         else None)
         self._model = self._build(variables)
+        first = self._model if self._mesh is None else self._model[0]
+        self.input_size = tuple(first.input_size)
 
         def stat(a, dev=self.device):
             return torch.as_tensor(np.asarray(a, np.float32).reshape(-1),
@@ -355,17 +378,16 @@ class End2EndServer:
     def _build(self, variables):
         """A new eval-mode End2End holding ``variables``, on the device;
         under a mesh a tuple of them, one per device. A detector with an
-        eval plan (HRNet's ``build_eval_plan``) builds it here, so each
-        reload brings its own."""
+        eval plan (its class's ``eval_plan``: HRNet's, ViTPose's) builds it
+        here, so each reload brings its own."""
         from bilinear_tpu_torch.models.end2end import End2End
 
         def one(dev):
             model = End2End(variant=self.variant, dtype=self.dtype,
                             quantize=self.quantize, **self.model_kw)
             model = model.load_jax(variables).to(dev).eval()
-            plan = getattr(model.hourglass, "build_eval_plan", None)
-            if plan is not None:
-                plan()
+            if detector(self.variant).eval_plan:
+                model.hourglass.build_eval_plan()
             return model
 
         if self._mesh is None:
@@ -427,9 +449,11 @@ class End2EndServer:
 
     def predict(self, frames, centers=None, scales=None
                 ) -> Tuple[np.ndarray, np.ndarray]:
-        """frames (N, 256, 256, 3), u8 or f32 in [0, 1] -> (pose2d (N, 16, 2)
-        in frame pixels, pose3d (N, 16, 3) mm, root-centred). Defaults: the
-        full-frame box (centre 128, scale 256/200, webcam.py:13-25).
+        """frames (N, H, W, 3), u8 or f32 in [0, 1], (H, W) the detector's
+        ``input_size`` -> (pose2d (N, 16, 2) in frame pixels, pose3d (N, 16,
+        3) mm, root-centred). Frames of another shape raise. Defaults: the
+        full-frame box (``default_box``: centre 128, scale 256/200 at 256 x
+        256, webcam.py:13-25).
 
         u8 frames stay u8 until they reach the device and are divided by
         255 there (a quarter of the f32 bytes over the bus)."""
@@ -437,11 +461,11 @@ class End2EndServer:
             frames = np.asarray(frames)
             if frames.dtype != np.uint8:
                 frames = np.asarray(frames, np.float32)
+            check_frames(frames, self.input_size)
             n = frames.shape[0]
-            if centers is None:
-                centers = np.full((n, 2), 128.0, np.float32)
-            if scales is None:
-                scales = np.full((n,), 256.0 / 200.0, np.float32)
+            box = default_box(self.input_size, n)
+            centers = box[0] if centers is None else centers
+            scales = box[1] if scales is None else scales
             centers = np.asarray(centers, np.float32)
             scales = np.asarray(scales, np.float32)
             model = self._model  # ONE read: every chunk on the same weights
@@ -470,7 +494,7 @@ class End2EndServer:
         their own memory order (``memory_order``, negative-stride axes
         flipped) into the staging buffer and sent in one copy; on the
         device one kernel writes the model's C-contiguous f32 input from a
-        view that restores the (take, 256, 256, 3) layout (u8 divided by
+        view that restores the (take, H, W, 3) layout (u8 divided by
         255; a flipped axis adds a flip), and zero frames fill the batch,
         their centres 128 and scales 1. Returns (frames, centres, scales)
         on the device."""
@@ -543,6 +567,7 @@ class End2EndServer:
         for dt in dtypes:
             np_dt = FRAME_DTYPES[dt]
             for b in self.batch_sizes:
-                self.predict(np.zeros((b, 256, 256, 3), np_dt))
+                self.predict(np.zeros((b,) + self.input_size + (3,),
+                                      np_dt))
                 warmed.append((b, np.dtype(np_dt).name))
         return warmed

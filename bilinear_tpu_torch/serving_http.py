@@ -35,6 +35,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 
 from bilinear_tpu_torch.ops.lifting_int8 import GROUP
+from bilinear_tpu_torch.serving import check_frames, default_box
 from bilinear_tpu_torch.utils.profiling import span
 
 SPANS = ("batcher.dispatch",)
@@ -422,16 +423,17 @@ class _Handler(BaseHTTPRequestHandler):
     def _pose(self, body: bytes) -> None:
         if self.service.end2end is None:
             raise ModelNotLoaded("no end2end model is loaded")
+        # The served detector's (H, W): 256 x 256, ViTPose's 256 x 192.
+        size = self.service.end2end.input_size
         with _load_npz(body) as z:
             frames = z["frames"]
             n = frames.shape[0] if frames.ndim else 0
+            box = default_box(size, n)
             centers = (z["centers"].astype(np.float32) if "centers" in z
-                       else np.full((n, 2), 128.0, np.float32))
+                       else box[0])
             scales = (z["scales"].astype(np.float32) if "scales" in z
-                      else np.full((n,), 256.0 / 200.0, np.float32))
-        if frames.ndim != 4 or frames.shape[1:] != (256, 256, 3):
-            raise ValueError(
-                f"frames must be (N, 256, 256, 3), got {frames.shape}")
+                      else box[1])
+        check_frames(frames, size)
         # Validate every array BEFORE submit(): a malformed request inside
         # the batcher would fail the whole coalesced batch.
         if centers.shape != (n, 2):

@@ -8,8 +8,8 @@
 - ``span(name)``: one of the program's spans, a ``record_function`` range
   while a ``torch.profiler`` session records and a shared no-op context
   otherwise. Each module keeps its span names in a tuple: ``SPANS`` of
-  ``serving.py``, ``serving_http.py``, ``ops/resmodule.py`` and
-  ``models/hrnet.py``,
+  ``serving.py``, ``serving_http.py``, ``ops/resmodule.py``,
+  ``models/hrnet.py`` and ``models/vitpose.py``,
   ``STEP_RANGES`` of ``train/hourglass.py``.
 - ``cuda_time_ms(fn)``: milliseconds per call by CUDA events, after a
   warm-up; JAX's ``measure_fn`` (host fetches around a jitted loop on a

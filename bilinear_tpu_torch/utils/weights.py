@@ -583,7 +583,10 @@ def hrnet_param_paths(cfg: Mapping[str, int]):
 
 
 def _walk(tree: Mapping[str, Any], path: tuple = ()):
-    """(path, node) of every conv (a ``kernel``) and BN (a ``scale``) node."""
+    """(path, node) of every conv (a ``kernel``) and BN (a ``scale``) node;
+    an array that is a leaf of its own (ViTPose's ``pos_embed``) is none."""
+    if not isinstance(tree, Mapping):
+        return
     if "kernel" in tree or "scale" in tree:
         yield path, tree
         return
@@ -642,6 +645,123 @@ def hrnet_to_jax(state_dict: Mapping[str, Any]):
     return params, stats
 
 
+# ---------------------------------------------------------------------------
+# ViTPose (models/vitpose.py), which JAX does not have. Its ``.save`` tree
+# keeps the ``{"params", "batch_stats"}`` form under the published module
+# names, one tree level per dotted component (``backbone.blocks.3.attn.qkv``
+# is params["backbone"]["blocks"]["3"]["attn"]["qkv"]): a Linear is
+# ``{kernel (in, out), bias}``, a conv ``{kernel (kh, kw, in, out), bias}``,
+# a deconvolution (under ``deconv_layers``) ``{kernel (kh, kw, in, out)}``
+# of ConvTranspose2d's (in, out, kh, kw) weight, a LayerNorm ``{scale,
+# bias}``, a BN ``{scale, bias}`` with ``{mean, var, count}`` in the
+# statistics, and ``pos_embed`` the array itself.
+# ---------------------------------------------------------------------------
+
+DECONV_W = "deconv_w"  # ConvTranspose2d (in, out, kh, kw), (kh, kw, in, out)
+
+
+def vitpose_config_of_jax(params: Mapping[str, Any]) -> Dict[str, int]:
+    """embed_dim, depth, tokens and n_joints of a ViTPose tree."""
+    pos = np.shape(params["backbone"]["pos_embed"])
+    return dict(embed_dim=int(pos[2]),
+                depth=len(params["backbone"]["blocks"]),
+                tokens=int(pos[1]) - 1, n_joints=int(np.shape(
+                    params["keypoint_head"]["final_layer"]["kernel"])[3]))
+
+
+def vitpose_config_of_state_dict(sd: Mapping[str, Any]) -> Dict[str, int]:
+    """The same, of a ViTPose state_dict."""
+    pos = tuple(sd["backbone.pos_embed"].shape)
+    depth = len({k.split(".")[2] for k in sd
+                 if k.startswith("backbone.blocks.")})
+    return dict(embed_dim=int(pos[2]), depth=depth, tokens=int(pos[1]) - 1,
+                n_joints=int(sd["keypoint_head.final_layer.weight"].shape[0]))
+
+
+def vitpose_param_paths(cfg: Mapping[str, int]):
+    """(state_dict key, tree path, kind) of every trained parameter of
+    ViTPose, as ``torch7_param_paths``, in its registration order; ``cfg``
+    is ``vitpose_config_of_*``'s (the shapes do not depend on it)."""
+    def module(prefix: str, weight_kind: str, bias: bool = True):
+        path = tuple(prefix.split("."))
+        yield prefix + ".weight", path + (
+            "scale" if weight_kind == "plain" else "kernel",), weight_kind
+        if bias:
+            yield prefix + ".bias", path + ("bias",), "plain"
+
+    yield "backbone.pos_embed", ("backbone", "pos_embed"), "plain"
+    yield from module("backbone.patch_embed.proj", "conv_w")
+    for i in range(cfg["depth"]):
+        p = f"backbone.blocks.{i}."
+        for name, kind in (("norm1", "plain"), ("attn.qkv", DENSE_W),
+                           ("attn.proj", DENSE_W), ("norm2", "plain"),
+                           ("mlp.fc1", DENSE_W), ("mlp.fc2", DENSE_W)):
+            yield from module(p + name, kind)
+    yield from module("backbone.last_norm", "plain")
+    for k in (0, 3):
+        p = f"keypoint_head.deconv_layers.{k}"
+        yield from module(p, DECONV_W, bias=False)
+        yield from module(f"keypoint_head.deconv_layers.{k + 1}", "plain")
+    yield from module("keypoint_head.final_layer", "conv_w")
+
+
+def vitpose_from_jax(params: Mapping[str, Any],
+                     batch_stats: Mapping[str, Any]
+                     ) -> Dict[str, torch.Tensor]:
+    """A ViTPose ``{params, batch_stats}`` tree (numpy leaves) -> the port's
+    ViTPose ``state_dict``."""
+    sd: Dict[str, torch.Tensor] = {
+        "backbone.pos_embed": _tensor(params["backbone"]["pos_embed"])}
+    for path, node in _walk(params):
+        prefix = ".".join(path)
+        if "scale" in node:
+            sd[prefix + ".weight"] = _tensor(node["scale"])
+            sd[prefix + ".bias"] = _tensor(node["bias"])
+            if "deconv_layers" not in path:  # a LayerNorm
+                continue
+            st = get_leaf(batch_stats, path)
+            sd[prefix + ".running_mean"] = _tensor(st["mean"])
+            sd[prefix + ".running_var"] = _tensor(st["var"])
+            sd[prefix + ".num_batches_tracked"] = torch.tensor(
+                int(np.asarray(st["count"])), dtype=torch.int64)
+            continue
+        kernel = np.asarray(node["kernel"])
+        kind = DENSE_W if kernel.ndim == 2 else (
+            DECONV_W if "deconv_layers" in path else "conv_w")
+        sd[prefix + ".weight"] = leaf_from_jax(kernel, kind)
+        if "bias" in node:
+            sd[prefix + ".bias"] = _tensor(node["bias"])
+    return sd
+
+
+def vitpose_to_jax(state_dict: Mapping[str, Any]):
+    """Port ViTPose ``state_dict`` -> ``(params, batch_stats)`` numpy
+    trees; exact inverse of ``vitpose_from_jax`` (``count`` comes back
+    int32)."""
+    sd = state_dict
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for key, t in sd.items():
+        if key == "backbone.pos_embed":
+            put_leaf(params, ("backbone", "pos_embed"), _numpy(t))
+            continue
+        prefix, name = key.rsplit(".", 1)
+        path = tuple(prefix.split("."))
+        if name == "weight" and t.dim() == 1:  # a BN's or a LayerNorm's
+            put_leaf(params, path + ("scale",), _numpy(t))
+        elif name == "num_batches_tracked":
+            put_leaf(stats, path + ("count",), _numpy(t).astype(np.int32))
+        elif name.startswith("running_"):
+            put_leaf(stats, path + (name[len("running_"):],), _numpy(t))
+        elif name == "weight":
+            kind = DENSE_W if t.dim() == 2 else (
+                DECONV_W if "deconv_layers" in path else "conv_w")
+            put_leaf(params, path + ("kernel",), leaf_to_jax(t, kind))
+        else:
+            put_leaf(params, path + ("bias",), _numpy(t))
+    return params, stats
+
+
 class HourglassConverters(NamedTuple):
     """One model's converters between the two packages (a detector
     variant's, or End2End's: ``end2end_converters``)."""
@@ -665,20 +785,25 @@ HOURGLASS = {
     "hrnet": HourglassConverters(
         hrnet_from_jax, hrnet_to_jax, hrnet_config_of_jax,
         hrnet_config_of_state_dict, hrnet_param_paths),
+    "vitpose": HourglassConverters(
+        vitpose_from_jax, vitpose_to_jax, vitpose_config_of_jax,
+        vitpose_config_of_state_dict, vitpose_param_paths),
 }
 
 
 def detector_variant_of_jax(params: Mapping[str, Any]) -> str:
-    """'torch7', 'preact' or 'hrnet': which detector a parameter tree
-    holds."""
+    """'torch7', 'preact', 'hrnet' or 'vitpose': which detector a parameter
+    tree holds."""
     if "htmap_0" in params:
         return "torch7"
     if "heatmap_0" in params:
         return "preact"
     if "final_layer" in params:
         return "hrnet"
-    raise ValueError("the tree is no detector's (no htmap_0, heatmap_0 or "
-                     "final_layer)")
+    if "backbone" in params:
+        return "vitpose"
+    raise ValueError("the tree is no detector's (no htmap_0, heatmap_0, "
+                     "final_layer or backbone)")
 
 
 # ---------------------------------------------------------------------------
@@ -693,6 +818,8 @@ def leaf_to_jax(t, kind: str) -> np.ndarray:
     it) in the JAX layout of its ``kind``."""
     if kind == "conv_w":
         return conv_to_jax(t)
+    if kind == DECONV_W:
+        return _numpy(t).transpose(2, 3, 0, 1).copy()
     if kind == DENSE_W:
         return _numpy(t).T.copy()
     return _numpy(t)
@@ -703,6 +830,8 @@ def leaf_from_jax(leaf, kind: str) -> torch.Tensor:
     as ``conv_from_jax`` keeps its leaf's type)."""
     if kind == "conv_w":
         return conv_from_jax(leaf)
+    if kind == DECONV_W:
+        return _tensor(np.asarray(leaf).transpose(2, 3, 0, 1))
     a = np.asarray(leaf)
     a = a if a.dtype == np.float64 else a.astype(np.float32)
     return _tensor(a.T if kind == DENSE_W else a)

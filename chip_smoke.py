@@ -42,16 +42,19 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    static) at n = 256 and 65536 by CUDA events beside the bound, the plain
    version and K2 static, with K5's launches counted; then K5 by a profiler
    trace at both n: one device kernel a call.
-   3d. K8, HRNet's conv epilogue (ops/conv_epilogue.py), against its plain
+   3d. K8, the conv epilogue (ops/conv_epilogue.py), against its plain
    version at HRNet-W48's served epilogues (batch 128: the branches'
    BasicBlock sums at 48x64..384x8, exchange rows with up- and
    down-sampled terms, the stem, a Bottleneck's downsample, the f32 head)
-   in bf16 and f32, one launch a call; a planted fault (a term read at the
-   wrong resolution step) must be caught; 262 launches in one served
-   128-frame HRNet chunk; then its times at a BasicBlock's (128, 48, 64,
-   64) and exchange row 0 of stage 4 beside its bound (bytes), its plain
-   version and the wrapper's host time (``phase3d_alone()`` runs phases
-   1, 2 and 3d alone).
+   and ViTPose-H's (its head's two BN + ReLU at 256 x 32 x 24 and 256 x 64
+   x 48, and the f32 head at 16 x 64 x 48: sides that are no powers of
+   two) in bf16 and f32, one launch a call; a planted fault (a term read at
+   the wrong resolution step) must be caught; 262 launches in one served
+   128-frame HRNet chunk and 3 in one served 128-frame ViTPose-H chunk;
+   then its times at a BasicBlock's (128, 48, 64, 64) and exchange row 0
+   of stage 4 beside its bound (bytes), its plain version and the
+   wrapper's host time (``phase3d_alone()`` runs phases 1, 2 and 3d
+   alone).
 4. The lifting slice: a synthetic H36M dataset and an epoch-1 checkpoint
    written by the port; for each serving mode the daemon of cli/serve.py
    answers /v1/lift requests (JSON and .npy, concurrent ones coalesced)
@@ -7049,23 +7052,29 @@ SOURCES = {
 
 # ------------------------------------------------------------ phase 3d
 
-# HRNet-W48's epilogues (K8) at its served batch of 128: name -> (channels,
-# size, terms, ReLU). A term is ("bn", m), a raw conv output at 1/2^m of
-# the size with its BN table, or ("x", m), an activation; "head" is the
-# 1x1 head's output with scale 1 and its bias, written in f32.
+# HRNet-W48's and ViTPose-H's epilogues (K8) at their served batch of 128:
+# name -> (channels, (height, width), terms, ReLU). A term is ("bn", m), a
+# raw conv output at 1/2^m of the size with its BN table, or ("x", m), an
+# activation; "head" is the 1x1 head's output with scale 1 and its bias,
+# written in f32. ViTPose's sides (24, 48) are the first that are no
+# powers of two for K8's multiply-shift index division.
 K8_BATCH = 128
 K8_SHAPES = {
-    "basic_block_48x64": (48, 64, [("bn", 0), ("x", 0)], True),
-    "exchange_row0_stage4": (48, 64, [("x", 0), ("bn", 1), ("bn", 2),
-                                      ("bn", 3)], True),
-    "basic_block_96x32": (96, 32, [("bn", 0), ("x", 0)], True),
-    "basic_block_192x16": (192, 16, [("bn", 0), ("x", 0)], True),
-    "basic_block_384x8": (384, 8, [("bn", 0), ("x", 0)], True),
-    "exchange_row3_stage4": (384, 8, [("bn", 0), ("bn", 0), ("bn", 0),
-                                      ("x", 0)], True),
-    "stem_64x128": (64, 128, [("bn", 0)], True),
-    "bottleneck_downsample_256x64": (256, 64, [("bn", 0), ("bn", 0)], True),
-    "head_16x64": (16, 64, [("head", 0)], False),
+    "basic_block_48x64": (48, (64, 64), [("bn", 0), ("x", 0)], True),
+    "exchange_row0_stage4": (48, (64, 64), [("x", 0), ("bn", 1), ("bn", 2),
+                                            ("bn", 3)], True),
+    "basic_block_96x32": (96, (32, 32), [("bn", 0), ("x", 0)], True),
+    "basic_block_192x16": (192, (16, 16), [("bn", 0), ("x", 0)], True),
+    "basic_block_384x8": (384, (8, 8), [("bn", 0), ("x", 0)], True),
+    "exchange_row3_stage4": (384, (8, 8), [("bn", 0), ("bn", 0), ("bn", 0),
+                                           ("x", 0)], True),
+    "stem_64x128": (64, (128, 128), [("bn", 0)], True),
+    "bottleneck_downsample_256x64": (256, (64, 64), [("bn", 0), ("bn", 0)],
+                                     True),
+    "head_16x64": (16, (64, 64), [("head", 0)], False),
+    "vit_deconv_256x32x24": (256, (32, 24), [("bn", 0)], True),
+    "vit_deconv_256x64x48": (256, (64, 48), [("bn", 0)], True),
+    "head_16x64x48": (16, (64, 48), [("head", 0)], False),
 }
 K8_TIME_SHAPES = ("basic_block_48x64", "exchange_row0_stage4")
 K8_SOURCE = ("bilinear_tpu_torch/csrc/conv_epilogue.cu",
@@ -7079,12 +7088,12 @@ def k8_case(name: str, dtype, seed: int):
     BN tables with scales U(0.2, 2) and shifts N(0, 0.5)."""
     import torch
 
-    c, size, kinds, relu = K8_SHAPES[name]
+    c, (h, w), kinds, relu = K8_SHAPES[name]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     terms, nbytes = [], 0
     for kind, m in kinds:
-        s = size >> m
-        x = torch.randn(K8_BATCH, c, s, s, device="cuda", generator=gen)
+        x = torch.randn(K8_BATCH, c, h >> m, w >> m, device="cuda",
+                        generator=gen)
         x = x.to(dtype).contiguous(memory_format=torch.channels_last)
         table = None
         if kind == "bn":
@@ -7101,7 +7110,7 @@ def k8_case(name: str, dtype, seed: int):
     out_dtype = torch.float32 if kinds[0][0] == "head" else None
     out_size = (4 if out_dtype is not None else
                 torch.empty((), dtype=dtype).element_size())
-    nbytes += K8_BATCH * c * size * size * out_size
+    nbytes += K8_BATCH * c * h * w * out_size
     return terms, relu, out_dtype, nbytes
 
 
@@ -7153,7 +7162,8 @@ def _k8_gate(name: str, terms, got, want, dtype) -> float:
 def check_k8() -> tuple:
     """K8 at every shape of ``K8_SHAPES`` in bf16 and f32 against its plain
     version, one launch a call; a planted fault (a term read at the wrong
-    resolution step) must be caught. Returns (max abs err, launches)."""
+    resolution step) must be caught. Returns (max abs err,
+    {"phase3d_checks": launches})."""
     import torch
     from bilinear_tpu_torch.ops import conv_epilogue as ce
 
@@ -7189,37 +7199,48 @@ def check_k8() -> tuple:
             "caught")
     else:
         raise AssertionError("K8: the planted fault passed the gate")
-    return err, launches
+    return err, {"phase3d_checks": launches}
 
 
-def k8_served_chunk() -> int:
-    """One 128-frame chunk of a full-width HRNet (seeded init) through
-    End2EndServer: K8 launches a chunk (262 expected) and finite answers."""
+# K8 launches in one served chunk of each detector that runs it.
+K8_SERVED = {"hrnet": 262, "vitpose": 3}
+
+
+def k8_served_chunk(variant: str) -> int:
+    """One 128-frame chunk of a full-size ``variant`` (seeded init) through
+    End2EndServer, on frames of its own input size: K8 launches a chunk
+    (``K8_SERVED``) and finite answers. The counter is zeroed just before
+    the call."""
     import numpy as np
     import torch
+    from bilinear_tpu_torch.models.detectors import detector
     from bilinear_tpu_torch.models.end2end import End2End
     from bilinear_tpu_torch.ops import conv_epilogue as ce
     from bilinear_tpu_torch.serving import End2EndServer
     from bilinear_tpu_torch.utils import weights as wt
 
-    model = End2End(variant="hrnet",
+    model = End2End(variant=variant,
                     generator=torch.Generator().manual_seed(SEED))
-    params, stats = wt.end2end_to_jax(model.state_dict(), "hrnet")
+    params, stats = wt.end2end_to_jax(model.state_dict(), variant)
+    del model
     server = End2EndServer(
         {"params": params, "batch_stats": stats}, np.zeros(32), np.ones(32),
-        np.zeros(48), np.ones(48), variant="hrnet", dtype=torch.bfloat16,
+        np.zeros(48), np.ones(48), variant=variant, dtype=torch.bfloat16,
         batch_sizes=(K8_BATCH,), device="cuda")
     frames = np.random.default_rng(SEED).integers(
-        0, 256, (K8_BATCH, 256, 256, 3), np.uint8)
-    before = ce.LAUNCHES
+        0, 256, (K8_BATCH, *detector(variant).input_size, 3), np.uint8)
+    ce.LAUNCHES = 0
     pose2d, pose3d = server.predict(frames)
-    n = ce.LAUNCHES - before
-    if n != 262 or not (np.isfinite(pose2d).all() and
-                        np.isfinite(pose3d).all()):
-        raise AssertionError(f"K8: {n} launches in a served HRNet chunk "
-                             f"(262 expected), finite answers: "
-                             f"{np.isfinite(pose2d).all()}")
-    log(f"  K8: {n} launches in one served 128-frame HRNet-W48 chunk")
+    n = ce.LAUNCHES
+    if n != K8_SERVED[variant] or not (np.isfinite(pose2d).all() and
+                                       np.isfinite(pose3d).all()):
+        raise AssertionError(f"K8: {n} launches in a served {variant} chunk "
+                             f"({K8_SERVED[variant]} expected), finite "
+                             f"answers: {np.isfinite(pose2d).all()}")
+    log(f"  K8: {n} launches in one served 128-frame {variant} chunk of "
+        f"{frames.shape[1]} x {frames.shape[2]} frames")
+    del server
+    torch.cuda.empty_cache()
     return n
 
 
@@ -7249,9 +7270,9 @@ def time_k8() -> dict:
             kernel()
         host_us = (time.perf_counter() - t0) / 200 * 1e6
         torch.cuda.synchronize()
+        c, (h, w) = K8_SHAPES[name][:2]
         rows[name] = {
-            "shape_bchw": [K8_BATCH] + list(K8_SHAPES[name][:1]) + [
-                K8_SHAPES[name][1]] * 2,
+            "shape_bchw": [K8_BATCH, c, h, w],
             "terms": len(terms), "ms": ms, "plain_ms": cuda_ms(plain, 20),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "bytes": nbytes,
@@ -7272,9 +7293,9 @@ def drive_k8() -> tuple:
     """Phase 3d: K8's checks, a served chunk's launches, its times.
     Returns (max abs err, launches by path, time rows)."""
     err, launches = check_k8()
-    served = k8_served_chunk()
-    return err, {"phase3d_checks": launches,
-                 "phase3d_served_hrnet_chunk": served}, time_k8()
+    launches.update({f"phase3d_served_{v}_chunk": k8_served_chunk(v)
+                     for v in K8_SERVED})
+    return err, launches, time_k8()
 
 
 def k8_entry(err: float, launches: dict, rows: dict) -> dict:
@@ -7356,8 +7377,8 @@ def run() -> dict:
     probe_errs, probe_rows, probe_launches = drive_probe(params, stats, card)
     for name, e in probe_errs.items():
         errs[name] = max(errs.get(name, 0.0), e)
-    log("phase 3d: K8, HRNet's conv epilogue, vs its plain version; a "
-        "served HRNet chunk; its times")
+    log("phase 3d: K8, the conv epilogue, vs its plain version; a served "
+        "HRNet chunk and a served ViTPose chunk; its times")
     k8 = drive_k8()
 
     # phase 4: the slice

@@ -22,10 +22,12 @@ from torch_port_fixtures import one_torch_thread  # noqa: F401
 # (fused_blocks, int8_convs, trainable, spatial_sharding) of each variant.
 SUPPORT = {"torch7": (True, True, True, True),
            "preact": (False, True, True, True),
-           "hrnet": (False, False, False, False)}
+           "hrnet": (False, False, False, False),
+           "vitpose": (False, False, False, False)}
 SIZES = {"torch7": dict(n_stacks=1, features=16, depth=1),
          "preact": dict(n_stacks=1, features=16, depth=1),
-         "hrnet": dict(features=8)}
+         "hrnet": dict(features=8),
+         "vitpose": dict(depth=1)}
 
 
 def _serve_fused(variant, monkeypatch) -> bool:

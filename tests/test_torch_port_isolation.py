@@ -71,6 +71,7 @@ def test_port_modules_are_listed():
                      "bilinear_tpu_torch.cli.sh_preprocess",
                      "bilinear_tpu_torch.models.end2end",
                      "bilinear_tpu_torch.models.hrnet",
+                     "bilinear_tpu_torch.models.vitpose",
                      "bilinear_tpu_torch.train.end2end",
                      "bilinear_tpu_torch.cli.train_end2end",
                      "bilinear_tpu_torch.cli.valid_end2end",
